@@ -1,0 +1,88 @@
+"""The port's CUDA kernels on the card, each against its plain PyTorch
+version on the same CUDA tensors, and the public round trip against the
+numpy wire authority.  Exact equality throughout: the codec is lossless
+integer arithmetic, so the tolerance is zero.
+
+Needs an NVIDIA Hopper card and nvcc; run there with
+`python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hsrans_tpu.ops.tpx import TpxParams, _mega_layout, tpx_encode, tpx_encode_adaptive
+from hsrans_tpu_torch.kernels import tpx_decode as dec
+from hsrans_tpu_torch.kernels import tpx_encode as enc
+from tools.gen_inputs import text_like
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("bits", (10, 12, 13, 15))
+@pytest.mark.parametrize("rows,steps,n_tiles,partial", [(40, 8, 3, 5000), (1024, 32, 4, 0)])
+def test_kernels_equal_plain(cuda, bits, rows, steps, n_tiles, partial):
+    """Encode, concat and decode kernels == their plain versions; rows=40
+    leaves idle warps in the last block, `partial` cuts the data short."""
+    span = rows * steps * 128 * n_tiles
+    data = text_like(np.random.default_rng(bits), span - partial)
+    packed, freqs, tabs, n_valid = enc.mega_operands(data, 0, n_tiles, data.size, bits=bits, rows=rows, steps=steps)
+    ops = [torch.from_numpy(a).to(cuda) for a in (packed, tabs["fc"], tabs["m"], tabs["l"])]
+    got = enc.encode_mega_cuda(*ops, bits=bits, steps=steps, vlen=n_valid)
+    want = enc.encode_mega_plain(*ops, bits=bits, steps=steps, vlen=n_valid)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    win, cnt, states = got
+    w_slots = enc.wire_w_slots(int(cnt.sum(dim=2).max()))
+    stream = enc.concat_cuda(win, cnt, w_slots)
+    assert torch.equal(stream, enc.concat_plain(win, cnt, w_slots))
+
+    sym, fc = dec.dec_tables(freqs, bits)
+    dops = (stream, states, torch.from_numpy(sym).to(cuda), torch.from_numpy(fc).to(cuda))
+    out = dec.decode_mega_cuda(*dops, bits=bits, steps=steps, vlen=n_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dec.decode_mega_plain(*dops, bits=bits, steps=steps, vlen=n_valid))
+    assert out.cpu().numpy().reshape(-1).view(np.uint8)[:n_valid].tobytes() == data.tobytes()
+
+
+@pytest.mark.parametrize("bits", (10, 12, 15))
+def test_round_trip_equals_authority(cuda, bits):
+    p = TpxParams(bits=bits, rows=136, lanes=128, steps=8, tiles=2)
+    data = text_like(np.random.default_rng(5), 2 * p.mega_bytes + 777)
+    assert len(_mega_layout(data.size, p)) == 3
+    blob = enc.tpx_encode_torch(data, p=p, device="cuda")
+    assert blob == tpx_encode(data, p=p)
+    assert dec.tpx_decode_torch(blob, device="cuda") == data.tobytes()
+
+
+def test_main_path_64mib_equals_authority(cuda):
+    """chip_smoke.py's main path (64 MiB of enwik8-like text, seed 8, B=12,
+    four megas at the full 1024-row geometry) held directly against the
+    numpy authority, which chip_smoke.py itself may not import."""
+    data = text_like(np.random.default_rng(8), 64 << 20)
+    blob = enc.tpx_encode_torch(data, 12, device="cuda")
+    assert blob == tpx_encode(data, 12)
+    assert dec.tpx_decode_torch(blob, device="cuda") == data.tobytes()
+
+
+def test_adaptive_and_malformed(cuda):
+    from pathlib import Path
+
+    arr = np.fromfile(Path(__file__).parent / "corpus" / "corpus.bin", np.uint8)[: 1 << 20]
+    blob = enc.tpx_encode_adaptive_torch(arr, 12, device="cuda")
+    assert blob == tpx_encode_adaptive(arr, 12)
+    assert dec.tpx_decode_torch(blob, device="cuda") == arr.tobytes()
+    rng = np.random.default_rng(3)
+    for _ in range(20):
+        b = bytearray(blob)
+        b[int(rng.integers(0, len(b)))] ^= int(rng.integers(1, 256))
+        out = dec.tpx_decode_torch(bytes(b), device="cuda")
+        assert out is None or isinstance(out, bytes)
+    torch.cuda.synchronize()

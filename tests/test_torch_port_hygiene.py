@@ -1,0 +1,153 @@
+"""The PyTorch port stands apart from JAX and never hides the device: it
+imports and runs with jax and the JAX package unimportable, no source of it
+imports either, and `device="cuda"` without a card raises instead of running
+elsewhere."""
+
+import hashlib
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "hsrans_tpu_torch"
+
+
+def test_import_and_cpu_round_trip_without_jax():
+    """With jax and every module of `hsrans_tpu` unimportable, the port
+    imports and round-trips (plain v2 and adaptive v3) on the CPU, and its
+    blobs equal the JAX package's numpy encoders."""
+    from hsrans_tpu.ops.tpx import tpx_encode, tpx_encode_adaptive
+
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['hsrans_tpu'] = None\n"
+        "import hashlib\n"
+        "import numpy as np\n"
+        "import hsrans_tpu_torch as h\n"
+        "data = np.random.default_rng(0).integers(0, 40, 20_000).astype(np.uint8)\n"
+        "for blob in (h.tpx_encode_torch(data, device='cpu'), h.tpx_encode_adaptive_torch(data, device='cpu')):\n"
+        "    assert h.tpx_decode_torch(blob, device='cpu') == data.tobytes()\n"
+        "    print(hashlib.sha256(blob).hexdigest())\n"
+        "assert not any(m.split('.')[0] in ('jax', 'hsrans_tpu') for m, v in sys.modules.items() if v is not None)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    data = np.random.default_rng(0).integers(0, 40, 20_000).astype(np.uint8)
+    want = [hashlib.sha256(f(data)).hexdigest() for f in (tpx_encode, tpx_encode_adaptive)]
+    assert res.stdout.split() == want
+
+
+@pytest.mark.parametrize("package", ("jax", "hsrans_tpu"))
+def test_no_port_source_imports_jax(package):
+    """Neither the port nor chip_smoke.py names jax or the JAX package in an
+    import (the `hsrans_tpu_torch` package itself is the port)."""
+    files = [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
+    assert len(files) >= 10
+    for f in files:
+        for line in f.read_text().splitlines():
+            words = line.split()
+            if words[:1] == ["import"]:
+                assert not any(w.strip(",").split(".")[0] == package for w in words[1:]), (f, line)
+            if words[:1] == ["from"] and len(words) > 1:
+                assert words[1].split(".")[0] != package, (f, line)
+
+
+def test_cuda_without_a_card_raises():
+    from hsrans_tpu_torch import tpx_decode_torch, tpx_encode_torch
+    from hsrans_tpu_torch.runtime.device import resolve
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card contract cannot be shown here")
+    for fn, arg in ((tpx_encode_torch, b"abc"), (tpx_decode_torch, b"HSRTPX02")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(arg, device="cuda")
+    with pytest.raises(ValueError):
+        resolve("mps")
+    assert resolve("cpu") == torch.device("cpu")
+
+
+def test_wrappers_refuse_cpu_tensors():
+    """A wrapper launches its kernel or raises: CPU operands are refused,
+    not routed to the plain version."""
+    from hsrans_tpu_torch.kernels import tpx_decode as dec
+    from hsrans_tpu_torch.kernels import tpx_encode as enc
+
+    z = torch.zeros((1, 8, 256), dtype=torch.int32)
+    t = torch.zeros((1, 256), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        dec.decode_mega_cuda(z, torch.zeros((8, 128), dtype=torch.int32), torch.zeros((1, 4096), dtype=torch.uint8), t, bits=12, steps=8, vlen=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        enc.encode_mega_cuda(z, t, t, t, bits=12, steps=8, vlen=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        enc.concat_cuda(torch.zeros((1, 8, 8, 128), dtype=torch.int32), torch.zeros((1, 8, 8), dtype=torch.int32), 128)
+
+
+def test_dispatch_takes_plain_version_for_cpu_operands():
+    """The dispatchers pick the plain version for CPU operands."""
+    from hsrans_tpu_torch.kernels import tpx_encode as enc
+
+    win = torch.zeros((1, 4, 2, 128), dtype=torch.int32)
+    win[0, 0, :, :3] = torch.tensor([1, 2, 3])
+    cnt = torch.zeros((1, 2, 4), dtype=torch.int32)
+    cnt[0, :, 0] = 3
+    out = enc.concat(win, cnt, 128)
+    assert out.shape == (1, 2, 128)
+    assert out[0, 0, :2].tolist() == [1 | 2 << 16, 3] and not out[0, 0, 2:].any()
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line where there is
+    no card, and alone in a directory without the rest of the repo."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"), (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_bytes((REPO / "chip_smoke.py").read_bytes())
+        res = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout
+
+
+def test_entry_points_take_bytes_or_arrays():
+    """Public entry points take bytes or a uint8 array alike."""
+    from hsrans_tpu_torch import tpx_decode_torch, tpx_encode_torch
+
+    data = np.random.default_rng(4).integers(0, 9, 3000).astype(np.uint8)
+    assert tpx_encode_torch(data, device="cpu") == tpx_encode_torch(data.tobytes(), device="cpu")
+    assert tpx_decode_torch(np.frombuffer(tpx_encode_torch(data, device="cpu"), np.uint8), device="cpu") == data.tobytes()
+
+
+def test_layer_split_leaves_the_result_alone():
+    """`layers=` adds each layer's seconds and changes no byte."""
+    from hsrans_tpu_torch import tpx_decode_torch, tpx_encode_torch
+
+    data = np.random.default_rng(6).integers(0, 30, 50_000).astype(np.uint8)
+    enc, dec = {}, {}
+    blob = tpx_encode_torch(data, device="cpu", layers=enc)
+    assert blob == tpx_encode_torch(data, device="cpu")
+    assert tpx_decode_torch(blob, device="cpu", layers=dec) == data.tobytes()
+    assert set(enc) == {"host_hist_tables", "h2d", "kernel_encode", "kernel_concat", "d2h", "host_mux"}
+    assert set(dec) == {"host_parse", "host_tables", "h2d", "kernel", "d2h", "host_assemble"}
+    assert all(v >= 0 for v in (*enc.values(), *dec.values()))
+
+
+def test_build_dir_override_and_read_only_fallback(tmp_path, monkeypatch):
+    """The kernel library goes to $HSRANS_TPU_TORCH_BUILD_DIR when set, to
+    the checkout's build/ when writable, and to a per-user cache when the
+    package sits in a read-only tree."""
+    from hsrans_tpu_torch.runtime import build
+
+    monkeypatch.delenv("HSRANS_TPU_TORCH_BUILD_DIR", raising=False)
+    assert build.build_dir() == REPO / "build" / "hsrans_tpu_torch"
+    monkeypatch.setenv("HSRANS_TPU_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    assert build.library_path().parent == tmp_path / "b"
+    monkeypatch.delenv("HSRANS_TPU_TORCH_BUILD_DIR")
+    site = tmp_path / "site"
+    monkeypatch.setattr(build, "_PKG", site / "hsrans_tpu_torch")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    monkeypatch.setattr(build.os, "access", lambda path, mode: Path(path) != site)
+    site.mkdir()
+    assert build.build_dir() == tmp_path / "home" / ".cache" / "hsrans_tpu_torch"

@@ -1,0 +1,136 @@
+"""tpx encode of the PyTorch port (CPU tier: the kernels' plain versions)
+against the JAX package's Pallas kernels in interpret mode and the numpy
+wire authority.  Exact equality: the codec is lossless, so the tolerance
+is zero."""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from hsrans_tpu.kernels import tpx_encode as jx
+from hsrans_tpu.ops.tpx import TpxParams, tpx_decode, tpx_encode, tpx_encode_adaptive
+from hsrans_tpu_torch.kernels import tpx_encode as pt
+from hsrans_tpu_torch.kernels.tpx_decode import tpx_decode_torch
+from tools.gen_inputs import text_like
+
+CORPUS = Path(__file__).parent / "corpus" / "corpus.bin"
+# the adversarial divisors of tests/test_tpx_encode_kernel.py
+DIVISORS = [1, 2, 3, 4, 5, 7, 8, 15, 16, 17, 255, 256, 257, 1023, 1024, 4095, 4096, 32767, 32768]
+
+
+def small(bits: int) -> TpxParams:
+    return TpxParams(bits=bits, rows=8, lanes=128, steps=8, tiles=2)
+
+
+def _case(name: str, bits: int) -> tuple[np.ndarray, TpxParams]:
+    """The geometries of tests/test_tpx_encode_kernel.py."""
+    p = small(bits)
+    rng = np.random.default_rng(11)
+    if name == "partial-tile":
+        return text_like(rng, 777), p
+    if name == "one-mega-exact":
+        return text_like(rng, p.mega_bytes), p
+    if name == "multi-mega":
+        return text_like(rng, 2 * p.mega_bytes + 333), p
+    if name == "empty":
+        return np.zeros(0, np.uint8), p
+    if name == "rle-heavy":
+        return np.concatenate([np.full(p.mega_bytes // 2, 7, np.uint8), np.arange(999).astype(np.uint8)]), p
+    assert name == "rows-136"  # rows that 128 does not divide
+    p = TpxParams(bits=bits, rows=136, lanes=128, steps=4, tiles=1)
+    return text_like(np.random.default_rng(33), p.mega_bytes), p
+
+
+@pytest.mark.parametrize("bits", (10, 12, 15))
+@pytest.mark.parametrize("name", ("partial-tile", "one-mega-exact", "multi-mega", "empty", "rle-heavy", "rows-136"))
+def test_encode_equals_pallas_and_authority(name, bits):
+    data, p = _case(name, bits)
+    got = pt.tpx_encode_torch(data, p=p, device="cpu")
+    assert got == tpx_encode(data, p=p)
+    assert got == jx.tpx_encode_tpu(data, p=p, interpret=True)
+    assert tpx_decode_torch(got, device="cpu") == data.tobytes()
+
+
+@pytest.mark.parametrize("bits", (10, 12, 15))
+def test_encode_mega_and_concat_plain_equal_pallas_kernels(bits):
+    """Phase A: windows, counts and final states equal the Pallas encode
+    kernel's (counts after _unpack_counts).  Phase B: the concat equals the
+    Pallas concat kernel on the same windows."""
+    p = small(bits)
+    n_tiles, rows, steps = p.tiles, p.rows, p.steps
+    data = text_like(np.random.default_rng(bits), p.mega_bytes - 1000)
+    packed, _, tabs, n_valid = pt.mega_operands(data, 0, n_tiles, data.size, bits=bits, rows=rows, steps=steps)
+
+    def chunks(tab):  # [T, 256] -> the Pallas kernel's (lo, hi) [T, 8, 128] operands
+        lo, hi = np.zeros((2, n_tiles, 8, 128), np.int32)
+        lo[:, 0], hi[:, 0] = tab[:, :128], tab[:, 128:]
+        return lo, hi
+
+    win_j, cntp_j, st_j = jx._encode_mega(
+        np.array([[n_valid]], np.int32), *chunks(tabs["fc"]), *chunks(tabs["m"]), *chunks(tabs["l"]), packed,
+        rows=rows, s4c=steps // 4, n_tiles=n_tiles, bits=bits, interpret=True,
+    )
+    cnt_j = jx._unpack_counts(cntp_j, s4c=steps // 4)
+    win, cnt, st = pt.encode_mega_plain(
+        *(torch.from_numpy(a) for a in (packed, tabs["fc"], tabs["m"], tabs["l"])), bits=bits, steps=steps, vlen=n_valid
+    )
+    assert np.array_equal(win.numpy(), np.asarray(win_j))
+    assert np.array_equal(cnt.numpy(), np.asarray(cnt_j)[:, :, :steps])
+    assert np.array_equal(st.numpy().view(np.uint32), np.asarray(st_j))
+
+    w_slots = pt.wire_w_slots(int(cnt.sum(dim=2).max()))
+    wcap = steps * 128 // 2
+    stream_j = np.asarray(
+        jx._concat_mega(np.array([[wcap // 128]], np.int32), win_j, cnt_j, rows=rows, rc=rows, steps=steps, wcap=wcap, n_tiles=n_tiles, interpret=True)
+    )
+    stream = pt.concat_plain(win, cnt, w_slots).numpy()
+    assert np.array_equal(stream, stream_j[:, :, :w_slots])
+    assert not stream_j[:, :, w_slots:].any()
+
+
+def test_copied_div_magic_equals_original():
+    freq = np.zeros(256, dtype=np.uint16)
+    freq[: len(DIVISORS)] = DIVISORS
+    for a, b in zip(pt.div_magic(freq), jx.div_magic(freq)):
+        assert np.array_equal(a, b)
+    # and the magic is exact for those divisors over u31 states
+    m, l = pt.div_magic(freq)
+    ns = np.concatenate([np.random.default_rng(0).integers(0, 1 << 31, 20_000), [0, 1, (1 << 31) - 1, 1 << 15, 1 << 16, 1 << 30]])
+    for i, d in enumerate(DIVISORS):
+        q = (ns.astype(object) * int(m[i])) >> (31 + int(l[i]))
+        assert np.array_equal(q.astype(np.int64), ns // d), d
+
+
+@pytest.mark.parametrize("bits", (10, 12, 13, 15))
+def test_copied_enc_tables_equal_original(bits):
+    from hsrans_tpu.models.histogram import make_hist
+
+    rng = np.random.default_rng(bits)
+    hists = [make_hist(text_like(rng, 30_000), bits), make_hist(np.arange(256, dtype=np.uint8).repeat(7), bits)]
+    freqs = np.stack([h.symbol_count for h in hists] + [np.zeros(256, np.uint16)])
+    freqs[2, : len(DIVISORS)] = [min(d, 1 << bits) for d in DIVISORS]
+    cumuls = np.stack([h.cumul for h in hists] + [np.zeros(256, np.uint16)])
+    a, b = pt.make_enc_tables_batch(freqs, cumuls, bits), jx.make_enc_tables_batch(freqs, cumuls, bits)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+
+
+def test_adaptive_encode_equals_authority():
+    arr = np.fromfile(CORPUS, np.uint8)[: 1 << 20]
+    got = pt.tpx_encode_adaptive_torch(arr, 12, device="cpu")
+    assert got == tpx_encode_adaptive(arr, 12)
+    assert tpx_decode(got) == arr.tobytes()
+
+
+def test_encode_rejects_bad_geometry():
+    with pytest.raises(ValueError):
+        pt.tpx_encode_torch(b"abc", p=TpxParams(bits=12, rows=8, lanes=64, steps=8, tiles=1), device="cpu")
+    with pytest.raises(ValueError):
+        pt.tpx_encode_torch(b"abc", p=TpxParams(bits=12, rows=8, lanes=128, steps=6, tiles=1), device="cpu")
+    with pytest.raises(ValueError):
+        pt.tpx_encode_torch(b"abc", bits=16, device="cpu")
+    with pytest.raises(ValueError):
+        pt.tpx_encode_adaptive_torch(b"abc", bits=9, device="cpu")
