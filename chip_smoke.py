@@ -5,13 +5,20 @@
 
 Builds the port's CUDA kernels from `hsrans_tpu_torch/csrc` with nvcc, holds
 each kernel against its plain PyTorch version on the same CUDA tensors
-(exact equality: a lossless integer codec has zero tolerance), drives the
-tpx round trip through the public entry points on 64 MiB of enwik8-like
-text at the full 1024-row geometry, checks other depths, the v3 adaptive
-wire and malformed blobs, and times the kernels and the round trip with
-CUDA events and the host clock.  Every blob the card writes must equal the
-port's CPU tier (the kernels' plain versions, which the CPU tests hold
-byte-equal to the JAX package's encoders) and decode back to its input.
+(exact equality: a lossless integer codec has zero tolerance), and drives
+the port's two paths through their public entry points:
+
+  * tpx: the round trip on 64 MiB of enwik8-like text at the full 1024-row
+    geometry, other depths, the v3 adaptive wire and malformed blobs;
+  * mt: decode of the C++ reference's mt wire on 64 MiB of x-ray
+    (`device_plan` blocks, B=12, n=64), other depths, n=32, the reference
+    planner's blocks, odd tails, single-symbol runs and malformed blobs;
+
+and times the kernels and the paths with CUDA events and the host clock.
+Every blob the card writes must equal the port's CPU tier (the kernels'
+plain versions, which the CPU tests hold byte-equal to the JAX package) and
+decode back to its input; every mt blob is made by the port's numpy copy of
+the mt encoder.
 The script loads neither jax nor any module of the JAX package
 (`hsrans_tpu`), and fails if one was loaded.  Every phase prints one JSON
 line; any failure raises and exits non-zero.  The last three lines are the
@@ -40,7 +47,18 @@ KERNELS = {
     "tpx_decode": ("hsrans_tpu_torch/csrc/tpx_decode.cu", "hsrans_tpu/kernels/tpx_decode.py:41"),
     "tpx_encode": ("hsrans_tpu_torch/csrc/tpx_encode.cu", "hsrans_tpu/kernels/tpx_encode.py:128"),
     "tpx_concat": ("hsrans_tpu_torch/csrc/tpx_encode.cu", "hsrans_tpu/kernels/tpx_encode.py:260"),
+    "mt_decode": (
+        "hsrans_tpu_torch/csrc/mt_decode.cu",
+        [
+            "hsrans_tpu/kernels/mt64_decode.py:127",
+            "hsrans_tpu/kernels/mt64_decode.py:680",
+            "hsrans_tpu/kernels/mt64_decode.py:1552",
+            "hsrans_tpu/kernels/mt32_quad.py:46",
+        ],
+    ),
 }
+# bench.py's device_plan caps of the mt x-ray rows, by depth
+MT_CAPS = {10: 16 << 10, 12: 24 << 10, 13: 16 << 10, 14: 24 << 10, 15: 32 << 10}
 
 
 def card() -> str:
@@ -136,6 +154,146 @@ def kernels_vs_plain(bits: int, data: np.ndarray, dev: torch.device) -> dict:
     return res
 
 
+def mt_kernel_vs_plain(name: str, blob: bytes, bits: int, n: int, dev: torch.device) -> dict:
+    """The mt kernel against its plain version on the same CUDA tensors of
+    one blob; times both."""
+    from hsrans_tpu_torch.kernels import mt_decode as mtd
+
+    length, stream, blocks, w_counts = mtd.index_blocks(blob, n)
+    ops = mtd.block_operands(length, stream, blocks, w_counts, bits, n)
+    args = mtd.device_operands(stream, *ops, n, dev)
+    kw = {"bits": bits, "n": n, "length": length}
+    got = mtd.decode_blocks_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    want = mtd.decode_blocks_plain(*args, **kw)
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"mt {name}: kernel differs from its plain version (max abs err {err})")
+    res = {
+        "case": name, "bits": bits, "n": n, "blocks": int(ops[0].shape[0]), "max_abs_err": err,
+        "max_groups": int(ops[0][:, 4].max()),
+        "ms": cuda_ms(lambda: mtd.decode_blocks_cuda(*args, **kw), 20, queue_ahead=True),
+        "ms_host_paced": cuda_ms(lambda: mtd.decode_blocks_cuda(*args, **kw), 20),
+        "plain_ms": cuda_ms(lambda: mtd.decode_blocks_plain(*args, **kw), 1),
+    }
+    emit("mt_kernels_vs_plain", **res)
+    return res
+
+
+def mt_phases(repo: Path, dev: torch.device) -> tuple[list[dict], int]:
+    """mt decode on the card: the kernel against its plain version per
+    routing class of the JAX dispatcher and at the 64 MiB main path's
+    launch, the main path, round trips, malformed blobs and times.  Returns
+    the kernel rows (the main path's first) and the main path's launch
+    count."""
+    from hsrans_tpu_torch import mt_decode_torch
+    from hsrans_tpu_torch.ops.mt import mt_encode_py
+    from hsrans_tpu_torch.ops.planner import plan_blocks_mt
+    from hsrans_tpu_torch.parallel.sharded import device_plan, uniform_plan
+    from hsrans_tpu_torch.runtime import build
+    from tools.gen_inputs import text_like
+
+    xray = np.fromfile(repo / "tests" / "corpus" / "xray.bin", np.uint8)
+    encode_s: dict[str, float] = {}
+
+    def encode(name: str, data: np.ndarray, bits: int, n: int, plan) -> bytes:
+        t0 = time.perf_counter()
+        blob = mt_encode_py(data, bits, n, plan)
+        encode_s[name] = time.perf_counter() - t0
+        return blob
+
+    def dp(bits: int, n: int) -> tuple[str, np.ndarray, int, int, bytes]:
+        name = f"x-ray n={n} B={bits} device_plan {MT_CAPS[bits] >> 10} KiB"
+        return name, xray, bits, n, encode(name, xray, bits, n, device_plan(xray, bits, n, MT_CAPS[bits]))
+
+    # 1. the kernel against its plain version, one 8 MiB x-ray blob per
+    #    routing class of mt64_decode_tpu: #5, #8 (n=64 and n=32 halves),
+    #    #9, and #4 (the odd leftover of 511 same-size kernel blocks)
+    classes = [dp(12, 64), dp(15, 64), dp(12, 32), dp(14, 32)]
+    name = "x-ray n=64 B=12 uniform 16 KiB"
+    classes.append((name, xray, 12, 64, encode(name, xray, 12, 64, uniform_plan(xray, 12, 64, 16 << 10))))
+    rows = [mt_kernel_vs_plain(name, blob, bits, n, dev) for name, _, bits, n, blob in classes]
+
+    # 2. the main path: 64 MiB of x-ray (bench.py's mt_dp_xray rows), B=12,
+    #    n=64, device_plan with a 24 KiB cap
+    data = np.tile(xray, 8)
+    t0 = time.perf_counter()
+    plan = device_plan(data, 12, 64, MT_CAPS[12])
+    plan_s = time.perf_counter() - t0
+    blob = encode("main", data, 12, 64, plan)
+    build.reset_launches()
+    back = mt_decode_torch(blob, 12, 64, device="cuda")
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES["mt_decode"]
+    if back != data.tobytes():
+        raise AssertionError("mt 64 MiB: mt_decode_torch does not return the input")
+    if launches != 1:
+        raise AssertionError(f"mt 64 MiB: {launches} mt_decode launches for one decode call")
+    emit("mt_main_path", bytes=data.size, ratio=len(blob) / data.size, blocks=len(plan),
+         coded_blocks=sum(not r.is_single for r in plan), launches=launches, plan_s=plan_s,
+         cpu_tier_encode_s=encode_s["main"])
+    # the kernel against its plain version at the main path's own launch
+    rows.insert(0, mt_kernel_vs_plain("x-ray 64 MiB main path", blob, 12, 64, dev))
+
+    # 3. round trips, each held against the input and the CPU tier
+    rng = np.random.default_rng(21)
+    trips = [dp(10, 64), dp(13, 64), dp(14, 64), classes[1], classes[2], classes[3]]
+    corpus = np.fromfile(repo / "tests" / "corpus" / "corpus.bin", np.uint8)
+    name = "corpus.bin reference planner"
+    planner_blob = encode(name, corpus, 12, 64, plan_blocks_mt(corpus, 12, 64))
+    trips.append((name, corpus, 12, 64, planner_blob))
+    odd = text_like(rng, (1 << 20) + 64 * 5 + 17)  # the last block's tail: 17 bytes past a group
+    for n in (32, 64):
+        name = f"uniform 64 KiB odd tail n={n}"
+        trips.append((name, odd, 12, n, encode(name, odd, 12, n, uniform_plan(odd, 12, n, 64 << 10))))
+    runs = np.concatenate([text_like(rng, 300_000), np.full(200_000, 9, np.uint8), text_like(rng, 300_000), np.full(150_001, 200, np.uint8)])
+    name = "single-symbol runs between coded blocks"
+    trips.append((name, runs, 12, 64, encode(name, runs, 12, 64, device_plan(runs, 12, 64, 24 << 10))))
+    for name, src, bits, n, b in trips:
+        got = mt_decode_torch(b, bits, n, device="cuda")
+        if got != src.tobytes():
+            raise AssertionError(f"mt {name}: decode on the card does not return the input")
+        t0 = time.perf_counter()
+        if mt_decode_torch(b, bits, n, device="cpu") != got:
+            raise AssertionError(f"mt {name}: the card's output differs from the CPU tier's")
+        emit("mt_round_trip", case=name, bits=bits, n=n, bytes=src.size, ratio=len(b) / src.size,
+             encode_s=encode_s.get(name), cpu_tier_decode_s=time.perf_counter() - t0)
+
+    # 4. malformed blobs: None or bytes, and no CUDA fault afterwards
+    small_data = text_like(rng, 1 << 20)
+    small = mt_encode_py(small_data, 12, 64, uniform_plan(small_data, 12, 64, 16 << 10))
+    bad = [small[:cut] for cut in (0, 15, 16, 1000, len(small) // 2, len(small) - 1)]
+    # flips of the length's low bytes (its high bytes would ask for petabytes
+    # of output), the block headers, the states, the freqs and the words
+    for lo, hi in ((0, 3), (16, 32), (32, 288), (288, 800), (800, len(small))):
+        for _ in range(4):
+            b = bytearray(small)
+            b[int(rng.integers(lo, hi))] ^= int(rng.integers(1, 256))
+            bad.append(bytes(b))
+    outcomes = {"none": 0, "bytes": 0}
+    for b in bad:
+        out = mt_decode_torch(b, 12, 64, device="cuda")
+        if out is not None and not isinstance(out, bytes):
+            raise AssertionError("mt: a malformed blob gave neither None nor bytes")
+        outcomes["none" if out is None else "bytes"] += 1
+    torch.cuda.synchronize()
+    if mt_decode_torch(small, 12, 64, device="cuda") != small_data.tobytes():
+        raise AssertionError("mt: decode after the malformed blobs failed")
+    emit("mt_malformed", blobs=len(bad), **outcomes)
+
+    # 5. times: the 64 MiB decode end to end and split into its layers, and
+    #    the reference planner's blob (few, large blocks)
+    dec_s = host_s(lambda: mt_decode_torch(blob, 12, 64, device="cuda"), 3)
+    layers: dict[str, float] = {}
+    if mt_decode_torch(blob, 12, 64, device="cuda", layers=layers) != data.tobytes():
+        raise AssertionError("mt 64 MiB: the layer-timed decode does not return the input")
+    planner_s = host_s(lambda: mt_decode_torch(planner_blob, 12, 64, device="cuda"), 3)
+    emit("mt_times", bytes=data.size, decode_MiBps=data.size / MIB / statistics.median(dec_s), decode_s=dec_s,
+         layers=layers, planner_blob={"bytes": corpus.size, "decode_s": planner_s,
+                                      "decode_MiBps": corpus.size / MIB / statistics.median(planner_s)})
+    return rows, launches
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -182,7 +340,7 @@ def main() -> int:
     blob = tpx_encode_torch(data, 12, device="cuda")
     back = tpx_decode_torch(blob, device="cuda")
     torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
+    launches = {k: build.LAUNCHES[k] for k in ("tpx_decode", "tpx_encode", "tpx_concat")}
     if back != data.tobytes():
         raise AssertionError("64 MiB: tpx_decode_torch does not return the input")
     if min(launches.values()) <= 0:
@@ -241,6 +399,9 @@ def main() -> int:
         layers=layers, kernels_B15=per_bits[15],
     )
 
+    # 7. mt decode: kernel classes, main path, round trips, malformed, times
+    mt_rows, mt_launches = mt_phases(repo, dev)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsrans_tpu"))
     if foreign:
         raise AssertionError(f"the run loaded modules of JAX or of the JAX package: {foreign}")
@@ -248,13 +409,13 @@ def main() -> int:
     print(CARD)
     summary = []
     for name, (source, replaces) in KERNELS.items():
-        r12 = per_bits[12][name]
-        summary.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": max(per_bits[b][name]["max_abs_err"] for b in per_bits),
-            "ms": r12["ms"], "plain_ms": r12["plain_ms"],
-        })
+        if name == "mt_decode":  # timed at the main path's launch (64 MiB, n=64 B=12 device_plan)
+            row = {"launches": mt_launches, "max_abs_err": max(r["max_abs_err"] for r in mt_rows),
+                   "ms": mt_rows[0]["ms"], "plain_ms": mt_rows[0]["plain_ms"]}
+        else:
+            row = {"launches": launches[name], "max_abs_err": max(per_bits[b][name]["max_abs_err"] for b in per_bits),
+                   "ms": per_bits[12][name]["ms"], "plain_ms": per_bits[12][name]["plain_ms"]}
+        summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, **row})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -1,0 +1,194 @@
+// mt decode on Hopper: every coded block of an mt_rANS32xN 16w blob in one
+// launch.
+//
+// Replaces four Pallas TPU kernels of hsrans_tpu/kernels/, which differ only
+// in how they pack 32- or 64-lane blocks into 128-lane TPU rows:
+//   mt64_decode.py::_mt64_kernel           (one block per row)
+//   mt64_decode.py::_mt64_pair_kernel      (two n=64 blocks per row, B<=12)
+//   mt64_decode.py::_mt64_pair_kernel_hb   (pairs at B=13..15)
+//   mt32_quad.py::_mt32_quad_kernel        (four n=32 blocks per row, B<=12)
+// A warp has no such width problem, so one kernel covers all four.
+//
+// What bounds it: each block's n states form one serial chain per lane
+// (table lookup -> state update -> renorm read) of ceil(size/n) links; the
+// bytes and arithmetic are small, so the number of blocks in flight and the
+// latency of one link set the rate.  A block is never split, so a blob of a
+// few giant blocks (the reference planner's, up to 2^25 bytes) leaves the
+// card with few chains.
+//
+// Design: one warp per coded block.  With n=64 thread j holds lanes j and
+// j+32 (two independent chains per thread), with n=32 lane j.  The warp
+// builds its block's decode table in shared memory from the block's
+// freq | cumul << 16 row: the bucketed rank table of hsrans_tpu/ops/tpx.py::
+// make_rank_tables (per 32-slot bucket the rank of its first slot's symbol
+// and a bitmask of the symbol starts inside it; 6.3 KiB a warp at B=15
+// where a flat slot -> symbol table takes 33 KiB, so a block of four warps
+// keeps within the default 48 KiB of shared memory; on the H100 it also
+// beat the flat table at B=10..12).  The renorm words of a group go to the
+// lanes in ascending lane order over all n lanes: a ballot over lanes
+// 0..31, then one over lanes 32..63 offset by the first's popcount.  The
+// stream is the blob's u16 word region as it is; every read is clamped to
+// the block's [word_start, word_end) and a word past it reads as 0, so a
+// corrupt blob cannot read out of bounds.  Lane j's symbol of group g goes
+// to byte out_start + g*n + idx2idx[j] when that byte is below the block's
+// out_limit (its end, or the blob's length for the last block).  The final
+// states and the words consumed come back, for the host's partial tail
+// group.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 4;  // blocks (one warp each) per CTA
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr uint32_t kConsumePoint = 1u << 15;  // DECODE_CONSUME_POINT_16
+
+// per-block index row (int64): the layout of kernels/mt_decode.py::INDEX_FIELDS
+struct BlockIndex {
+  long long word_start, word_end, out_start, out_limit, num_groups;
+};
+
+// idx2idx(32): lanes 8a + 4b + c -> byte 16b + 4a + c (hsrans_tpu/rans.py);
+// idx2idx(64) is idx2idx(32) on each half, the upper half offset by 32
+__device__ __forceinline__ int idx2idx32(int j) {
+  return ((j >> 2) & 1) * 16 + (j >> 3) * 4 + (j & 3);
+}
+
+// 32-slot buckets of a 2^bits-slot table (at least one)
+__host__ __device__ constexpr int buckets(int bits) { return ((1 << bits) + 31) / 32; }
+
+// 32-bit words of shared memory one warp's table takes: fc and symbol by
+// rank, then per bucket a u8 rank (c0) and a u32 start mask (bm)
+__host__ __device__ constexpr int table_words(int bits) {
+  return 256 + 64 + (buckets(bits) + 3) / 4 + buckets(bits);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kWarps * 32)
+mt_decode_kernel(const uint16_t* __restrict__ stream,   // [nwords] the blob's word region
+                 const BlockIndex* __restrict__ index,  // [nb]
+                 const uint32_t* __restrict__ init,     // [nb, 32K] header states
+                 const uint32_t* __restrict__ fctab,    // [nb, 256] freq | cumul << 16
+                 uint8_t* __restrict__ out,             // [length]
+                 uint32_t* __restrict__ fin,            // [nb, 32K] states after the last group
+                 long long* __restrict__ cursor,        // [nb] words consumed
+                 int nb, int bits, long long nwords, long long length) {
+  extern __shared__ uint32_t smem[];
+  constexpr int n = 32 * K;
+  const int w = threadIdx.x >> 5;
+  const int j = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + w;
+  if (b >= nb) return;  // warp-uniform; the kernel syncs only within a warp
+  const int n_slots = 1 << bits;
+  const uint32_t slot_mask = n_slots - 1;
+  uint32_t* tab = smem + w * table_words(bits);
+  const uint32_t* fc_row = fctab + (size_t)b * 256;
+
+  // ---- the block's rank table, built by its warp
+  uint32_t* fc_s = tab;                                                 // by rank
+  uint8_t* sym_s = reinterpret_cast<uint8_t*>(tab + 256);               // by rank
+  uint8_t* c0_s = reinterpret_cast<uint8_t*>(tab + 256 + 64);           // by bucket
+  uint32_t* bm_s = tab + 256 + 64 + (buckets(bits) + 3) / 4;            // by bucket
+  for (int i = j; i < buckets(bits); i += 32) bm_s[i] = 0u;
+  // thread j owns symbols 8j..8j+7; rank = present symbols before it
+  uint32_t fcs[8];
+  int present = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    fcs[q] = fc_row[8 * j + q];
+    present += (fcs[q] & 0xFFFFu) != 0;
+  }
+  int incl = present;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFullMask, incl, d);
+    if (j >= d) incl += v;
+  }
+  int rank = incl - present;
+  __syncwarp();  // bm zeroed before any start bit is set
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint32_t f = fcs[q] & 0xFFFFu, c = fcs[q] >> 16;
+    if (f == 0 || c >= (uint32_t)n_slots) continue;
+    fc_s[rank] = fcs[q];
+    sym_s[rank] = static_cast<uint8_t>(8 * j + q);
+    atomicOr(&bm_s[c >> 5], 1u << (c & 31));
+    // buckets whose first slot lies in [c, c + f) start inside this symbol
+    const uint32_t end = min(c + f, (uint32_t)n_slots);
+    for (uint32_t bk = (c + 31) >> 5; (bk << 5) < end; ++bk) c0_s[bk] = static_cast<uint8_t>(rank);
+    ++rank;
+  }
+  __syncwarp();
+
+  // ---- the block's groups, lanes j + 32k in registers
+  const BlockIndex ix = index[b];
+  // a corrupt index row stays inside the stream and the output all the same
+  const long long word_end = min(ix.word_end, nwords);
+  const long long out_limit = min(ix.out_limit, length);
+  const uint32_t lt = (1u << j) - 1u;
+  uint32_t st[K];
+  int byte_of[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    st[k] = init[(size_t)b * n + j + 32 * k];
+    byte_of[k] = idx2idx32(j) + 32 * k;
+  }
+  long long rw = 0;  // words of the block consumed so far
+  for (long long g = 0; g < ix.num_groups; ++g) {
+    const long long group_pos = ix.out_start + g * n;
+    bool consume[K];
+    unsigned ballot[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const uint32_t slot = st[k] & slot_mask;
+      const uint32_t bk = slot >> 5;
+      const uint32_t r = c0_s[bk] + __popc(bm_s[bk] & ((2u << (slot & 31)) - 2u));
+      const uint32_t sym = sym_s[r], fc = fc_s[r];
+      st[k] = (st[k] >> bits) * (fc & 0xFFFFu) + slot - (fc >> 16);
+      const long long pos = group_pos + byte_of[k];
+      if (pos >= 0 && pos < out_limit) out[pos] = static_cast<uint8_t>(sym);
+      consume[k] = st[k] < kConsumePoint;
+      ballot[k] = __ballot_sync(kFullMask, consume[k]);
+    }
+    long long base = rw;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (consume[k]) {
+        const long long a = ix.word_start + base + __popc(ballot[k] & lt);
+        st[k] = (st[k] << 16) | (a >= 0 && a < word_end ? static_cast<uint32_t>(stream[a]) : 0u);
+      }
+      base += __popc(ballot[k]);
+    }
+    rw = base;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) fin[(size_t)b * n + j + 32 * k] = st[k];
+  if (j == 0) cursor[b] = rw;
+}
+
+template <int K>
+cudaError_t launch(const void* stream, const void* index, const void* init, const void* fctab, void* out,
+                   void* fin, void* cursor, int nb, int bits, long long nwords, long long length, cudaStream_t cs) {
+  const int blocks = (nb + kWarps - 1) / kWarps;
+  const size_t smem = sizeof(uint32_t) * kWarps * table_words(bits);  // <= 25.6 KB
+  mt_decode_kernel<K><<<blocks, kWarps * 32, smem, cs>>>(
+      static_cast<const uint16_t*>(stream), static_cast<const BlockIndex*>(index),
+      static_cast<const uint32_t*>(init), static_cast<const uint32_t*>(fctab), static_cast<uint8_t*>(out),
+      static_cast<uint32_t*>(fin), static_cast<long long*>(cursor), nb, bits, nwords, length);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int hsr_mt_decode(const void* stream, const void* index, const void* init, const void* fctab,
+                             void* out, void* fin, void* cursor, int nb, int n, int bits, long long nwords,
+                             long long length, void* cuda_stream) {
+  if (nb <= 0) return 0;
+  if ((n != 32 && n != 64) || bits < 0 || bits > 15) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
+  const cudaError_t err =
+      n == 64 ? launch<2>(stream, index, init, fctab, out, fin, cursor, nb, bits, nwords, length, cs)
+              : launch<1>(stream, index, init, fctab, out, fin, cursor, nb, bits, nwords, length, cs);
+  return static_cast<int>(err);
+}

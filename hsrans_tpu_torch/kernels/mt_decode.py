@@ -1,0 +1,245 @@
+"""mt decode: the port of `hsrans_tpu/kernels/mt64_decode.py::mt64_decode_tpu`
+to PyTorch and CUDA (`csrc/mt_decode.cu`).
+
+It decodes the C++ reference's own mt wire (n = 32 or 64 lanes, B <= 15).
+The host walks the header chain (`..ops.mt.block_index`, the port's copy)
+and builds one small index row and one freq | cumul << 16 table row per
+coded block; the blob's u16 word region goes to the card as it is.  One
+launch decodes every coded symbol of the blob, each block's groups written
+straight to their output bytes.  The host then fills the single-symbol
+blocks and decodes the trailing partial lane group (fewer than n bytes) from
+the last block's final states.  Unlike the JAX package, no coded block goes
+to a host decoder, so the work splits differently; the output bytes are the
+same.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.histogram import complete_hist
+from ..ops.mt import MtBlock, _as_array, block_index
+from ..ops.reference import decode_tail_group
+from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
+from ..runtime import build
+from ..runtime.device import layer_clock, resolve
+from .tpx_decode import from_u32, to_u32
+
+_M32 = 0xFFFFFFFF
+# columns of the int64 per-block index; csrc/mt_decode.cu::BlockIndex
+INDEX_FIELDS = ("word_start", "word_end", "out_start", "out_limit", "num_groups")
+
+
+def block_word_counts(blocks: list, kernel_blocks: list, stream: np.ndarray, n: int = 64) -> list[int] | None:
+    """Exact per-block word counts: a block's words end where the next
+    block's header begins (single-symbol header = 4 words; coded header
+    = 8 + 2n + 256 words before its word_start); None if one is negative.
+
+    Copy of `hsrans_tpu.kernels.mt64_decode.block_word_counts`, whose module
+    imports jax; tests hold the two equal."""
+    pos_of = {id(b): j for j, b in enumerate(blocks)}
+    w_counts = []
+    for b in kernel_blocks:
+        j = pos_of[id(b)] + 1
+        if j < len(blocks):
+            nxt = blocks[j]
+            end = nxt.word_start - (4 if nxt.is_single else 8 + 2 * n + 256)
+        else:
+            end = stream.size
+        w_counts.append(end - b.word_start)
+    if w_counts and min(w_counts) < 0:
+        return None
+    return w_counts
+
+
+def decode_blocks_plain(stream, index, states, fctab, *, bits: int, n: int, length: int):
+    """Plain PyTorch version of the decode kernel, on any device.
+
+    stream uint8 [2 * nwords] (the blob's u16 word region), index int64
+    [nb, 5] (INDEX_FIELDS), states int32 [nb, n] (u32 bits), fctab int32
+    [nb, 256] (freq | cumul << 16, sums 2^B) -> (out uint8 [length], final
+    states int32 [nb, n], words consumed int64 [nb]).  Block b decodes
+    num_groups groups; lane j's symbol of group g goes to byte out_start +
+    g*n + IDX2IDX[n][j] if that is below out_limit and length; words are
+    read at word_start + the block's cursor, as 0 outside [0, word_end) or
+    past the stream.  Vectorized over blocks, looping to the largest
+    num_groups."""
+    dev = stream.device
+    nb = index.shape[0]
+    out = torch.zeros(length, dtype=torch.uint8, device=dev)
+    st = to_u32(states)
+    rw = torch.zeros(nb, dtype=torch.int64, device=dev)
+    if nb == 0:
+        return out, states.clone(), rw
+    words = stream.view(torch.int16).to(torch.int64) & 0xFFFF if stream.numel() >= 2 else torch.zeros(1, dtype=torch.int64, device=dev)
+    word_start, word_end, out_start, out_limit, num_groups = (c[:, None] for c in index.unbind(1))
+    word_end = torch.clamp(word_end, max=stream.numel() // 2)
+    out_limit = torch.clamp(out_limit, max=length)
+    fc = to_u32(fctab)
+    freq_of, cum_of = fc & 0xFFFF, fc >> 16
+    perm = torch.from_numpy(IDX2IDX[n]).to(dev)[None, :]
+    mask = (1 << bits) - 1
+    for g in range(int(index[:, 4].max())):
+        active = g < num_groups
+        slot = st & mask
+        # slot -> symbol: the last symbol whose cumul is <= slot (the zero-freq
+        # symbols before it share its cumul), as make_cumul_inv lays it out
+        sym = torch.searchsorted(cum_of, slot, right=True) - 1
+        new = ((st >> bits) * torch.gather(freq_of, 1, sym) + slot - torch.gather(cum_of, 1, sym)) & _M32
+        st = torch.where(active, new, st)
+        pos = out_start + g * n + perm
+        put = active & (pos >= 0) & (pos < out_limit)
+        out[pos[put]] = sym[put].to(torch.uint8)
+        consume = active & (st < DECODE_CONSUME_POINT_16)
+        c = consume.to(torch.int64)
+        at = word_start + rw[:, None] + torch.cumsum(c, dim=1) - c  # lane-ascending consume order
+        word = torch.where((at >= 0) & (at < word_end), words[torch.clamp(at, 0, words.numel() - 1)], 0)
+        st = torch.where(consume, ((st << 16) | word) & _M32, st)
+        rw = rw + c.sum(dim=1)
+    return out, from_u32(st), rw
+
+
+def decode_blocks_cuda(stream, index, states, fctab, *, bits: int, n: int, length: int):
+    """The CUDA kernel (`csrc/mt_decode.cu`) on CUDA tensors; same contract
+    as decode_blocks_plain.  Raises for any other tensor."""
+    dev = build.check_cuda("decode_blocks_cuda", stream, index, states, fctab, uint8=(0,), int64=(1,))
+    nb = index.shape[0]
+    if n not in (32, 64) or not 0 <= bits <= 15:
+        raise ValueError("decode_blocks_cuda: n must be 32 or 64 and bits at most 15")
+    if index.shape != (nb, len(INDEX_FIELDS)) or states.shape != (nb, n) or fctab.shape != (nb, 256):
+        raise ValueError("decode_blocks_cuda: operand shapes do not match the block count")
+    out = torch.zeros(length, dtype=torch.uint8, device=dev)
+    fin = torch.empty((nb, n), dtype=torch.int32, device=dev)
+    cursor = torch.empty(nb, dtype=torch.int64, device=dev)
+    if nb:
+        build.launch(
+            "mt_decode", "hsr_mt_decode", dev,
+            stream.data_ptr(), index.data_ptr(), states.data_ptr(), fctab.data_ptr(),
+            out.data_ptr(), fin.data_ptr(), cursor.data_ptr(), nb, n, bits, stream.numel() // 2, length,
+        )
+    return out, fin, cursor
+
+
+def decode_blocks(stream, index, states, fctab, *, bits: int, n: int, length: int):
+    """The kernel for CUDA operands, its plain version for CPU operands."""
+    fn = decode_blocks_plain if stream.device.type == "cpu" else decode_blocks_cuda
+    return fn(stream, index, states, fctab, bits=bits, n=n, length=length)
+
+
+def index_blocks(blob: bytes | np.ndarray, n: int) -> tuple[int, np.ndarray, list[MtBlock], list[int]] | None:
+    """block_index, then the word count of every coded block: the JAX
+    decoder's `block_word_counts` for all of them but the last, whose words
+    run to the stream's end as the JAX decoder reads them.  Returns (length,
+    u16 stream, blocks, word counts of the coded blocks); None where either
+    step fails."""
+    idx = block_index(_as_array(blob), n)
+    if idx is None:
+        return None
+    length, stream, blocks = idx
+    coded = [b for b in blocks if not b.is_single]
+    w_counts = block_word_counts(blocks, coded[:-1], stream, n)
+    if w_counts is None:
+        return None
+    if coded:
+        w_counts.append(stream.size - coded[-1].word_start)
+    return length, stream, blocks, w_counts
+
+
+def block_operands(
+    length: int, stream: np.ndarray, blocks: list[MtBlock], w_counts: list[int], bits: int, n: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
+    """Kernel operands of the coded blocks: (index int64 [nb, 5], states
+    uint32 [nb, n], fc uint32 [nb, 256]); None if a block's freqs do not sum
+    to 2^B.  Vectorized over blocks."""
+    coded = [b for b in blocks if not b.is_single]
+    nb = len(coded)
+    freqs = np.zeros((nb, 256), np.uint32)
+    for i, b in enumerate(coded):
+        freqs[i, : b.freq.size] = b.freq  # shorter only where the blob ran out
+    if nb and (freqs.sum(axis=1) != 1 << bits).any():
+        return None
+    cumul = np.cumsum(freqs, axis=1, dtype=np.uint32) - freqs
+    fc = freqs | (cumul << np.uint32(16))
+    states = np.stack([b.states for b in coded]) if nb else np.zeros((0, n), np.uint32)
+
+    word_start = np.fromiter((b.word_start for b in coded), np.int64, nb)
+    out_start = np.fromiter((b.out_start for b in coded), np.int64, nb)
+    size = np.fromiter((b.size for b in coded), np.int64, nb)
+    # bytes a block decodes: up to its end or, for the last block, up to the
+    # blob's length (its overflow past a short last block is what the
+    # reference decoder writes there); later blocks overwrite the rest
+    out_limit = np.minimum(out_start + size, length)
+    if nb and coded[-1] is blocks[-1]:
+        out_limit[-1] = length
+    out_len_states = max(length - n + 1, 0)
+    num_groups = np.maximum(0, -(-(np.minimum(out_start + size, out_len_states) - out_start) // n))
+    word_end = np.minimum(word_start + np.asarray(w_counts, np.int64), stream.size - 2 * n - 4)
+    index = np.stack([word_start, word_end, out_start, out_limit, num_groups], axis=1)
+    return index, states.astype(np.uint32), fc
+
+
+def device_operands(stream: np.ndarray, index, states, fc, n: int, dev: torch.device) -> tuple[torch.Tensor, ...]:
+    """The kernel's operands on `dev`: the blob's word region (the block
+    index's stream less its 2n + 4 padding words) as bytes, as it is."""
+    nwords = stream.size - 2 * n - 4
+    arrays = (stream[:nwords].view(np.uint8), index, states.view(np.int32), fc.view(np.int32))
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def mt_decode_torch(
+    blob: bytes | np.ndarray,
+    bits: int,
+    n: int = 64,
+    device: str | torch.device = "cuda",
+    layers: dict[str, float] | None = None,
+) -> bytes | None:
+    """Decode an mt_rANS32xN 16w blob (n in {32, 64}, B <= 15) on `device`;
+    None where `hsrans_tpu.kernels.mt64_decode.mt64_decode_tpu` gives None
+    (bits > 15 or another n, a broken header chain, a negative word count, a
+    coded block whose freqs do not sum to 2^B).
+
+    With `layers`, adds the seconds of each layer of this call to it
+    (host_index, host_tables, h2d, kernel, d2h, host_assemble), the device
+    synchronized at each boundary."""
+    dev = resolve(device)
+    if bits > 15 or n not in (32, 64):
+        return None
+    with layer_clock(layers, "host_index", dev):
+        indexed = index_blocks(blob, n)
+    if indexed is None:
+        return None
+    length, stream, blocks, w_counts = indexed
+    if length == 0:
+        return b""
+    with layer_clock(layers, "host_tables", dev):
+        ops = block_operands(length, stream, blocks, w_counts, bits, n)
+    if ops is None:
+        return None
+    index, states, fc = ops
+    with layer_clock(layers, "h2d", dev):
+        args = device_operands(stream, index, states, fc, n, dev)
+    with layer_clock(layers, "kernel", dev):
+        out_t, fin_t, cursor_t = decode_blocks(*args, bits=bits, n=n, length=length)
+    # the trailing partial group (fewer than n bytes) continues the chain of
+    # the last block, where that block is coded
+    tail_from = int(index[-1, 2] + index[-1, 4] * n) if not blocks[-1].is_single else length
+    with layer_clock(layers, "d2h", dev):
+        out = out_t.cpu().numpy()
+        if tail_from < length:
+            fin = fin_t[-1].cpu().numpy().view(np.uint32)
+            read_pos = int(index[-1, 0]) + int(cursor_t[-1])
+    with layer_clock(layers, "host_assemble", dev):
+        for b in blocks:
+            if b.is_single:
+                out[b.out_start : b.out_start + b.size] = b.symbol
+        if tail_from < length:
+            words = np.zeros(n, np.uint16)  # read as 0 past the block's words
+            got = stream[read_pos : min(read_pos + n, int(index[-1, 1]))]
+            words[: got.size] = got
+            hist = complete_hist((fc[-1] & 0xFFFF).astype(np.uint16), bits)
+            tail, _, _ = decode_tail_group(fin, words, 0, hist, n, tail_from, length)
+            perm = IDX2IDX[n]
+            sel = (tail_from + perm) < length
+            out[tail_from + perm[sel]] = tail[np.arange(n)[sel]]
+        return out.tobytes()

@@ -1,0 +1,159 @@
+"""mt_rANS32xN 16w — the C++ reference's self-contained block wire, on the host.
+
+The port's copy of the host tier of `hsrans_tpu/ops/mt.py` (the wire format
+is documented there): `block_index`, the O(blocks) walk of the header chain
+that the decoder starts from, and `mt_encode_py`, the numpy encoder that is
+the wire authority.  The port loads no module of the JAX package;
+`tests/test_torch_mt_decode.py` holds each function here equal to its
+original.
+
+Wire format:  u64 rawLength | u64 compressedLength | per block:
+  single-symbol:  u64 (size | 1<<63 | sym<<54)
+  coded:          u64 blockSize | u64 writeHeadOffset | N*u32 states |
+                  256*u16 freq | u16 words...
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..models.histogram import complete_hist
+from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
+from .planner import BlockPlan, plan_blocks_mt
+from .reference import encode_groups
+
+_U32 = np.uint32
+_SINGLE_BIT = 1 << 63
+_SYM_SHIFT = 54
+_SIZE_MASK = (1 << 54) - 1
+
+
+def _as_array(data: bytes | np.ndarray) -> np.ndarray:
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return np.frombuffer(data, dtype=np.uint8)
+    return np.asarray(data, dtype=np.uint8)
+
+
+def mt_capacity(input_size: int, n: int) -> int:
+    """Worst-case blob size (mt_rANS32x64_16w_encode.cpp:50-57)."""
+    base = 16 + 512 + input_size + n * 4
+    block_count = (input_size + (1 << 15)) // (1 << 15) + 1
+    return base + block_count * (16 + 512 + n * 4)
+
+
+def _lane_groups(arr, start, end, length, n):
+    perm = IDX2IDX[n]
+    total = -(-(end - start) // n)
+    padded = np.zeros(max(total * n, 1), dtype=np.uint8)
+    padded[: min(end, length) - start] = arr[start : min(end, length)]
+    pos = np.arange(total, dtype=np.int64)[:, None] * n + perm[None, :]
+    return padded[pos], (start + pos) < length
+
+
+def mt_encode_py(data: bytes | np.ndarray, bits: int, n: int, plan: list[BlockPlan] | None = None) -> bytes:
+    """numpy mt encode (the wire authority): blocks encoded last to first
+    with carried states; each coded block stores the states its decoder
+    starts from."""
+    arr = _as_array(data)
+    length = arr.size
+    if plan is None:
+        plan = plan_blocks_mt(arr, bits, n)
+
+    states = np.full(n, DECODE_CONSUME_POINT_16, dtype=_U32)
+    parts: list[bytes] = [b""] * len(plan)
+
+    for k in range(len(plan) - 1, -1, -1):
+        row = plan[k]
+        if row.is_single:
+            indicator = row.size | _SINGLE_BIT | (row.symbol << _SYM_SHIFT)
+            parts[k] = indicator.to_bytes(8, "little")
+            continue
+        hist = complete_hist(row.freq, bits)
+        if hist is None:
+            raise ValueError(f"plan row {k}: freqs do not sum to 2^{bits}")
+        groups, valid = _lane_groups(arr, row.start, row.start + row.size, length, n)
+        words, emits, states = encode_groups(states, groups, valid, hist)
+        w_count = int(emits.sum())
+        # words from the states field (+1) to the next block's size field;
+        # the last input block's offset points at the stream end slot instead
+        # (pEnd), one word less (mt_rANS32x64_16w_encode.cpp:280-283).
+        offset = 2 * n + 256 + w_count - (2 if k == len(plan) - 1 else 1)
+        parts[k] = (
+            int(row.size).to_bytes(8, "little")
+            + int(offset).to_bytes(8, "little")
+            + states.astype("<u4").tobytes()
+            + row.freq.astype("<u2").tobytes()
+            + words[emits].astype("<u2").tobytes()
+        )
+
+    out = bytearray()
+    out += int(length).to_bytes(8, "little")
+    out += b"\0" * 8
+    for p in parts:
+        out += p
+    out[8:16] = len(out).to_bytes(8, "little")
+    return bytes(out)
+
+
+@dataclass
+class MtBlock:
+    """One entry of the O(1)-seek block index."""
+
+    out_start: int  # first output byte
+    size: int  # output bytes
+    is_single: bool
+    symbol: int
+    states: np.ndarray | None  # u32[n]
+    freq: np.ndarray | None  # u16[256] (shorter where the stream ran out)
+    word_start: int  # index into the u16 stream where this block's words begin
+    is_last: bool
+
+
+def block_index(blob: bytes | np.ndarray, n: int) -> tuple[int, np.ndarray, list[MtBlock]] | None:
+    """Walk the header chain once; returns (rawLength, u16 stream, blocks).
+    The stream is the blob's word region plus 2n + 4 zero words."""
+    buf = _as_array(blob)
+    if buf.size < 16:
+        return None
+    length = int.from_bytes(buf[0:8].tobytes(), "little")
+    expected_in = int.from_bytes(buf[8:16].tobytes(), "little")
+    if buf.size < expected_in:
+        return None
+    word_region = buf[16:]
+    nwords = word_region.size // 2
+    stream = np.zeros(nwords + 2 * n + 4, dtype=np.uint16)
+    stream[:nwords] = word_region[: nwords * 2].view("<u2")
+
+    blocks: list[MtBlock] = []
+    i = 0
+    r = 0
+    out_len_states = max(length - n + 1, 0)
+    while i < length:
+        if r + 4 > nwords:
+            return None
+        val = int.from_bytes(stream[r : r + 4].tobytes(), "little")
+        r += 4
+        if val & _SINGLE_BIT:
+            size = val & _SIZE_MASK
+            blocks.append(MtBlock(i, size, True, (val >> _SYM_SHIFT) & 0xFF, None, None, r, False))
+            i += size
+        else:
+            offset = int.from_bytes(stream[r : r + 4].tobytes(), "little")
+            r += 4
+            states_pos = r
+            states = np.frombuffer(stream[r : r + 2 * n].tobytes(), dtype="<u4").astype(_U32)
+            r += 2 * n
+            freq = stream[r : r + 256].copy()
+            r += 256
+            is_last = i + val > out_len_states
+            blocks.append(MtBlock(i, min(val, length - i), False, 0, states, freq, r, is_last))
+            i += val
+            if not is_last:
+                r = states_pos + offset + 1
+        if i >= length:
+            break
+        if blocks[-1].is_last:
+            break
+    return length, stream, blocks

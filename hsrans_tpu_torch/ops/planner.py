@@ -1,12 +1,13 @@
-"""Greedy backward block-segmentation planner, mt mode (the cuts of the v3
-adaptive tpx wire).
+"""Greedy backward block-segmentation planner, mt mode: the blocks of the mt
+wire and the cuts of the v3 adaptive tpx wire.
 
 The port's copy of the pure-Python planner of `hsrans_tpu/ops/planner.py`
-(`plan_blocks_py` with the mt parameters: 64 lanes, the mt HistReplaceMul and
-MinBlockSize tables, the 2^25 block cap and the header-amortization bias), so
-that the port loads no module of the JAX package.  It mirrors
-native/hsrans_native.cpp:hsr_plan_blocks, which the original uses when it
-builds; `tests/test_torch_host_tier.py` holds the plans equal.
+(`plan_blocks_py` with the mt parameters: n = 32 or 64 lanes, the mt
+HistReplaceMul and MinBlockSize tables, the 2^25 block cap and the
+header-amortization bias), so that the port loads no module of the JAX
+package.  It mirrors native/hsrans_native.cpp:hsr_plan_blocks, which the
+original uses when it builds; `tests/test_torch_host_tier.py` and
+`tests/test_torch_mt_decode.py` hold the plans equal.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ from ..models.histogram import normalize_hist, observe_hist
 HIST_REPLACE_MUL_MT = {10: 500, 11: 500, 12: 500, 13: 500, 14: 500, 15: 50}
 MIN_BLOCK_BITS_MT = 16
 MAX_BLOCK_SIZE_MT = 1 << 25
-LANES_MT = 64
 
 
 @dataclass
@@ -29,6 +29,7 @@ class BlockPlan:
     size: int
     is_single: bool
     symbol: int
+    freq: np.ndarray | None  # uint16[256] (None for single-symbol blocks)
 
 
 def _can_extend(data, off, minb, old_freq, bits, replace_mul, bias) -> bool:
@@ -52,12 +53,13 @@ def _can_extend(data, off, minb, old_freq, bits, replace_mul, bias) -> bool:
     return bool(np.float32(cost_before - cost_after) < np.float32(replace_point))
 
 
-def plan_blocks_mt(data: np.ndarray, bits: int) -> list[BlockPlan]:
-    """Plan blocks in input order."""
+def plan_blocks_mt(data: np.ndarray, bits: int, n: int = 64) -> list[BlockPlan]:
+    """Plan blocks in input order for n lanes; a coded block carries the
+    normalized histogram of its span plus the following block (the
+    reference's look-ahead quirk), which the mt wire writes."""
     length = data.size
     if length == 0:
         return []
-    n = LANES_MT
     replace_mul = HIST_REPLACE_MUL_MT[bits]
     minb = 1 << MIN_BLOCK_BITS_MT
     bias = np.float32((512 + n * 4 + 16) * 0.5)
@@ -82,6 +84,7 @@ def plan_blocks_mt(data: np.ndarray, bits: int) -> list[BlockPlan]:
             not_sym = np.nonzero(run != selected)[0]
             idx = target - 1 - (int(not_sym[0]) if not_sym.size else target)
             target = (idx + 1 + n - 1) & ~sc_mask
+            freq = None
         else:
             injected = sym_count.copy()
             extra = int((injected == 0).sum())
@@ -92,8 +95,10 @@ def plan_blocks_mt(data: np.ndarray, bits: int) -> list[BlockPlan]:
                 if not _can_extend(data, target - minb, minb, prov.symbol_count, bits, replace_mul, bias):
                     break
                 target -= minb
+            final_counts = observe_hist(data[target:lookahead_end])
+            freq = normalize_hist(final_counts, lookahead_end - target, bits).symbol_count
 
-        rows.append(BlockPlan(target, block_end - target, num_symbols == 1, selected))
+        rows.append(BlockPlan(target, block_end - target, num_symbols == 1, selected, freq))
         if target == 0:
             break
 

@@ -1,7 +1,8 @@
 """Build-on-demand of the CUDA kernels and their ctypes bindings.
 
-Every `hsrans_tpu_torch/csrc/*.cu` is compiled by `nvcc` into one shared
-library with a plain C interface, at first use (never at import), into
+Every `hsrans_tpu_torch/csrc/*.cu` is compiled by `nvcc` (one process per
+source, all started together, then one link) into one shared library with a
+plain C interface, at first use (never at import), into
 `build/hsrans_tpu_torch/` at the repo root (see `build_dir` for an installed
 package and the override).  The library's name carries a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
@@ -30,11 +31,11 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # kernel name -> successful launches since the last reset_launches()
-LAUNCHES: dict[str, int] = {"tpx_decode": 0, "tpx_encode": 0, "tpx_concat": 0}
+LAUNCHES: dict[str, int] = {"tpx_decode": 0, "tpx_encode": 0, "tpx_concat": 0, "mt_decode": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +46,8 @@ _SIGNATURES = {
     "hsr_tpx_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _P],
     # win, cnt, out, rows, steps, n_tiles, w_slots, cuda stream
     "hsr_tpx_concat": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # stream, index, init states, fc table, out, final states, cursors, nb, n, bits, nwords, length, cuda stream
+    "hsr_mt_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
 }
 
 _lib = None
@@ -94,15 +97,32 @@ def library_path() -> Path:
 def _compile(so: Path) -> None:
     global build_seconds
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(_CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    tmp = so.with_suffix(f".{tag}")
+    objs = {src: so.with_suffix(f".{src.stem}.{tag}.o") for src in sorted(_CSRC.glob("*.cu"))}
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in objs.items()
+    ]
+    runs = []
+    for p in procs:
+        out, err = p.communicate()  # waits for every process
+        runs.append((" ".join(p.args), p.returncode, out, err))
+    if all(rc == 0 for _, rc, _, _ in runs):
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objs.values())]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        runs.append((" ".join(cmd), res.returncode, res.stdout, res.stderr))
     build_seconds = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
+    for obj in objs.values():
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(f"{cmd}\n{out}{err}" for cmd, _, out, err in runs))
+    failed = [(cmd, rc, err) for cmd, rc, _, err in runs if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        cmd, rc, err = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {cmd}\n{err[-4000:]}")
     os.replace(tmp, so)  # atomic: a concurrent process sees the whole library or none
 
 
@@ -148,16 +168,18 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def check_cuda(name: str, *tensors: torch.Tensor, uint8: tuple[int, ...] = ()) -> torch.device:
+def check_cuda(
+    name: str, *tensors: torch.Tensor, uint8: tuple[int, ...] = (), int64: tuple[int, ...] = ()
+) -> torch.device:
     """Wrapper-side validation: every operand a contiguous CUDA tensor on one
-    device, int32 except the positions listed in `uint8`."""
+    device, int32 except the positions listed in `uint8` and `int64`."""
     dev = tensors[0].device
     for i, t in enumerate(tensors):
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: every operand must lie on one CUDA device (got {t.device})")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-        want = torch.uint8 if i in uint8 else torch.int32
+        want = torch.uint8 if i in uint8 else torch.int64 if i in int64 else torch.int32
         if t.dtype != want:
             raise ValueError(f"{name}: operand {i} must be {want} (got {t.dtype})")
     return dev

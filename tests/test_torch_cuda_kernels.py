@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
-version on the same CUDA tensors, and the public round trip against the
-numpy wire authority.  Exact equality throughout: the codec is lossless
+version on the same CUDA tensors, and the public round trips against the
+numpy wire authorities.  Exact equality throughout: the codec is lossless
 integer arithmetic, so the tolerance is zero.
 
 Needs an NVIDIA Hopper card and nvcc; run there with
@@ -11,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from hsrans_tpu.ops.mt import mt_decode_py, mt_encode_py
 from hsrans_tpu.ops.tpx import TpxParams, _mega_layout, tpx_encode, tpx_encode_adaptive
+from hsrans_tpu_torch.kernels import mt_decode as mtd
 from hsrans_tpu_torch.kernels import tpx_decode as dec
 from hsrans_tpu_torch.kernels import tpx_encode as enc
+from hsrans_tpu_torch.parallel.sharded import device_plan, uniform_plan
 from tools.gen_inputs import text_like
 
 pytestmark = pytest.mark.cuda
@@ -86,3 +89,42 @@ def test_adaptive_and_malformed(cuda):
         out = dec.tpx_decode_torch(bytes(b), device="cuda")
         assert out is None or isinstance(out, bytes)
     torch.cuda.synchronize()
+
+
+def _mt_operands(blob: bytes, bits: int, n: int, dev):
+    length, stream, blocks, w_counts = mtd.index_blocks(blob, n)
+    index, states, fc = mtd.block_operands(length, stream, blocks, w_counts, bits, n)
+    return length, mtd.device_operands(stream, index, states, fc, n, dev)
+
+
+@pytest.mark.parametrize("n", (32, 64))
+@pytest.mark.parametrize("bits", (4, 10, 12, 13, 15))
+def test_mt_kernel_equals_plain(cuda, bits, n):
+    """The mt kernel == its plain version (bytes, final states, cursors) on 61
+    blocks, which leave three idle warps in the last CTA, with an odd tail.
+    B=4 (six symbols) has a single 16-slot rank bucket."""
+    rng = np.random.default_rng(bits)
+    size = 61 * 4096 - 3983
+    data = text_like(rng, size) if bits > 8 else rng.integers(0, 6, size).astype(np.uint8)
+    blob = mt_encode_py(data, bits, n, uniform_plan(data, bits, n, 4096))
+    length, args = _mt_operands(blob, bits, n, cuda)
+    assert args[1].shape[0] == 61
+    got = mtd.decode_blocks_cuda(*args, bits=bits, n=n, length=length)
+    torch.cuda.synchronize()
+    want = mtd.decode_blocks_plain(*args, bits=bits, n=n, length=length)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert mtd.mt_decode_torch(blob, bits, n, device="cuda") == data.tobytes()
+
+
+def test_mt_main_path_64mib_equals_oracle(cuda):
+    """chip_smoke.py's mt main path (64 MiB of x-ray, B=12, n=64, device_plan
+    with a 24 KiB cap) held against the numpy oracle `mt_decode_py`, which
+    chip_smoke.py itself may not import."""
+    from pathlib import Path
+
+    data = np.tile(np.fromfile(Path(__file__).parent / "corpus" / "xray.bin", np.uint8), 8)
+    blob = mt_encode_py(data, 12, 64, device_plan(data, 12, 64, 24 << 10))
+    got = mtd.mt_decode_torch(blob, 12, 64, device="cuda")
+    assert got == data.tobytes()
+    assert got == mt_decode_py(blob, 12, 64)

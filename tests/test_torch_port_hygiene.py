@@ -18,8 +18,9 @@ PORT = REPO / "hsrans_tpu_torch"
 
 def test_import_and_cpu_round_trip_without_jax():
     """With jax and every module of `hsrans_tpu` unimportable, the port
-    imports and round-trips (plain v2 and adaptive v3) on the CPU, and its
-    blobs equal the JAX package's numpy encoders."""
+    imports and round-trips (tpx plain v2 and adaptive v3, and mt) on the
+    CPU, and its blobs equal the JAX package's numpy encoders."""
+    from hsrans_tpu.ops.mt import mt_encode_py
     from hsrans_tpu.ops.tpx import tpx_encode, tpx_encode_adaptive
 
     code = (
@@ -31,12 +32,17 @@ def test_import_and_cpu_round_trip_without_jax():
         "for blob in (h.tpx_encode_torch(data, device='cpu'), h.tpx_encode_adaptive_torch(data, device='cpu')):\n"
         "    assert h.tpx_decode_torch(blob, device='cpu') == data.tobytes()\n"
         "    print(hashlib.sha256(blob).hexdigest())\n"
+        "from hsrans_tpu_torch.ops.mt import mt_encode_py\n"
+        "blob = mt_encode_py(data, 12, 64)\n"
+        "assert h.mt_decode_torch(blob, 12, 64, device='cpu') == data.tobytes()\n"
+        "print(hashlib.sha256(blob).hexdigest())\n"
         "assert not any(m.split('.')[0] in ('jax', 'hsrans_tpu') for m, v in sys.modules.items() if v is not None)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     data = np.random.default_rng(0).integers(0, 40, 20_000).astype(np.uint8)
     want = [hashlib.sha256(f(data)).hexdigest() for f in (tpx_encode, tpx_encode_adaptive)]
+    want.append(hashlib.sha256(mt_encode_py(data, 12, 64)).hexdigest())
     assert res.stdout.split() == want
 
 
@@ -56,7 +62,7 @@ def test_no_port_source_imports_jax(package):
 
 
 def test_cuda_without_a_card_raises():
-    from hsrans_tpu_torch import tpx_decode_torch, tpx_encode_torch
+    from hsrans_tpu_torch import mt_decode_torch, tpx_decode_torch, tpx_encode_torch
     from hsrans_tpu_torch.runtime.device import resolve
 
     if torch.cuda.is_available():
@@ -64,6 +70,8 @@ def test_cuda_without_a_card_raises():
     for fn, arg in ((tpx_encode_torch, b"abc"), (tpx_decode_torch, b"HSRTPX02")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(arg, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mt_decode_torch(bytes(16), 12, 64, device="cuda")
     with pytest.raises(ValueError):
         resolve("mps")
     assert resolve("cpu") == torch.device("cpu")
@@ -72,6 +80,7 @@ def test_cuda_without_a_card_raises():
 def test_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel or raises: CPU operands are refused,
     not routed to the plain version."""
+    from hsrans_tpu_torch.kernels import mt_decode as mt
     from hsrans_tpu_torch.kernels import tpx_decode as dec
     from hsrans_tpu_torch.kernels import tpx_encode as enc
 
@@ -83,6 +92,11 @@ def test_wrappers_refuse_cpu_tensors():
         enc.encode_mega_cuda(z, t, t, t, bits=12, steps=8, vlen=1)
     with pytest.raises(ValueError, match="CUDA"):
         enc.concat_cuda(torch.zeros((1, 8, 8, 128), dtype=torch.int32), torch.zeros((1, 8, 8), dtype=torch.int32), 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        mt.decode_blocks_cuda(
+            torch.zeros(64, dtype=torch.uint8), torch.zeros((1, 5), dtype=torch.int64),
+            torch.zeros((1, 64), dtype=torch.int32), t, bits=12, n=64, length=64,
+        )
 
 
 def test_dispatch_takes_plain_version_for_cpu_operands():
