@@ -12,13 +12,18 @@ the port's two paths through their public entry points:
     geometry, other depths, the v3 adaptive wire and malformed blobs;
   * mt: decode of the C++ reference's mt wire on 64 MiB of x-ray
     (`device_plan` blocks, B=12, n=64), other depths, n=32, the reference
-    planner's blocks, odd tails, single-symbol runs and malformed blobs;
+    planner's blocks, odd tails, single-symbol runs and malformed blobs, on
+    blobs made by the port's numpy copy of the reference's carried-state
+    encoder;
+  * mt encode: the same 64 MiB of x-ray and 64 MiB of enwik8-like text in
+    uniform 4 KiB blocks encoded on the card and decoded on the card, other
+    depths, n=32 (`mt_encode_device`), the reference planner's blocks, odd
+    tails, single-symbol runs and block sizes off the 64-byte grid;
 
 and times the kernels and the paths with CUDA events and the host clock.
 Every blob the card writes must equal the port's CPU tier (the kernels'
 plain versions, which the CPU tests hold byte-equal to the JAX package) and
-decode back to its input; every mt blob is made by the port's numpy copy of
-the mt encoder.
+decode back to its input.
 The script loads neither jax nor any module of the JAX package
 (`hsrans_tpu`), and fails if one was loaded.  Every phase prints one JSON
 line; any failure raises and exits non-zero.  The last three lines are the
@@ -56,7 +61,22 @@ KERNELS = {
             "hsrans_tpu/kernels/mt32_quad.py:46",
         ],
     ),
+    "mt_encode": ("hsrans_tpu_torch/csrc/mt_encode.cu", "hsrans_tpu/kernels/mt64_encode.py:52"),
+    # the mt encoder's phase B: the tpx concat kernel run per segment, then the host's join of the words
+    "mt_place": ("hsrans_tpu_torch/csrc/mt_encode.cu", "hsrans_tpu/kernels/tpx_encode.py:260"),
 }
+# the least time the card could take for a kernel's work: the bytes this
+# run's data needs (each input read once, each output written once: the
+# emitted words, not the padded windows that hold them) over the H100's
+# 3.35 TB/s, or its integer operations over the card's INT32 rate
+# (int32_ops_per_s), whichever is larger.  Operations per coded symbol as the
+# algorithm states them: decode 8 (mask, shift, multiply, add, subtract,
+# compare, shift, or), encode 10 (shift, compare, shift, select, multiply,
+# shift, shift, add, multiply, subtract); the compactions count their bytes
+# only.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_SYMBOL = {"decode": 8, "encode": 10}
+INT32_LANES_PER_SM = 64  # a Hopper SM's INT32 units (NVIDIA's H100 architecture whitepaper)
 # bench.py's device_plan caps of the mt x-ray rows, by depth
 MT_CAPS = {10: 16 << 10, 12: 24 << 10, 13: 16 << 10, 14: 24 << 10, 15: 32 << 10}
 
@@ -67,6 +87,18 @@ def card() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+def int32_ops_per_s() -> float:
+    """The card's INT32 operations a second outside the tensor cores: its SMs
+    × INT32_LANES_PER_SM × its maximum SM clock (132 × 64 × 1.98 GHz = 16.7
+    T/s on an H100 SXM)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    mhz = float(res.stdout.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * INT32_LANES_PER_SM * mhz * 1e6
 
 
 def emit(phase: str, **fields) -> None:
@@ -102,6 +134,17 @@ def host_s(fn, reps: int) -> list[float]:
     return out
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: int, ops: int) -> dict:
+    moved, ops = int(moved), int(ops)
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes_moved": moved, "int_ops": ops}
+
+
 def max_abs_err(got, want) -> int:
     if isinstance(got, tuple):
         return max(max_abs_err(g, w) for g, w in zip(got, want))
@@ -121,7 +164,7 @@ def kernels_vs_plain(bits: int, data: np.ndarray, dev: torch.device) -> dict:
     ops = [torch.from_numpy(a).to(dev) for a in (packed, tabs["fc"], tabs["m"], tabs["l"])]
     res = {}
 
-    def check(name, run_kernel, run_plain, reps_plain=2):
+    def check(name, run_kernel, run_plain, moved, ops, reps_plain=2):
         got = run_kernel()
         torch.cuda.synchronize()
         want = run_plain()
@@ -134,20 +177,26 @@ def kernels_vs_plain(bits: int, data: np.ndarray, dev: torch.device) -> dict:
             "ms": cuda_ms(run_kernel, 20, queue_ahead=True),
             "ms_host_paced": cuda_ms(run_kernel, 20),
             "plain_ms": cuda_ms(run_plain, reps_plain),
+            **bound(moved(got), ops),
         }
         return got
 
     kw = {"bits": bits, "steps": steps, "vlen": n_valid}
+    # the encode writes, and the concat reads, only the emitted u32 words of each padded window
     win, cnt, states = check(
-        "tpx_encode", lambda: enc.encode_mega_cuda(*ops, **kw), lambda: enc.encode_mega_plain(*ops, **kw)
+        "tpx_encode", lambda: enc.encode_mega_cuda(*ops, **kw), lambda: enc.encode_mega_plain(*ops, **kw),
+        lambda got: nbytes(*ops, got[1], got[2]) + 4 * int(got[1].sum()), OPS_PER_SYMBOL["encode"] * n_valid,
     )
     w_slots = enc.wire_w_slots(int(cnt.sum(dim=2).max()))
     stream = check(
-        "tpx_concat", lambda: enc.concat_cuda(win, cnt, w_slots), lambda: enc.concat_plain(win, cnt, w_slots)
+        "tpx_concat", lambda: enc.concat_cuda(win, cnt, w_slots), lambda: enc.concat_plain(win, cnt, w_slots),
+        lambda got: 4 * int(cnt.sum()) + nbytes(cnt, got), 0,
     )
     sym, fc = dec.dec_tables(freqs, bits)
+    # the decode reads each row's words (u16), not the row's padding
     dops = (stream, states, torch.from_numpy(sym).to(dev), torch.from_numpy(fc).to(dev))
-    out = check("tpx_decode", lambda: dec.decode_mega_cuda(*dops, **kw), lambda: dec.decode_mega_plain(*dops, **kw))
+    out = check("tpx_decode", lambda: dec.decode_mega_cuda(*dops, **kw), lambda: dec.decode_mega_plain(*dops, **kw),
+                lambda got: 2 * int(cnt.sum()) + nbytes(*dops[1:], got), OPS_PER_SYMBOL["decode"] * n_valid)
     if out.cpu().numpy().reshape(-1).view(np.uint8)[:n_valid].tobytes() != data.tobytes():
         raise AssertionError(f"B={bits}: the decode kernel does not return the encoded megablock")
     emit("kernels_vs_plain", bits=bits, geometry=GEOM, w_slots=w_slots, **res)
@@ -175,17 +224,18 @@ def mt_kernel_vs_plain(name: str, blob: bytes, bits: int, n: int, dev: torch.dev
         "ms": cuda_ms(lambda: mtd.decode_blocks_cuda(*args, **kw), 20, queue_ahead=True),
         "ms_host_paced": cuda_ms(lambda: mtd.decode_blocks_cuda(*args, **kw), 20),
         "plain_ms": cuda_ms(lambda: mtd.decode_blocks_plain(*args, **kw), 1),
+        **bound(nbytes(*args, *got), OPS_PER_SYMBOL["decode"] * length),
     }
     emit("mt_kernels_vs_plain", **res)
     return res
 
 
-def mt_phases(repo: Path, dev: torch.device) -> tuple[list[dict], int]:
+def mt_phases(repo: Path, dev: torch.device) -> tuple[list[dict], int, dict]:
     """mt decode on the card: the kernel against its plain version per
     routing class of the JAX dispatcher and at the 64 MiB main path's
     launch, the main path, round trips, malformed blobs and times.  Returns
-    the kernel rows (the main path's first) and the main path's launch
-    count."""
+    the kernel rows (the main path's first), the main path's launch count,
+    and the inputs and plans made here, which the mt encode phases reuse."""
     from hsrans_tpu_torch import mt_decode_torch
     from hsrans_tpu_torch.ops.mt import mt_encode_py
     from hsrans_tpu_torch.ops.planner import plan_blocks_mt
@@ -195,6 +245,7 @@ def mt_phases(repo: Path, dev: torch.device) -> tuple[list[dict], int]:
 
     xray = np.fromfile(repo / "tests" / "corpus" / "xray.bin", np.uint8)
     encode_s: dict[str, float] = {}
+    plans: dict = {}
 
     def encode(name: str, data: np.ndarray, bits: int, n: int, plan) -> bytes:
         t0 = time.perf_counter()
@@ -204,7 +255,8 @@ def mt_phases(repo: Path, dev: torch.device) -> tuple[list[dict], int]:
 
     def dp(bits: int, n: int) -> tuple[str, np.ndarray, int, int, bytes]:
         name = f"x-ray n={n} B={bits} device_plan {MT_CAPS[bits] >> 10} KiB"
-        return name, xray, bits, n, encode(name, xray, bits, n, device_plan(xray, bits, n, MT_CAPS[bits]))
+        plans[(bits, n)] = device_plan(xray, bits, n, MT_CAPS[bits])
+        return name, xray, bits, n, encode(name, xray, bits, n, plans[(bits, n)])
 
     # 1. the kernel against its plain version, one 8 MiB x-ray blob per
     #    routing class of mt64_decode_tpu: #5, #8 (n=64 and n=32 halves),
@@ -240,7 +292,8 @@ def mt_phases(repo: Path, dev: torch.device) -> tuple[list[dict], int]:
     trips = [dp(10, 64), dp(13, 64), dp(14, 64), classes[1], classes[2], classes[3]]
     corpus = np.fromfile(repo / "tests" / "corpus" / "corpus.bin", np.uint8)
     name = "corpus.bin reference planner"
-    planner_blob = encode(name, corpus, 12, 64, plan_blocks_mt(corpus, 12, 64))
+    plans["corpus"] = plan_blocks_mt(corpus, 12, 64)
+    planner_blob = encode(name, corpus, 12, 64, plans["corpus"])
     trips.append((name, corpus, 12, 64, planner_blob))
     odd = text_like(rng, (1 << 20) + 64 * 5 + 17)  # the last block's tail: 17 bytes past a group
     for n in (32, 64):
@@ -248,7 +301,8 @@ def mt_phases(repo: Path, dev: torch.device) -> tuple[list[dict], int]:
         trips.append((name, odd, 12, n, encode(name, odd, 12, n, uniform_plan(odd, 12, n, 64 << 10))))
     runs = np.concatenate([text_like(rng, 300_000), np.full(200_000, 9, np.uint8), text_like(rng, 300_000), np.full(150_001, 200, np.uint8)])
     name = "single-symbol runs between coded blocks"
-    trips.append((name, runs, 12, 64, encode(name, runs, 12, 64, device_plan(runs, 12, 64, 24 << 10))))
+    plans["runs"] = device_plan(runs, 12, 64, 24 << 10)
+    trips.append((name, runs, 12, 64, encode(name, runs, 12, 64, plans["runs"])))
     for name, src, bits, n, b in trips:
         got = mt_decode_torch(b, bits, n, device="cuda")
         if got != src.tobytes():
@@ -291,11 +345,171 @@ def mt_phases(repo: Path, dev: torch.device) -> tuple[list[dict], int]:
     emit("mt_times", bytes=data.size, decode_MiBps=data.size / MIB / statistics.median(dec_s), decode_s=dec_s,
          layers=layers, planner_blob={"bytes": corpus.size, "decode_s": planner_s,
                                       "decode_MiBps": corpus.size / MIB / statistics.median(planner_s)})
+    ctx = {"xray": xray, "plans": plans, "main": (data, plan), "corpus": corpus, "odd": odd, "runs": runs}
+    return rows, launches, ctx
+
+
+def mt_encode_kernel_vs_plain(name: str, data: np.ndarray, plan, bits: int, n: int, rule: str, dev: torch.device) -> dict:
+    """The mt encode and placement kernels against their plain versions on
+    the same CUDA tensors of one plan, as `encode_plan` drives them; times
+    both."""
+    from hsrans_tpu_torch.kernels import mt_encode as mte
+
+    kinds, ks, index, freqs, bias = mte.plan_operands(data, plan, bits, n, rule)
+    data_t = torch.from_numpy(data).to(dev)
+    index_t, freqs_t = torch.from_numpy(index).to(dev), torch.from_numpy(freqs.view(np.int16)).to(dev)
+    kw = {"bits": bits, "n": n, "rule": rule, "words_cap": int(index[-1, 4])}
+    got = mte.encode_blocks_cuda(data_t, index_t, freqs_t, **kw)
+    torch.cuda.synchronize()
+    want = mte.encode_blocks_plain(data_t, index_t, freqs_t, **kw)
+    # the kernel leaves a region's slots below its words unwritten: compare the words the contract defines
+    err = max_abs_err((got[1], got[2], mte.emitted_words(got[0], index_t, got[1])),
+                      (want[1], want[2], mte.emitted_words(want[0], index_t, want[1])))
+    if err:
+        raise AssertionError(f"mt encode {name}: kernel differs from its plain version (max abs err {err})")
+    words_t, count_t, fin_t = got
+    count = count_t.cpu().numpy()
+    place, _, out_u16 = mte.part_layout(plan, kinds, ks, bias, count, n)
+    place_t = torch.from_numpy(place).to(dev)
+    pargs, pkw = (words_t, index_t, count_t, fin_t, freqs_t, place_t), {"n": n, "out_u16": out_u16}
+    blob_t = mte.place_blocks_cuda(*pargs, **pkw)
+    torch.cuda.synchronize()
+    perr = max_abs_err(blob_t, mte.place_blocks_plain(*pargs, **pkw))
+    if perr:
+        raise AssertionError(f"mt place {name}: kernel differs from its plain version (max abs err {perr})")
+    coded_bytes = int(np.maximum(index[:, 2] - index[:, 0], 0).sum())
+    words = 2 * int(count.sum())
+    enc_moved = coded_bytes + nbytes(index_t, freqs_t, count_t, fin_t) + words
+    res = {
+        "case": name, "bits": bits, "n": n, "rule": rule, "blocks": len(ks), "max_groups": int(index[:, 1].max()),
+        "coded_bytes": coded_bytes,
+        "mt_encode": {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: mte.encode_blocks_cuda(data_t, index_t, freqs_t, **kw), 20, queue_ahead=True),
+            "ms_host_paced": cuda_ms(lambda: mte.encode_blocks_cuda(data_t, index_t, freqs_t, **kw), 20),
+            "plain_ms": cuda_ms(lambda: mte.encode_blocks_plain(data_t, index_t, freqs_t, **kw), 1),
+            **bound(enc_moved, OPS_PER_SYMBOL["encode"] * coded_bytes),
+        },
+        "mt_place": {
+            "max_abs_err": perr,
+            "ms": cuda_ms(lambda: mte.place_blocks_cuda(*pargs, **pkw), 20, queue_ahead=True),
+            "ms_host_paced": cuda_ms(lambda: mte.place_blocks_cuda(*pargs, **pkw), 20),
+            "plain_ms": cuda_ms(lambda: mte.place_blocks_plain(*pargs, **pkw), 1),
+            **bound(words + nbytes(index_t, count_t, fin_t, freqs_t, place_t, blob_t), 0),
+        },
+    }
+    emit("mt_encode_kernels_vs_plain", **res)
+    return res
+
+
+def mt_encode_phases(repo: Path, dev: torch.device, ctx: dict) -> tuple[list[dict], dict]:
+    """mt encode on the card: the kernels against their plain versions, the
+    main path (encode on the card, decode on the card), round trips and
+    times.  Returns the kernel rows (the main path (a)'s first) and the
+    launches of one round trip of the main path (a)."""
+    from hsrans_tpu_torch import mt_decode_torch, mt_encode_torch
+    from hsrans_tpu_torch.kernels.mt_encode import uniform_rows
+    from hsrans_tpu_torch.ops.planner import BlockPlan
+    from hsrans_tpu_torch.ops.tpx import make_tile_hist
+    from hsrans_tpu_torch.parallel.sharded import mt_encode_device
+    from hsrans_tpu_torch.runtime import build
+    from tools.gen_inputs import text_like
+
+    xray, plans = ctx["xray"], ctx["plans"]
+    xray64, plan64 = ctx["main"]
+    text64 = text_like(np.random.default_rng(8), 64 * MIB)
+
+    # 1. the kernels against their plain versions: the main path (a)'s own
+    #    launch, 8 MiB x-ray classes, uniform 4 KiB blocks and (b)'s launch
+    rows = [mt_encode_kernel_vs_plain("x-ray 64 MiB main path (a)", xray64, plan64, 12, 64, "groups", dev)]
+    for bits, n in ((12, 64), (15, 64), (12, 32)):
+        rule = "groups" if n == 64 else "section"  # n=32 runs through mt_encode_device
+        rows.append(mt_encode_kernel_vs_plain(f"x-ray n={n} B={bits} device_plan {MT_CAPS[bits] >> 10} KiB",
+                                              xray, plans[(bits, n)], bits, n, rule, dev))
+    rows.append(mt_encode_kernel_vs_plain("x-ray n=64 B=12 uniform 4 KiB", xray, uniform_rows(xray.size, 4096), 12, 64,
+                                          "groups", dev))
+    rows.append(mt_encode_kernel_vs_plain("text 64 MiB main path (b)", text64, uniform_rows(text64.size, 4096), 12, 64,
+                                          "groups", dev))
+
+    # 2. the main path: (a) 64 MiB x-ray, device_plan 24 KiB, and (b) 64 MiB
+    #    enwik8-like text in uniform 4 KiB blocks (mt64_encode_tpu's
+    #    default); each encoded on the card, held against the CPU tier, and
+    #    decoded on the card
+    launches = {}
+    for case, data, plan in (("a", xray64, plan64), ("b", text64, None)):
+        build.reset_launches()
+        blob = mt_encode_torch(data, 12, plan=plan, device="cuda")
+        back = mt_decode_torch(blob, 12, 64, device="cuda")
+        torch.cuda.synchronize()
+        got = {k: build.LAUNCHES[k] for k in ("mt_encode", "mt_place", "mt_decode")}
+        if got != {"mt_encode": 1, "mt_place": 1, "mt_decode": 1}:
+            raise AssertionError(f"mt encode ({case}): launches {got}, one of each kernel expected")
+        if back != data.tobytes():
+            raise AssertionError(f"mt encode ({case}): decode on the card does not return the input")
+        t0 = time.perf_counter()
+        if mt_encode_torch(data, 12, plan=plan, device="cpu") != blob:
+            raise AssertionError(f"mt encode ({case}): the card's blob differs from the CPU tier's")
+        cpu_s = time.perf_counter() - t0
+        rows_ = plan if plan is not None else uniform_rows(data.size, 4096)
+        emit("mt_encode_main_path", case=case, bytes=data.size, ratio=len(blob) / data.size, blocks=len(rows_),
+             coded_blocks=sum(not r.is_single for r in rows_), launches=got, cpu_tier_encode_s=cpu_s)
+        if case == "a":
+            launches = got
+
+    # 3. round trips, each held against the CPU tier and decoded on the card
+    odd, runs = ctx["odd"], ctx["runs"]
+    cuts = [0, 10_003, 25_000, 33_333, 100_000, 104_097, 1 << 18]  # every block of x-ray holds the byte 0
+    odd_rows = [(cuts[i], cuts[i + 1] - cuts[i]) for i in range(len(cuts) - 1)]
+
+    def torch_enc(plan=None, bits=12):
+        return lambda d, device: mt_encode_torch(d, bits, plan=plan, device=device)
+
+    def device_enc(n, plan=None, bits=12):
+        return lambda d, device: mt_encode_device(d, bits, n, plan=plan, device=device)
+
+    xr2 = xray[1 << 19 : (1 << 19) + (1 << 18)]  # past x-ray's leading 512 KiB run of zeros
+    odd_plan = [BlockPlan(s, z, False, 0, make_tile_hist(xr2[s : s + z], 12).symbol_count) for s, z in odd_rows]
+    trips = [(f"x-ray n=64 B={b} device_plan {MT_CAPS[b] >> 10} KiB", xray, b, 64, torch_enc(plans[(b, 64)], b))
+             for b in (10, 13, 14, 15)]
+    trips += [
+        ("x-ray n=32 B=12 device_plan 24 KiB (mt_encode_device)", xray, 12, 32, device_enc(32, plans[(12, 32)])),
+        ("x-ray n=32 B=12 uniform 64 KiB (mt_encode_device)", xray, 12, 32,
+         lambda d, device: mt_encode_device(d, 12, 32, uniform_block=64 << 10, device=device)),
+        ("corpus.bin reference planner", ctx["corpus"], 12, 64, torch_enc(plans["corpus"])),
+        ("uniform 4 KiB odd tail", odd, 12, 64, torch_enc()),
+        ("single-symbol runs between coded blocks", runs, 12, 64, torch_enc(plans["runs"])),
+        ("block sizes off the 64-byte grid", xr2, 12, 64, torch_enc(odd_plan)),
+        ("block sizes off the 64-byte grid (mt_encode_device)", xr2, 12, 64, device_enc(64, odd_plan)),
+    ]
+    for name, src, bits, n, encode in trips:
+        t0 = time.perf_counter()
+        blob = encode(src, "cuda")
+        card_s = time.perf_counter() - t0
+        if mt_decode_torch(blob, bits, n, device="cuda") != src.tobytes():
+            raise AssertionError(f"mt encode {name}: decode on the card does not return the input")
+        t0 = time.perf_counter()
+        if encode(src, "cpu") != blob:
+            raise AssertionError(f"mt encode {name}: the card's blob differs from the CPU tier's")
+        emit("mt_encode_round_trip", case=name, bits=bits, n=n, bytes=src.size, ratio=len(blob) / src.size,
+             encode_s=card_s, cpu_tier_encode_s=time.perf_counter() - t0)
+
+    # 4. times: (a) and (b) end to end, host bytes to host bytes, median of
+    #    3, then one pass split by layer; the reference planner's plan
+    times = {}
+    for case, data, plan in (("a", xray64, plan64), ("b", text64, None)):
+        enc_s = host_s(lambda: mt_encode_torch(data, 12, plan=plan, device="cuda"), 3)
+        layers: dict[str, float] = {}
+        mt_encode_torch(data, 12, plan=plan, device="cuda", layers=layers)
+        times[case] = {"encode_MiBps": data.size / MIB / statistics.median(enc_s), "encode_s": enc_s, "layers": layers}
+    planner_s = host_s(lambda: mt_encode_torch(ctx["corpus"], 12, plan=plans["corpus"], device="cuda"), 3)
+    emit("mt_encode_times", bytes=xray64.size, **times,
+         planner_plan={"bytes": ctx["corpus"].size, "encode_s": planner_s,
+                       "encode_MiBps": ctx["corpus"].size / MIB / statistics.median(planner_s)})
     return rows, launches
 
 
 def main() -> int:
-    global CARD
+    global CARD, OPS_PER_S
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
@@ -306,6 +520,7 @@ def main() -> int:
     from tools.gen_inputs import text_like
 
     CARD = card()
+    OPS_PER_S = int32_ops_per_s()
     dev = torch.device("cuda", 0)
 
     def round_trip(name: str, data: np.ndarray, encode) -> bytes:
@@ -327,7 +542,7 @@ def main() -> int:
     build.load()
     ptxas = [ln.strip() for ln in build.build_log().splitlines() if "Used" in ln or "entry function" in ln]
     emit("probe", banner=banner(), torch=torch.__version__, cuda=torch.version.cuda,
-         build_s=build.build_seconds, load_s=time.perf_counter() - t0, ptxas=ptxas)
+         build_s=build.build_seconds, load_s=time.perf_counter() - t0, ptxas=ptxas, int32_ops_per_s=OPS_PER_S)
 
     # 2. each kernel against its plain version at the default geometry, B=12 and B=15
     mega = text_like(np.random.default_rng(8), 16 * MIB)
@@ -400,7 +615,10 @@ def main() -> int:
     )
 
     # 7. mt decode: kernel classes, main path, round trips, malformed, times
-    mt_rows, mt_launches = mt_phases(repo, dev)
+    mt_rows, mt_launches, ctx = mt_phases(repo, dev)
+
+    # 8. mt encode: kernels vs plain, main path (a) and (b), round trips, times
+    enc_rows, enc_launches = mt_encode_phases(repo, dev, ctx)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsrans_tpu"))
     if foreign:
@@ -408,20 +626,28 @@ def main() -> int:
 
     print(CARD)
     summary = []
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     for name, (source, replaces) in KERNELS.items():
-        if name == "mt_decode":  # timed at the main path's launch (64 MiB, n=64 B=12 device_plan)
+        # each timed at its main path's launch: the 16 MiB B=12 mega (tpx),
+        # the 64 MiB x-ray n=64 B=12 device_plan blob (mt decode) and plan (mt encode)
+        if name == "mt_decode":
             row = {"launches": mt_launches, "max_abs_err": max(r["max_abs_err"] for r in mt_rows),
-                   "ms": mt_rows[0]["ms"], "plain_ms": mt_rows[0]["plain_ms"]}
+                   **{k: mt_rows[0][k] for k in keys}}
+        elif name in enc_launches:
+            row = {"launches": enc_launches[name], "max_abs_err": max(r[name]["max_abs_err"] for r in enc_rows),
+                   **{k: enc_rows[0][name][k] for k in keys}}
         else:
             row = {"launches": launches[name], "max_abs_err": max(per_bits[b][name]["max_abs_err"] for b in per_bits),
-                   "ms": per_bits[12][name]["ms"], "plain_ms": per_bits[12][name]["plain_ms"]}
-        summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, **row})
+                   **{k: per_bits[12][name][k] for k in keys}}
+        # no single PyTorch call runs a rANS state chain or writes the wire's layout
+        summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, **row, "library_ms": None})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
 
 
 CARD = ""
+OPS_PER_S = 0.0  # int32_ops_per_s() of the card, set by main
 
 if __name__ == "__main__":
     sys.exit(main())

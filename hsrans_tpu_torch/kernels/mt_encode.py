@@ -1,0 +1,374 @@
+"""mt encode: the port of `hsrans_tpu/kernels/mt64_encode.py::mt64_encode_tpu`
+to PyTorch and CUDA (`csrc/mt_encode.cu`).
+
+Every coded block is encoded from fresh states, as the JAX package's device
+encoders do: each mt block carries its own state snapshot, so the blob is
+valid wire that the C++ reference and `mt_decode_torch` decode, byte-
+different from the carried-state oracle `ops.mt.mt_encode_py`.  The host
+makes the plan's histograms and one small index row per coded block; the
+input goes to the card as it is.  One launch encodes every coded block
+(`encode_blocks`), each block's words landing in wire order at the end of
+its own scratch region; the host turns the word counts into the blob's part
+offsets, and one more launch writes each coded block's part, header and
+words, at its offset (`place_blocks`).  The host then writes the blob's
+header and the single-symbol indicators.  Unlike the JAX package, no coded
+block goes to a host encoder (the final block, and sizes off its kernel's
+512-byte grid, included); the bytes are the same.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from ..ops.mt import _as_array
+from ..ops.planner import BlockPlan
+from ..ops.tpx import make_tile_hists
+from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
+from ..runtime import build
+from ..runtime.device import layer_clock, resolve
+from .tpx_decode import from_u32, to_u32
+
+_M32 = 0xFFFFFFFF
+_SINGLE_BIT = 1 << 63
+_SYM_SHIFT = 54
+# columns of the int64 per-block index; csrc/mt_encode.cu::EncIndex
+INDEX_FIELDS = ("in_start", "num_groups", "byte_limit", "valid_limit", "region_end")
+# columns of the int64 per-block placement rows; csrc/mt_encode.cu::PlaceRow
+PLACE_FIELDS = ("dest", "size_field", "offset_bias")
+# the two encoders of the JAX package differ in how a symbol of freq 0 emits
+# (only where a lane reads a byte that its block's freqs do not cover):
+# ops/reference.py::encode_groups emits always, ops/raw_jax.py::encode_section
+# tests the state against the emit point of freq 1
+RULES = ("groups", "section")
+
+
+def coded_header_u16(n: int) -> int:
+    """u16s of a coded block's header: size, offset, n states, 256 freqs."""
+    return 4 + 4 + 2 * n + 256
+
+
+def encode_tables(freqs: torch.Tensor, bits: int, rule: str) -> tuple[torch.Tensor, ...]:
+    """Per-symbol encode operands of the kernel's shared-memory table, as the
+    kernel builds them from freqs int16 [nb, 256] (u16 bits): (e, cumul, d,
+    magic m, shift l), each int64 [nb, 256].  d = max(freq, 1) and
+    q = (m * x) >> (31 + l) == x // d for every x < 2^31 (Granlund-
+    Montgomery); e is the freq the emit test scales (RULES)."""
+    f = freqs.to(torch.int64) & 0xFFFF
+    cum = (torch.cumsum(f, dim=1) - f) & 0xFFFF  # u16 on the wire
+    d = torch.clamp(f, min=1)
+    l = torch.zeros_like(d)
+    for k in range(16):
+        l = torch.where(d > (1 << k), k + 1, l)
+    m = (torch.bitwise_left_shift(torch.ones_like(l), 31 + l) + d - 1) // d
+    e = f if rule == "groups" else d
+    return e, cum, d, m, l
+
+
+def encode_blocks_plain(data, index, freqs, *, bits: int, n: int, rule: str, words_cap: int):
+    """Plain PyTorch version of the encode kernel, on any device.
+
+    data uint8 [length] (the input), index int64 [nb, 5] (INDEX_FIELDS),
+    freqs int16 [nb, 256] (u16, summing to 2^B) -> (words int16 [words_cap]:
+    block b's emitted words, u16, in wire order (group ascending, lane
+    ascending) at the end of its region, i.e. at [region_end - count,
+    region_end), 0 elsewhere; count int64 [nb]; final states int32 [nb, n]
+    (u32 bits), the block header's).  Block b encodes num_groups groups
+    backward from DECODE_CONSUME_POINT_16; lane j of group g codes byte
+    in_start + g*n + IDX2IDX[n][j], read as 0 from byte_limit (or the input's
+    end) on, and takes part while that position is below valid_limit.
+    Vectorized over blocks, looping to the largest num_groups."""
+    dev = data.device
+    nb = index.shape[0]
+    words = torch.zeros(words_cap, dtype=torch.int64, device=dev)
+    st = torch.full((nb, n), DECODE_CONSUME_POINT_16, dtype=torch.int64, device=dev)
+    tail = index[:, 4].clone()
+    if nb == 0:
+        return words.to(torch.int16), torch.zeros(0, dtype=torch.int64, device=dev), from_u32(st)
+    e_t, cum_t, d_t, m_t, l_t = encode_tables(freqs, bits, rule)
+    in_start, num_groups, byte_limit, valid_limit, _ = (c[:, None] for c in index.unbind(1))
+    byte_limit = torch.clamp(byte_limit, max=data.numel())
+    perm = torch.from_numpy(IDX2IDX[n]).to(dev)[None, :]
+    src = data.to(torch.int64) if data.numel() else torch.zeros(1, dtype=torch.int64, device=dev)
+    for g in range(int(index[:, 1].max()) - 1, -1, -1):
+        pos = in_start + g * n + perm
+        inside = (pos >= 0) & (pos < byte_limit)
+        byte = torch.where(inside, src[torch.clamp(pos, 0, src.numel() - 1)], 0)
+        valid = (g < num_groups) & (pos < valid_limit)
+        e, cum, d, m, l = (torch.gather(t, 1, byte) for t in (e_t, cum_t, d_t, m_t, l_t))
+        emit = valid & (st >= e << (31 - bits))
+        word = st & 0xFFFF
+        x = torch.where(emit, st >> 16, st)
+        q = (m * x) >> (31 + l)  # < 2^63: m < 2^32, x < 2^31
+        st = torch.where(valid, ((q << bits) + cum + x - q * d) & _M32, st)
+        c = emit.to(torch.int64)
+        tail = tail - c.sum(dim=1)
+        at = tail[:, None] + torch.cumsum(c, dim=1) - c  # lane-ascending within the group
+        words[at[emit]] = word[emit]
+    return words.to(torch.int16), index[:, 4] - tail, from_u32(st)
+
+
+def encode_blocks_cuda(data, index, freqs, *, bits: int, n: int, rule: str, words_cap: int):
+    """The CUDA encode kernel (`csrc/mt_encode.cu`) on CUDA tensors; same
+    contract as encode_blocks_plain, except that a region's slots below its
+    words are left as they were (unwritten scratch).  Raises for any other
+    tensor."""
+    dev = build.check_cuda("encode_blocks_cuda", data, index, freqs, uint8=(0,), int64=(1,), int16=(2,))
+    nb = index.shape[0]
+    if n not in (32, 64) or not 1 <= bits <= 15 or rule not in RULES:
+        raise ValueError("encode_blocks_cuda: n must be 32 or 64, bits 1..15 and rule one of RULES")
+    if index.shape != (nb, len(INDEX_FIELDS)) or freqs.shape != (nb, 256):
+        raise ValueError("encode_blocks_cuda: operand shapes do not match the block count")
+    words = torch.empty(words_cap, dtype=torch.int16, device=dev)
+    count = torch.empty(nb, dtype=torch.int64, device=dev)
+    fin = torch.empty((nb, n), dtype=torch.int32, device=dev)
+    if nb:
+        build.launch(
+            "mt_encode", "hsr_mt_encode", dev,
+            data.data_ptr(), index.data_ptr(), freqs.data_ptr(), words.data_ptr(), fin.data_ptr(),
+            count.data_ptr(), nb, n, bits, int(rule == "groups"), data.numel(), words_cap,
+        )
+    return words, count, fin
+
+
+def encode_blocks(data, index, freqs, *, bits: int, n: int, rule: str, words_cap: int):
+    """The kernel for CUDA operands, its plain version for CPU operands."""
+    fn = encode_blocks_plain if data.device.type == "cpu" else encode_blocks_cuda
+    return fn(data, index, freqs, bits=bits, n=n, rule=rule, words_cap=words_cap)
+
+
+def emitted_words(words: torch.Tensor, index: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """Every block's emitted words, blocks in order: the part of the encode's
+    scratch that its contract defines (the words of all coded blocks as the
+    wire holds them, headers aside)."""
+    end = index[:, 4]
+    lens = count
+    starts = torch.repeat_interleave(end - lens, lens)
+    offs = torch.arange(int(lens.sum()), device=words.device) - torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens)
+    return words[starts + offs]
+
+
+def place_blocks_plain(words, index, count, fin, freqs, place, *, n: int, out_u16: int) -> torch.Tensor:
+    """Plain PyTorch version of the placement kernel, on any device.
+
+    words int16 [words_cap], index int64 [nb, 5], count int64 [nb], fin int32
+    [nb, n], freqs int16 [nb, 256] (the encode's operands and results),
+    place int64 [nb, 3] (PLACE_FIELDS) -> uint8 [2 * out_u16]: block b's
+    coded part at u16 dest: u64 size_field, u64 offset (2n + 256 + count -
+    offset_bias), the n final states as u32, the freqs as u16, then its
+    words; 0 elsewhere."""
+    dev = words.device
+    nb = index.shape[0]
+    out = torch.zeros(out_u16, dtype=torch.int64, device=dev)
+    if nb:
+        hdr = coded_header_u16(n)
+        dest, size_field, bias = place.unbind(1)
+        offset = 2 * n + 256 + count - bias
+        sh = torch.arange(4, device=dev) * 16
+        st = to_u32(fin)
+        fields = torch.cat(
+            [
+                (size_field[:, None] >> sh) & 0xFFFF,
+                (offset[:, None] >> sh) & 0xFFFF,
+                torch.stack([st & 0xFFFF, st >> 16], dim=2).reshape(nb, 2 * n),
+                freqs.to(torch.int64) & 0xFFFF,
+            ],
+            dim=1,
+        )
+        out[dest[:, None] + torch.arange(hdr, device=dev)] = fields
+        word_dest = torch.repeat_interleave(dest + hdr, count)
+        word_dest = word_dest + torch.arange(word_dest.numel(), device=dev) - torch.repeat_interleave(torch.cumsum(count, 0) - count, count)
+        out[word_dest] = emitted_words(words, index, count).to(torch.int64) & 0xFFFF
+    return out.to(torch.int16).view(torch.uint8)
+
+
+def place_blocks_cuda(words, index, count, fin, freqs, place, *, n: int, out_u16: int) -> torch.Tensor:
+    """The CUDA placement kernel (`csrc/mt_encode.cu`) on CUDA tensors; same
+    contract as place_blocks_plain.  Raises for any other tensor."""
+    dev = build.check_cuda(
+        "place_blocks_cuda", words, index, count, fin, freqs, place, int16=(0, 4), int64=(1, 2, 5)
+    )
+    nb = index.shape[0]
+    if n not in (32, 64):
+        raise ValueError("place_blocks_cuda: n must be 32 or 64")
+    if count.shape != (nb,) or fin.shape != (nb, n) or freqs.shape != (nb, 256) or place.shape != (nb, len(PLACE_FIELDS)):
+        raise ValueError("place_blocks_cuda: operand shapes do not match the block count")
+    out = torch.zeros(2 * out_u16, dtype=torch.uint8, device=dev)
+    if nb:
+        build.launch(
+            "mt_place", "hsr_mt_place", dev,
+            words.data_ptr(), index.data_ptr(), count.data_ptr(), fin.data_ptr(), freqs.data_ptr(),
+            place.data_ptr(), out.data_ptr(), nb, n, words.numel(), out_u16,
+        )
+    return out
+
+
+def place_blocks(words, index, count, fin, freqs, place, *, n: int, out_u16: int) -> torch.Tensor:
+    """The kernel for CUDA operands, its plain version for CPU operands."""
+    fn = place_blocks_plain if words.device.type == "cpu" else place_blocks_cuda
+    return fn(words, index, count, fin, freqs, place, n=n, out_u16=out_u16)
+
+
+def _input_tensor(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The input on `dev`, without a host copy where it is contiguous; it is
+    only read, so a read-only buffer (bytes) is taken as it is."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+
+def plan_operands(arr: np.ndarray, plan: list[BlockPlan], bits: int, n: int, rule: str):
+    """Host side of one encode: (kinds int8 [rows]: 0 empty part, 1 single-
+    symbol indicator, 2 coded block; coded rows' plan positions int64 [nb];
+    index int64 [nb, 5]; freqs uint16 [nb, 256]; offset bias int64 [nb]).
+
+    A plan row's freq may be None: the histogram of the block's bytes within
+    the input is taken, as both JAX encoders take it (batched here).  Under
+    the "groups" rule (mt64_encode_tpu) a coded row of size 0 writes nothing
+    and a partial last group's lanes take part up to the input's end; under
+    "section" (mt_encode_device) a size-0 row writes a header of no words and
+    lanes take part up to the block's end.  Raises ValueError for a coded
+    row whose freqs do not sum to 2^B, and, under "groups", for one whose
+    lanes past its end code the byte 0 while its freqs give 0 no slot: the
+    decoder would read another symbol there, so the blob would not decode
+    (mt64_encode_tpu returns that blob; the port refuses it)."""
+    length = arr.size
+    kinds = np.zeros(len(plan), np.int8)
+    coded = []
+    for k, row in enumerate(plan):
+        if row.is_single:
+            kinds[k] = 1
+        elif row.size or rule == "section":
+            kinds[k] = 2
+            coded.append(k)
+    nb = len(coded)
+    ks = np.asarray(coded, np.int64)
+    start = np.fromiter((plan[k].start for k in coded), np.int64, nb)
+    size = np.fromiter((plan[k].size for k in coded), np.int64, nb)
+    byte_limit = np.minimum(start + size, length)
+    freqs = np.zeros((nb, 256), np.uint16)
+    given = np.fromiter((plan[k].freq is not None for k in coded), bool, nb)
+    if given.any():
+        freqs[given] = np.stack([plan[k].freq for k in ks[given]])
+    if not given.all():
+        freqs[~given] = make_tile_hists(arr, start[~given], byte_limit[~given], bits)
+    bad = np.nonzero(freqs.sum(axis=1, dtype=np.int64) != 1 << bits)[0]
+    if bad.size:
+        raise ValueError(f"plan row {coded[int(bad[0])]}: freqs do not sum to 2^{bits}")
+    num_groups = -(-size // n)
+    valid_limit = np.full(nb, length, np.int64) if rule == "groups" else byte_limit
+    # the partial last group of a non-final block: under "groups" its lanes
+    # past byte_limit code the byte 0 up to the input's end (ops/mt.py::_lane_groups)
+    zero_lanes = (byte_limit < np.minimum(start + num_groups * n, valid_limit)) & (freqs[:, 0] == 0)
+    if zero_lanes.any():
+        raise ValueError(
+            f"plan row {coded[int(np.argmax(zero_lanes))]}: its last group's lanes past the block's end code "
+            "the byte 0, which its freqs give no slot; the blob would not decode"
+        )
+    region_end = np.cumsum(num_groups * n)
+    index = np.stack([start, num_groups, byte_limit, valid_limit, region_end], axis=1).reshape(nb, 5)
+    bias = np.where(ks == len(plan) - 1, 2, 1).astype(np.int64)  # the final row points at the stream's end
+    return kinds, ks, index, freqs, bias
+
+
+def part_layout(plan: list[BlockPlan], kinds: np.ndarray, ks: np.ndarray, bias: np.ndarray, count: np.ndarray, n: int):
+    """Where each part of the blob goes, from the coded blocks' word counts:
+    (the placement rows int64 [nb, 3] (PLACE_FIELDS), every plan row's part
+    offset int64 [rows] in u16, the blob's length in u16).  Parts, in u16:
+    an indicator 4, a coded block its header and words, an empty row 0;
+    they follow the blob's two u64 fields."""
+    part = np.where(kinds == 1, 4, 0).astype(np.int64)
+    part[ks] = coded_header_u16(n) + count
+    dest = 8 + np.cumsum(part) - part
+    size = np.fromiter((plan[k].size for k in ks), np.int64, len(ks))
+    place = np.stack([dest[ks], size, bias], axis=1).reshape(-1, len(PLACE_FIELDS))
+    return place, dest, 8 + int(part.sum())
+
+
+def encode_plan(
+    arr: np.ndarray,
+    plan: list[BlockPlan],
+    bits: int,
+    n: int,
+    rule: str,
+    dev: torch.device,
+    layers: dict[str, float] | None = None,
+) -> bytes:
+    """The mt blob of `plan` over `arr`, every coded block encoded from fresh
+    states on `dev` (plan_operands says what `rule` changes)."""
+    if n not in (32, 64) or not 1 <= bits <= 15:
+        raise ValueError("mt encode needs n in (32, 64) and 1 <= bits <= 15")
+    length = arr.size
+    with layer_clock(layers, "host_hist_tables", dev):
+        kinds, ks, index, freqs, bias = plan_operands(arr, plan, bits, n, rule)
+    words_cap = int(index[-1, 4]) if len(ks) else 0
+    with layer_clock(layers, "h2d", dev):
+        data_t = _input_tensor(arr, dev)
+        index_t = torch.from_numpy(index).to(dev)
+        freqs_t = torch.from_numpy(freqs.view(np.int16)).to(dev)
+    with layer_clock(layers, "kernel_encode", dev):
+        words_t, count_t, fin_t = encode_blocks(data_t, index_t, freqs_t, bits=bits, n=n, rule=rule, words_cap=words_cap)
+    with layer_clock(layers, "host_layout", dev):
+        place, dest, out_u16 = part_layout(plan, kinds, ks, bias, count_t.cpu().numpy(), n)
+        place_t = torch.from_numpy(place).to(dev)
+    with layer_clock(layers, "kernel_place", dev):
+        blob_t = place_blocks(words_t, index_t, count_t, fin_t, freqs_t, place_t, n=n, out_u16=out_u16)
+    with layer_clock(layers, "d2h", dev):
+        blob = blob_t.cpu().numpy()
+    with layer_clock(layers, "host_mux", dev):
+        head = np.asarray([length, 2 * out_u16], np.uint64)
+        singles = np.nonzero(kinds == 1)[0]
+        ind = np.fromiter(
+            (plan[k].size | _SINGLE_BIT | (plan[k].symbol << _SYM_SHIFT) for k in singles), np.uint64, singles.size
+        )
+        blob[:16] = head.view(np.uint8)
+        at = 2 * dest[singles][:, None] + np.arange(8)
+        blob[at] = ind.view(np.uint8).reshape(-1, 8)
+        return blob.tobytes()
+
+
+def _kernel_block_ok(size: int) -> bool:
+    """mt64_encode_tpu's uniform block sizes: a multiple of 512, and of 8 KiB
+    above 8 KiB."""
+    return size % 512 == 0 and (size <= 8192 or size % 8192 == 0)
+
+
+def uniform_rows(length: int, block_size: int) -> list[BlockPlan]:
+    """mt64_encode_tpu's plan without one: `block_size` blocks, a remainder
+    shorter than a lane group joined to the final block, freqs left to the
+    encoder."""
+    starts = list(range(0, length, block_size)) or [0]
+    if len(starts) > 1 and length - starts[-1] < 64:
+        starts.pop()
+    ends = starts[1:] + [length]
+    return [BlockPlan(s, e - s, False, 0, None) for s, e in zip(starts, ends)]
+
+
+def mt_encode_torch(
+    data: bytes | np.ndarray,
+    bits: int,
+    block_size: int = 4096,
+    plan: list[BlockPlan] | None = None,
+    device: str | torch.device = "cuda",
+    layers: dict[str, float] | None = None,
+) -> bytes:
+    """Encode to the mt_rANS32x64 16w wire on `device`; equal to the JAX
+    package's `mt64_encode_tpu(data, bits, block_size, plan=plan)`.
+
+    Without `plan`: uniform `block_size` blocks (a multiple of 512, and of
+    8 KiB above 8 KiB; ValueError otherwise).  With `plan` (the reference
+    planner's rows, `parallel.sharded.device_plan`'s, ...): its blocks as
+    they are, single-symbol rows as RLE indicators.
+
+    With `layers`, adds the seconds of each layer of this call to it
+    (host_hist_tables, h2d, kernel_encode, host_layout, kernel_place, d2h,
+    host_mux), the device synchronized at each boundary."""
+    if plan is None and not _kernel_block_ok(block_size):
+        raise ValueError("block_size must be a multiple of 512 (of 8192 above 8 KiB)")
+    dev = resolve(device)
+    arr = _as_array(data)
+    if plan is None:
+        plan = uniform_rows(arr.size, block_size)
+    return encode_plan(arr, plan, bits, 64, "groups", dev, layers)

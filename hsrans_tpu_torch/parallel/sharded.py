@@ -1,18 +1,25 @@
-"""Block plans of the mt wire made for a batched device decoder.
+"""Block plans of the mt wire made for a batched device decoder, and the
+batched device encoder of `hsrans_tpu/parallel/sharded.py`.
 
 The port's copy of `uniform_plan` and `device_plan` from
 `hsrans_tpu/parallel/sharded.py`, on the port's planner and tile histogram,
 so that the port loads no module of the JAX package;
 `tests/test_torch_mt_decode.py` holds the plans equal.  Any segmentation is
 valid on the wire, so both plans' blobs stay decodable by the reference.
+`mt_encode_device` is the port of its namesake on one device (its XLA scan
+becomes the mt encode kernel); the mesh fan-out is still to port.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..kernels.mt_encode import encode_plan
+from ..ops.mt import _as_array
 from ..ops.planner import BlockPlan, plan_blocks_mt
 from ..ops.tpx import make_tile_hist
+from ..runtime.device import resolve
 
 
 def uniform_plan(data: np.ndarray, bits: int, n: int, block_size: int = 1 << 16) -> list[BlockPlan]:
@@ -59,3 +66,23 @@ def device_plan(data: np.ndarray, bits: int, n: int = 64, max_block: int = 32 <<
             for s, e in zip(starts[p : p + 2], ends[p : p + 2]):
                 out.append(BlockPlan(s, e - s, False, 0, freq))
     return out
+
+
+def mt_encode_device(
+    data: bytes | np.ndarray,
+    bits: int,
+    n: int,
+    plan: list[BlockPlan] | None = None,
+    uniform_block: int | None = None,
+    device: str | torch.device = "cuda",
+) -> bytes:
+    """Encode to the mt wire (n in {32, 64}) with every coded block encoded
+    from fresh states on `device`; equal to the JAX package's
+    `mt_encode_device(data, bits, n, mesh=None, plan=plan,
+    uniform_block=uniform_block)`.  Without `plan`: `uniform_plan` blocks of
+    `uniform_block` bytes if it is given, else the reference planner's."""
+    dev = resolve(device)
+    arr = _as_array(data)
+    if plan is None:
+        plan = uniform_plan(arr, bits, n, uniform_block) if uniform_block else plan_blocks_mt(arr, bits, n)
+    return encode_plan(arr, plan, bits, n, "section", dev)

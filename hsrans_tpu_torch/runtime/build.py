@@ -35,7 +35,9 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> successful launches since the last reset_launches()
-LAUNCHES: dict[str, int] = {"tpx_decode": 0, "tpx_encode": 0, "tpx_concat": 0, "mt_decode": 0}
+LAUNCHES: dict[str, int] = {
+    "tpx_decode": 0, "tpx_encode": 0, "tpx_concat": 0, "mt_decode": 0, "mt_encode": 0, "mt_place": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +50,10 @@ _SIGNATURES = {
     "hsr_tpx_concat": [_P, _P, _P, _I, _I, _I, _I, _P],
     # stream, index, init states, fc table, out, final states, cursors, nb, n, bits, nwords, length, cuda stream
     "hsr_mt_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
+    # data, index, freqs, words, final states, counts, nb, n, bits, zero_freq_emits, data_len, words_cap, cuda stream
+    "hsr_mt_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
+    # words, index, counts, final states, freqs, place rows, out, nb, n, words_cap, out_len, cuda stream
+    "hsr_mt_place": [_P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
 }
 
 _lib = None
@@ -169,17 +175,22 @@ def reset_launches() -> None:
 
 
 def check_cuda(
-    name: str, *tensors: torch.Tensor, uint8: tuple[int, ...] = (), int64: tuple[int, ...] = ()
+    name: str,
+    *tensors: torch.Tensor,
+    uint8: tuple[int, ...] = (),
+    int16: tuple[int, ...] = (),
+    int64: tuple[int, ...] = (),
 ) -> torch.device:
     """Wrapper-side validation: every operand a contiguous CUDA tensor on one
-    device, int32 except the positions listed in `uint8` and `int64`."""
+    device, int32 except the positions listed in `uint8`, `int16` and
+    `int64`."""
     dev = tensors[0].device
     for i, t in enumerate(tensors):
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: every operand must lie on one CUDA device (got {t.device})")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-        want = torch.uint8 if i in uint8 else torch.int64 if i in int64 else torch.int32
+        want = torch.uint8 if i in uint8 else torch.int16 if i in int16 else torch.int64 if i in int64 else torch.int32
         if t.dtype != want:
             raise ValueError(f"{name}: operand {i} must be {want} (got {t.dtype})")
     return dev

@@ -14,6 +14,7 @@ import torch
 from hsrans_tpu.ops.mt import mt_decode_py, mt_encode_py
 from hsrans_tpu.ops.tpx import TpxParams, _mega_layout, tpx_encode, tpx_encode_adaptive
 from hsrans_tpu_torch.kernels import mt_decode as mtd
+from hsrans_tpu_torch.kernels import mt_encode as mte
 from hsrans_tpu_torch.kernels import tpx_decode as dec
 from hsrans_tpu_torch.kernels import tpx_encode as enc
 from hsrans_tpu_torch.parallel.sharded import device_plan, uniform_plan
@@ -128,3 +129,55 @@ def test_mt_main_path_64mib_equals_oracle(cuda):
     got = mtd.mt_decode_torch(blob, 12, 64, device="cuda")
     assert got == data.tobytes()
     assert got == mt_decode_py(blob, 12, 64)
+
+
+@pytest.mark.parametrize("rule", mte.RULES)
+@pytest.mark.parametrize("n", (32, 64))
+@pytest.mark.parametrize("bits", (4, 10, 12, 13, 15))
+def test_mt_encode_kernels_equal_plain(cuda, bits, n, rule):
+    """The mt encode kernel == its plain version (counts, final states, the
+    emitted words) and the placement kernel == its plain version (the whole
+    blob) on 61 blocks with sizes off the 64-byte grid, a single-symbol row
+    and an odd tail; 61 blocks leave three idle warps in the last CTA.  B=4
+    codes six symbols."""
+    rng = np.random.default_rng(bits + n)
+    size = 61 * 4096 - 3983
+    data = text_like(rng, size) if bits > 8 else rng.integers(0, 6, size).astype(np.uint8)
+    data[::31] = 0  # the byte a partial group's lanes read past a block's end is in every block
+    data[:1000] = 0
+    plan = mte.uniform_rows(size, 4096)
+    plan[5].size, plan[6].start, plan[6].size = 4000, plan[5].start + 4000, plan[6].size + 96
+    from hsrans_tpu_torch.ops.planner import BlockPlan
+
+    plan.insert(0, BlockPlan(0, 1000, True, 0, None))
+    plan[1].start, plan[1].size = 1000, plan[1].size - 1000
+    kinds, ks, index, freqs, bias = mte.plan_operands(data, plan, bits, n, rule)
+    assert len(ks) == 61
+    ops = (torch.from_numpy(data).to(cuda), torch.from_numpy(index).to(cuda), torch.from_numpy(freqs.view(np.int16)).to(cuda))
+    kw = {"bits": bits, "n": n, "rule": rule, "words_cap": int(index[-1, 4])}
+    got = mte.encode_blocks_cuda(*ops, **kw)
+    torch.cuda.synchronize()
+    want = mte.encode_blocks_plain(*ops, **kw)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert torch.equal(mte.emitted_words(got[0], ops[1], got[1]), mte.emitted_words(want[0], ops[1], want[1]))
+    place, _, out_u16 = mte.part_layout(plan, kinds, ks, bias, got[1].cpu().numpy(), n)
+    pargs = (got[0], ops[1], got[1], got[2], ops[2], torch.from_numpy(place).to(cuda))
+    blob = mte.place_blocks_cuda(*pargs, n=n, out_u16=out_u16)
+    torch.cuda.synchronize()
+    assert torch.equal(blob, mte.place_blocks_plain(*pargs, n=n, out_u16=out_u16))
+    whole = mte.encode_plan(data, plan, bits, n, rule, cuda)
+    assert whole == mte.encode_plan(data, plan, bits, n, rule, torch.device("cpu"))
+    assert mtd.mt_decode_torch(whole, bits, n, device="cuda") == data.tobytes() == mt_decode_py(whole, bits, n)
+
+
+def test_mt_encode_main_path_64mib_round_trip(cuda):
+    """chip_smoke.py's mt encode main path (a): 64 MiB of x-ray, B=12, n=64,
+    device_plan with a 24 KiB cap, encoded on the card, equal to the CPU
+    tier, decoded on the card and by the numpy oracle `mt_decode_py`."""
+    from pathlib import Path
+
+    data = np.tile(np.fromfile(Path(__file__).parent / "corpus" / "xray.bin", np.uint8), 8)
+    plan = device_plan(data, 12, 64, 24 << 10)
+    blob = mte.mt_encode_torch(data, 12, plan=plan, device="cuda")
+    assert blob == mte.mt_encode_torch(data, 12, plan=plan, device="cpu")
+    assert mtd.mt_decode_torch(blob, 12, 64, device="cuda") == data.tobytes() == mt_decode_py(blob, 12, 64)

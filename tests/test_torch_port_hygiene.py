@@ -19,9 +19,10 @@ PORT = REPO / "hsrans_tpu_torch"
 def test_import_and_cpu_round_trip_without_jax():
     """With jax and every module of `hsrans_tpu` unimportable, the port
     imports and round-trips (tpx plain v2 and adaptive v3, and mt) on the
-    CPU, and its blobs equal the JAX package's numpy encoders."""
+    CPU, and its blobs equal the JAX package's encoders."""
     from hsrans_tpu.ops.mt import mt_encode_py
     from hsrans_tpu.ops.tpx import tpx_encode, tpx_encode_adaptive
+    from hsrans_tpu.parallel.sharded import mt_encode_device, uniform_plan
 
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['hsrans_tpu'] = None\n"
@@ -36,6 +37,10 @@ def test_import_and_cpu_round_trip_without_jax():
         "blob = mt_encode_py(data, 12, 64)\n"
         "assert h.mt_decode_torch(blob, 12, 64, device='cpu') == data.tobytes()\n"
         "print(hashlib.sha256(blob).hexdigest())\n"
+        "from hsrans_tpu_torch.parallel.sharded import mt_encode_device\n"
+        "for blob, n in ((h.mt_encode_torch(data, 12, device='cpu'), 64), (mt_encode_device(data, 12, 32, device='cpu'), 32)):\n"
+        "    assert h.mt_decode_torch(blob, 12, n, device='cpu') == data.tobytes()\n"
+        "    print(hashlib.sha256(blob).hexdigest())\n"
         "assert not any(m.split('.')[0] in ('jax', 'hsrans_tpu') for m, v in sys.modules.items() if v is not None)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
@@ -43,6 +48,8 @@ def test_import_and_cpu_round_trip_without_jax():
     data = np.random.default_rng(0).integers(0, 40, 20_000).astype(np.uint8)
     want = [hashlib.sha256(f(data)).hexdigest() for f in (tpx_encode, tpx_encode_adaptive)]
     want.append(hashlib.sha256(mt_encode_py(data, 12, 64)).hexdigest())
+    want.append(hashlib.sha256(mt_encode_device(data, 12, 64, plan=uniform_plan(data, 12, 64, 4096))).hexdigest())
+    want.append(hashlib.sha256(mt_encode_device(data, 12, 32)).hexdigest())
     assert res.stdout.split() == want
 
 
@@ -62,7 +69,8 @@ def test_no_port_source_imports_jax(package):
 
 
 def test_cuda_without_a_card_raises():
-    from hsrans_tpu_torch import mt_decode_torch, tpx_decode_torch, tpx_encode_torch
+    from hsrans_tpu_torch import mt_decode_torch, mt_encode_torch, tpx_decode_torch, tpx_encode_torch
+    from hsrans_tpu_torch.parallel.sharded import mt_encode_device
     from hsrans_tpu_torch.runtime.device import resolve
 
     if torch.cuda.is_available():
@@ -72,6 +80,10 @@ def test_cuda_without_a_card_raises():
             fn(arg, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mt_decode_torch(bytes(16), 12, 64, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mt_encode_torch(b"abc", 12, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mt_encode_device(b"abc", 12, 32, device="cuda")
     with pytest.raises(ValueError):
         resolve("mps")
     assert resolve("cpu") == torch.device("cpu")
@@ -81,6 +93,7 @@ def test_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel or raises: CPU operands are refused,
     not routed to the plain version."""
     from hsrans_tpu_torch.kernels import mt_decode as mt
+    from hsrans_tpu_torch.kernels import mt_encode as mte
     from hsrans_tpu_torch.kernels import tpx_decode as dec
     from hsrans_tpu_torch.kernels import tpx_encode as enc
 
@@ -97,10 +110,20 @@ def test_wrappers_refuse_cpu_tensors():
             torch.zeros(64, dtype=torch.uint8), torch.zeros((1, 5), dtype=torch.int64),
             torch.zeros((1, 64), dtype=torch.int32), t, bits=12, n=64, length=64,
         )
+    index = torch.tensor([[0, 1, 64, 64, 64]], dtype=torch.int64)
+    freqs = torch.ones((1, 256), dtype=torch.int16)
+    with pytest.raises(ValueError, match="CUDA"):
+        mte.encode_blocks_cuda(torch.zeros(64, dtype=torch.uint8), index, freqs, bits=8, n=64, rule="groups", words_cap=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        mte.place_blocks_cuda(
+            torch.zeros(64, dtype=torch.int16), index, torch.zeros(1, dtype=torch.int64),
+            torch.zeros((1, 64), dtype=torch.int32), freqs, torch.zeros((1, 3), dtype=torch.int64), n=64, out_u16=400,
+        )
 
 
 def test_dispatch_takes_plain_version_for_cpu_operands():
     """The dispatchers pick the plain version for CPU operands."""
+    from hsrans_tpu_torch.kernels import mt_encode as mte
     from hsrans_tpu_torch.kernels import tpx_encode as enc
 
     win = torch.zeros((1, 4, 2, 128), dtype=torch.int32)
@@ -110,6 +133,13 @@ def test_dispatch_takes_plain_version_for_cpu_operands():
     out = enc.concat(win, cnt, 128)
     assert out.shape == (1, 2, 128)
     assert out[0, 0, :2].tolist() == [1 | 2 << 16, 3] and not out[0, 0, 2:].any()
+    # one block of one group, all 64 lanes on byte 0 of freq 2^8: from the
+    # fresh state 2^15 no lane emits, and each ends at 2^15 >> 8 << 8 == 2^15
+    index = torch.tensor([[0, 1, 64, 64, 64]], dtype=torch.int64)
+    freqs = torch.zeros((1, 256), dtype=torch.int16)
+    freqs[0, 0] = 256
+    words, count, fin = mte.encode_blocks(torch.zeros(64, dtype=torch.uint8), index, freqs, bits=8, n=64, rule="groups", words_cap=64)
+    assert count.tolist() == [0] and (fin == 1 << 15).all() and not words.any()
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -127,25 +157,28 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 
 def test_entry_points_take_bytes_or_arrays():
     """Public entry points take bytes or a uint8 array alike."""
-    from hsrans_tpu_torch import tpx_decode_torch, tpx_encode_torch
+    from hsrans_tpu_torch import mt_encode_torch, tpx_decode_torch, tpx_encode_torch
 
     data = np.random.default_rng(4).integers(0, 9, 3000).astype(np.uint8)
     assert tpx_encode_torch(data, device="cpu") == tpx_encode_torch(data.tobytes(), device="cpu")
+    assert mt_encode_torch(data, 12, device="cpu") == mt_encode_torch(data.tobytes(), 12, device="cpu")
     assert tpx_decode_torch(np.frombuffer(tpx_encode_torch(data, device="cpu"), np.uint8), device="cpu") == data.tobytes()
 
 
 def test_layer_split_leaves_the_result_alone():
     """`layers=` adds each layer's seconds and changes no byte."""
-    from hsrans_tpu_torch import tpx_decode_torch, tpx_encode_torch
+    from hsrans_tpu_torch import mt_encode_torch, tpx_decode_torch, tpx_encode_torch
 
     data = np.random.default_rng(6).integers(0, 30, 50_000).astype(np.uint8)
-    enc, dec = {}, {}
+    enc, dec, mt = {}, {}, {}
     blob = tpx_encode_torch(data, device="cpu", layers=enc)
     assert blob == tpx_encode_torch(data, device="cpu")
     assert tpx_decode_torch(blob, device="cpu", layers=dec) == data.tobytes()
+    assert mt_encode_torch(data, 12, device="cpu", layers=mt) == mt_encode_torch(data, 12, device="cpu")
     assert set(enc) == {"host_hist_tables", "h2d", "kernel_encode", "kernel_concat", "d2h", "host_mux"}
     assert set(dec) == {"host_parse", "host_tables", "h2d", "kernel", "d2h", "host_assemble"}
-    assert all(v >= 0 for v in (*enc.values(), *dec.values()))
+    assert set(mt) == {"host_hist_tables", "h2d", "kernel_encode", "host_layout", "kernel_place", "d2h", "host_mux"}
+    assert all(v >= 0 for v in (*enc.values(), *dec.values(), *mt.values()))
 
 
 def test_build_dir_override_and_read_only_fallback(tmp_path, monkeypatch):
