@@ -15,6 +15,10 @@ the port's two paths through their public entry points:
     planner's blocks, odd tails, single-symbol runs and malformed blobs, on
     blobs made by the port's numpy copy of the reference's carried-state
     encoder;
+  * mt annotated: the same decode through the annotated-stream route
+    (`kernels/mt_decode.py::_PAIR_V2`: an annotate launch, then the
+    annotated decode), its two kernels timed against the rank route's on
+    the same operands at B=10..15, n=32 and 64;
   * mt encode: the same 64 MiB of x-ray and 64 MiB of enwik8-like text in
     uniform 4 KiB blocks encoded on the card and decoded on the card, other
     depths, n=32 (`mt_encode_device`), the reference planner's blocks, odd
@@ -61,6 +65,8 @@ KERNELS = {
             "hsrans_tpu/kernels/mt32_quad.py:46",
         ],
     ),
+    "mt_annotate": ("hsrans_tpu_torch/csrc/mt_decode.cu", "hsrans_tpu/kernels/mt64_decode.py:1260"),
+    "mt_decode_annotated": ("hsrans_tpu_torch/csrc/mt_decode.cu", "hsrans_tpu/kernels/mt64_decode.py:1282"),
     "mt_encode": ("hsrans_tpu_torch/csrc/mt_encode.cu", "hsrans_tpu/kernels/mt64_encode.py:52"),
     # the mt encoder's phase B: the tpx concat kernel run per segment, then the host's join of the words
     "mt_place": ("hsrans_tpu_torch/csrc/mt_encode.cu", "hsrans_tpu/kernels/tpx_encode.py:260"),
@@ -76,6 +82,9 @@ KERNELS = {
 # only.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_SYMBOL = {"decode": 8, "encode": 10}
+# the annotate pass per word of a coded block: mask, shift, shift, subtract,
+# and, popcount, add (the rank), shift, or; plus the bucket's index, 10
+ANNOTATE_OPS_PER_WORD = 10
 INT32_LANES_PER_SM = 64  # a Hopper SM's INT32 units (NVIDIA's H100 architecture whitepaper)
 # bench.py's device_plan caps of the mt x-ray rows, by depth
 MT_CAPS = {10: 16 << 10, 12: 24 << 10, 13: 16 << 10, 14: 24 << 10, 15: 32 << 10}
@@ -345,8 +354,165 @@ def mt_phases(repo: Path, dev: torch.device) -> tuple[list[dict], int, dict]:
     emit("mt_times", bytes=data.size, decode_MiBps=data.size / MIB / statistics.median(dec_s), decode_s=dec_s,
          layers=layers, planner_blob={"bytes": corpus.size, "decode_s": planner_s,
                                       "decode_MiBps": corpus.size / MIB / statistics.median(planner_s)})
-    ctx = {"xray": xray, "plans": plans, "main": (data, plan), "corpus": corpus, "odd": odd, "runs": runs}
+    ctx = {"xray": xray, "plans": plans, "main": (data, plan), "corpus": corpus, "odd": odd, "runs": runs,
+           "main_blob": blob, "classes": classes, "trips": trips, "malformed": (small_data, small, bad)}
     return rows, launches, ctx
+
+
+def mt_annotated_kernels(name: str, blob: bytes, bits: int, n: int, dev: torch.device) -> dict:
+    """The annotated route's two kernels against their plain versions (and
+    the annotated decode against the rank kernel) on the same CUDA tensors
+    of one blob; times them and the rank kernel on those operands in turns
+    (rank, annotate, annotated decode, then back), each by CUDA events over
+    20 launches queued ahead."""
+    from hsrans_tpu_torch.kernels import mt_decode as mtd
+
+    length, stream, blocks, w_counts = mtd.index_blocks(blob, n)
+    ops = mtd.block_operands(length, stream, blocks, w_counts, bits, n)
+    words, index, states, fc = mtd.device_operands(stream, *ops, n, dev)
+    kw = {"bits": bits, "n": n, "length": length}
+    ann = mtd.annotate_cuda(words, index, fc, bits=bits)
+    torch.cuda.synchronize()
+    err_ann = max_abs_err(ann, mtd.annotate_plain(words, index, fc, bits=bits))
+    got = mtd.decode_blocks_annotated_cuda(ann, index, states, fc, **kw)
+    torch.cuda.synchronize()
+    err_dec = max_abs_err(got, mtd.decode_blocks_annotated_plain(ann, index, states, fc, **kw))
+    err_rank = max_abs_err(got, mtd.decode_blocks_cuda(words, index, states, fc, **kw))
+    if err_ann or err_dec or err_rank:
+        raise AssertionError(f"mt annotated {name}: a kernel differs (annotate {err_ann}, decode {err_dec}, "
+                             f"against the rank kernel {err_rank})")
+    fns = {
+        "rank": lambda: mtd.decode_blocks_cuda(words, index, states, fc, **kw),
+        "mt_annotate": lambda: mtd.annotate_cuda(words, index, fc, bits=bits),
+        "mt_decode_annotated": lambda: mtd.decode_blocks_annotated_cuda(ann, index, states, fc, **kw),
+    }
+    turns: dict[str, list[float]] = {k: [] for k in fns}
+    for k in [*fns, *reversed(fns)]:
+        turns[k].append(cuda_ms(fns[k], 20, queue_ahead=True))
+    ms = {k: statistics.mean(v) for k, v in turns.items()}
+    nwords = ann.numel()
+    coded_words = int((torch.clamp(index[:, 1], max=nwords) - torch.clamp(index[:, 0], 0, nwords)).clamp(min=0).sum())
+    plains = {
+        "mt_annotate": lambda: mtd.annotate_plain(words, index, fc, bits=bits),
+        "mt_decode_annotated": lambda: mtd.decode_blocks_annotated_plain(ann, index, states, fc, **kw),
+    }
+    bounds = {
+        # the coded blocks' words read once, every word's annotation written once
+        "mt_annotate": bound(2 * coded_words + 4 * nwords + nbytes(index, fc), ANNOTATE_OPS_PER_WORD * coded_words),
+        "mt_decode_annotated": bound(nbytes(ann, index, states, fc, *got), OPS_PER_SYMBOL["decode"] * length),
+    }
+    res = {"case": name, "bits": bits, "n": n, "blocks": int(ops[0].shape[0]), "max_groups": int(ops[0][:, 4].max()),
+           "coded_words": coded_words}
+    errs = {"mt_annotate": err_ann, "mt_decode_annotated": err_dec}
+    for k in plains:
+        res[k] = {"max_abs_err": errs[k], "ms": ms[k], "ms_host_paced": cuda_ms(fns[k], 20),
+                  "plain_ms": cuda_ms(plains[k], 1), **bounds[k]}
+    both = ms["mt_annotate"] + ms["mt_decode_annotated"]
+    res["ab"] = {"rank_ms": ms["rank"], "rank_ms_turns": turns["rank"], "annotate_ms": ms["mt_annotate"],
+                 "annotated_decode_ms": ms["mt_decode_annotated"], "annotated_route_ms": both,
+                 "annotated_route_over_rank": both / ms["rank"],
+                 "annotated_decode_over_rank": ms["mt_decode_annotated"] / ms["rank"]}
+    emit("mt_annotated_kernels", **res)
+    return res
+
+
+def mt_annotated_phases(dev: torch.device, ctx: dict) -> tuple[list[dict], dict]:
+    """mt decode through the annotated-stream route (the module flag
+    `_PAIR_V2`, restored at the end): its kernels against their plain
+    versions and timed against the rank kernel at B=10..15, n=32 and 64, and
+    at the main path's 64 MiB blob; the main path; round trips; malformed
+    blobs; both routes end to end.  Returns the kernel rows (the main
+    path's first) and the main path's launches."""
+    from hsrans_tpu_torch import mt_decode_torch, mt_encode_torch
+    from hsrans_tpu_torch.kernels import mt_decode as mtd
+    from hsrans_tpu_torch.parallel.sharded import device_plan, mt_encode_device
+    from hsrans_tpu_torch.runtime import build
+
+    xray, plans = ctx["xray"], ctx["plans"]
+    data, _ = ctx["main"]
+    main_blob = ctx["main_blob"]
+    # one 8 MiB x-ray blob per depth and width: those the mt decode phases
+    # made, the rest encoded on the card (B=11 takes B=10's 16 KiB cap:
+    # bench.py has no B=11 row)
+    blobs = {(bits, n): (name, blob) for name, src, bits, n, blob in ctx["classes"] + ctx["trips"]
+             if src is xray and "device_plan" in name}
+    for bits in range(10, 16):
+        for n in (32, 64):
+            if (bits, n) not in blobs:
+                cap = MT_CAPS.get(bits, 16 << 10)
+                plan = plans.get((bits, n)) or device_plan(xray, bits, n, cap)
+                blob = (mt_encode_torch(xray, bits, plan=plan, device="cuda") if n == 64
+                        else mt_encode_device(xray, bits, n, plan=plan, device="cuda"))
+                blobs[(bits, n)] = (f"x-ray n={n} B={bits} device_plan {cap >> 10} KiB", blob)
+    cases = [("x-ray 64 MiB main path", main_blob, 12, 64)]
+    cases += [(name, blob, bits, n) for (bits, n), (name, blob) in sorted(blobs.items())]
+    cases += [(name, blob, bits, n) for name, _, bits, n, blob in ctx["classes"] if "uniform" in name]
+
+    old = mtd._PAIR_V2
+    try:
+        # 1 and 5. the kernels against their plain versions, and the A/B of
+        #    the two routes' kernels on the same operands
+        rows = [mt_annotated_kernels(name, blob, bits, n, dev) for name, blob, bits, n in cases]
+
+        # 2. the main path: 64 MiB x-ray, B=12, n=64, device_plan 24 KiB
+        mtd._PAIR_V2 = True
+        build.reset_launches()
+        back = mt_decode_torch(main_blob, 12, 64, device="cuda")
+        torch.cuda.synchronize()
+        launches = {k: build.LAUNCHES[k] for k in ("mt_annotate", "mt_decode_annotated", "mt_decode")}
+        if back != data.tobytes():
+            raise AssertionError("mt annotated 64 MiB: mt_decode_torch does not return the input")
+        if launches != {"mt_annotate": 1, "mt_decode_annotated": 1, "mt_decode": 0}:
+            raise AssertionError(f"mt annotated 64 MiB: launches {launches}, one of each annotated kernel expected")
+        emit("mt_annotated_main_path", bytes=data.size, launches=launches)
+
+        # 3. round trips, each held against the input and the CPU tier
+        for name, src, bits, n, b in ctx["trips"]:
+            got = mt_decode_torch(b, bits, n, device="cuda")
+            if got != src.tobytes():
+                raise AssertionError(f"mt annotated {name}: decode on the card does not return the input")
+            t0 = time.perf_counter()
+            if mt_decode_torch(b, bits, n, device="cpu") != got:
+                raise AssertionError(f"mt annotated {name}: the card's output differs from the CPU tier's")
+            emit("mt_annotated_round_trip", case=name, bits=bits, n=n, bytes=src.size,
+                 cpu_tier_decode_s=time.perf_counter() - t0)
+
+        # 4. malformed blobs: the rank route's outcome, and no CUDA fault
+        small_data, small, bad = ctx["malformed"]
+        outcomes = {"none": 0, "bytes": 0}
+        for b in bad:
+            out = mt_decode_torch(b, 12, 64, device="cuda")
+            mtd._PAIR_V2 = False
+            if out != mt_decode_torch(b, 12, 64, device="cuda"):
+                raise AssertionError("mt annotated: a malformed blob decodes otherwise than on the rank route")
+            mtd._PAIR_V2 = True
+            outcomes["none" if out is None else "bytes"] += 1
+        torch.cuda.synchronize()
+        if mt_decode_torch(small, 12, 64, device="cuda") != small_data.tobytes():
+            raise AssertionError("mt annotated: decode after the malformed blobs failed")
+        emit("mt_annotated_malformed", blobs=len(bad), **outcomes)
+
+        # 5. end to end, host bytes to host bytes, both routes in turns,
+        #    median of 3; one pass of each split by layer at 64 MiB
+        e2e = []
+        for name, blob, bits, n in cases:
+            secs: dict[bool, list[float]] = {False: [], True: []}
+            for _ in range(3):
+                for flag in (False, True):
+                    mtd._PAIR_V2 = flag
+                    secs[flag] += host_s(lambda: mt_decode_torch(blob, bits, n, device="cuda"), 1)
+            e2e.append({"case": name, "rank_s": secs[False], "annotated_s": secs[True],
+                        "annotated_over_rank": statistics.median(secs[True]) / statistics.median(secs[False])})
+        layers: dict[bool, dict[str, float]] = {False: {}, True: {}}
+        for flag in (False, True):
+            mtd._PAIR_V2 = flag
+            if mt_decode_torch(main_blob, 12, 64, device="cuda", layers=layers[flag]) != data.tobytes():
+                raise AssertionError("mt annotated 64 MiB: the layer-timed decode does not return the input")
+        emit("mt_annotated_ab", kernels=[{"case": r["case"], "bits": r["bits"], "n": r["n"], **r["ab"]} for r in rows],
+             end_to_end=e2e, layers_rank=layers[False], layers_annotated=layers[True])
+    finally:
+        mtd._PAIR_V2 = old
+    return rows, launches
 
 
 def mt_encode_kernel_vs_plain(name: str, data: np.ndarray, plan, bits: int, n: int, rule: str, dev: torch.device) -> dict:
@@ -617,7 +783,11 @@ def main() -> int:
     # 7. mt decode: kernel classes, main path, round trips, malformed, times
     mt_rows, mt_launches, ctx = mt_phases(repo, dev)
 
-    # 8. mt encode: kernels vs plain, main path (a) and (b), round trips, times
+    # 8. mt decode's annotated route: kernels vs plain and against the rank
+    #    kernel, main path, round trips, malformed, both routes end to end
+    ann_rows, ann_launches = mt_annotated_phases(dev, ctx)
+
+    # 9. mt encode: kernels vs plain, main path (a) and (b), round trips, times
     enc_rows, enc_launches = mt_encode_phases(repo, dev, ctx)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsrans_tpu"))
@@ -629,10 +799,14 @@ def main() -> int:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     for name, (source, replaces) in KERNELS.items():
         # each timed at its main path's launch: the 16 MiB B=12 mega (tpx),
-        # the 64 MiB x-ray n=64 B=12 device_plan blob (mt decode) and plan (mt encode)
+        # the 64 MiB x-ray n=64 B=12 device_plan blob (mt decode, both
+        # routes) and plan (mt encode)
         if name == "mt_decode":
             row = {"launches": mt_launches, "max_abs_err": max(r["max_abs_err"] for r in mt_rows),
                    **{k: mt_rows[0][k] for k in keys}}
+        elif name in ann_launches:
+            row = {"launches": ann_launches[name], "max_abs_err": max(r[name]["max_abs_err"] for r in ann_rows),
+                   **{k: ann_rows[0][name][k] for k in keys}}
         elif name in enc_launches:
             row = {"launches": enc_launches[name], "max_abs_err": max(r[name]["max_abs_err"] for r in enc_rows),
                    **{k: enc_rows[0][name][k] for k in keys}}

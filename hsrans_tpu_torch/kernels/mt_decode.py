@@ -11,6 +11,18 @@ blocks and decodes the trailing partial lane group (fewer than n bytes) from
 the last block's final states.  Unlike the JAX package, no coded block goes
 to a host decoder, so the work splits differently; the output bytes are the
 same.
+
+With the module flag `_PAIR_V2` set (the JAX package's name and default,
+off), the decode takes the annotated-stream route, the port of the JAX
+package's `_decode_pairs_v2` (Pallas `_annotate_pairs` and
+`_mt64_pair_kernel_v2`): one launch stamps every word of every coded block
+with rank(word & mask) in bits 16..23 (`annotate`), and a second decodes
+from that annotation (`decode_blocks_annotated`), taking a consumed lane's
+next rank from the word it reads.  That is exact at B <= 15: after a renorm
+the state is (state << 16) | word, so its slot is word & mask.  A read past
+a block's words gives word 0 and rank 0, which is rank_of(0): slot 0
+belongs to the first present symbol.  The route covers every blob the rank
+route does (n = 32 or 64, B <= 15) and gives its bytes.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from ..runtime.device import layer_clock, resolve
 from .tpx_decode import from_u32, to_u32
 
 _M32 = 0xFFFFFFFF
+_PAIR_V2 = False  # the annotated-stream route; read at each call of mt_decode_torch
 # columns of the int64 per-block index; csrc/mt_decode.cu::BlockIndex
 INDEX_FIELDS = ("word_start", "word_end", "out_start", "out_limit", "num_groups")
 
@@ -127,6 +140,147 @@ def decode_blocks(stream, index, states, fctab, *, bits: int, n: int, length: in
     return fn(stream, index, states, fctab, bits=bits, n=n, length=length)
 
 
+def _rank_lookup(fctab):
+    """(fc, rank of each symbol) of int32 [nb, 256] freq | cumul << 16 rows:
+    fc as int64 u32, the rank the number of present (freq > 0) symbols
+    before the symbol."""
+    fc = to_u32(fctab)
+    return fc, torch.cumsum((fc & 0xFFFF) != 0, dim=1) - 1
+
+
+def annotate_plain(stream, index, fctab, *, bits: int):
+    """Plain PyTorch version of the annotate kernel, on any device.
+
+    stream uint8 [2 * nwords] (the blob's u16 word region), index int64
+    [nb, 5] (INDEX_FIELDS), fctab int32 [nb, 256] -> ann int32 [nwords]
+    (u32 bits): word | rank(word & mask) << 16 for every word of block b's
+    [word_start, min(word_end, nwords)), with block b's table; rank is the
+    index of the present symbol that owns the slot (`make_rank_tables`).
+    Every other word is 0.  The blocks' word ranges are disjoint, as
+    `block_operands` makes them."""
+    dev = stream.device
+    nwords = stream.numel() // 2
+    ann = torch.zeros(nwords, dtype=torch.int32, device=dev)
+    nb = index.shape[0]
+    if nb == 0 or nwords == 0:
+        return ann
+    lo = torch.clamp(index[:, 0], 0, nwords)
+    hi = torch.maximum(lo, torch.clamp(index[:, 1], max=nwords))
+    count = hi - lo
+    blk = torch.repeat_interleave(torch.arange(nb, device=dev), count)
+    pos = lo[blk] + torch.arange(blk.numel(), device=dev) - (torch.cumsum(count, 0) - count)[blk]
+    words = stream.view(torch.int16).to(torch.int64)[pos] & 0xFFFF
+    fc, rank_of_sym = _rank_lookup(fctab)
+    # slot -> symbol by one search over every block's cumuls at once: block b's
+    # keys b << 16 | cumul ascend, and lie below block b + 1's
+    keys = ((torch.arange(nb, device=dev)[:, None] << 16) | (fc >> 16)).reshape(-1)
+    sym = torch.searchsorted(keys, (blk << 16) | (words & ((1 << bits) - 1)), right=True) - 1
+    ann[pos] = (words | (rank_of_sym.reshape(-1)[sym] << 16)).to(torch.int32)
+    return ann
+
+
+def annotate_cuda(stream, index, fctab, *, bits: int):
+    """The annotate kernel (`csrc/mt_decode.cu`) on CUDA tensors; same
+    contract as annotate_plain.  Raises for any other tensor."""
+    dev = build.check_cuda("annotate_cuda", stream, index, fctab, uint8=(0,), int64=(1,))
+    nb = index.shape[0]
+    if not 0 <= bits <= 15:
+        raise ValueError("annotate_cuda: bits must be at most 15")
+    if index.shape != (nb, len(INDEX_FIELDS)) or fctab.shape != (nb, 256):
+        raise ValueError("annotate_cuda: operand shapes do not match the block count")
+    nwords = stream.numel() // 2
+    if nb == 0:
+        return torch.zeros(nwords, dtype=torch.int32, device=dev)
+    ann = torch.empty(nwords, dtype=torch.int32, device=dev)  # the kernel writes every word
+    build.launch("mt_annotate", "hsr_mt_annotate", dev, stream.data_ptr(), index.data_ptr(), fctab.data_ptr(),
+                 ann.data_ptr(), nb, bits, nwords)
+    return ann
+
+
+def annotate(stream, index, fctab, *, bits: int):
+    """The kernel for CUDA operands, its plain version for CPU operands."""
+    fn = annotate_plain if stream.device.type == "cpu" else annotate_cuda
+    return fn(stream, index, fctab, bits=bits)
+
+
+def decode_blocks_annotated_plain(ann, index, states, fctab, *, bits: int, n: int, length: int):
+    """Plain PyTorch version of the annotated decode kernel, on any device.
+
+    decode_blocks_plain's contract, with the annotation int32 [nwords]
+    (`annotate`) in place of the word region.  Each lane carries the rank
+    of its state's slot: a lane that consumes takes word and rank from the
+    annotation (0 and 0 outside [0, word_end)), any other lane looks its
+    rank up from its new state."""
+    dev = ann.device
+    nb = index.shape[0]
+    out = torch.zeros(length, dtype=torch.uint8, device=dev)
+    st = to_u32(states)
+    rw = torch.zeros(nb, dtype=torch.int64, device=dev)
+    if nb == 0:
+        return out, states.clone(), rw
+    vals = ann.to(torch.int64) & _M32 if ann.numel() else torch.zeros(1, dtype=torch.int64, device=dev)
+    word_start, word_end, out_start, out_limit, num_groups = (c[:, None] for c in index.unbind(1))
+    word_end = torch.clamp(word_end, max=ann.numel())
+    out_limit = torch.clamp(out_limit, max=length)
+    fc, rank_of_sym = _rank_lookup(fctab)
+    cum_of = fc >> 16
+    # fc and symbol by rank: the present symbols first, in symbol order
+    sym_of_rank = torch.sort(((fc & 0xFFFF) == 0).to(torch.int32), dim=1, stable=True).indices
+    fc_of_rank = torch.gather(fc, 1, sym_of_rank)
+    mask = (1 << bits) - 1
+
+    def rank_of(slot):
+        return torch.gather(rank_of_sym, 1, torch.searchsorted(cum_of, slot, right=True) - 1)
+
+    perm = torch.from_numpy(IDX2IDX[n]).to(dev)[None, :]
+    rank = rank_of(st & mask)
+    for g in range(int(index[:, 4].max())):
+        active = g < num_groups
+        sym = torch.gather(sym_of_rank, 1, rank)
+        f = torch.gather(fc_of_rank, 1, rank)
+        new = ((st >> bits) * (f & 0xFFFF) + (st & mask) - (f >> 16)) & _M32
+        st = torch.where(active, new, st)
+        pos = out_start + g * n + perm
+        put = active & (pos >= 0) & (pos < out_limit)
+        out[pos[put]] = sym[put].to(torch.uint8)
+        consume = active & (st < DECODE_CONSUME_POINT_16)
+        c = consume.to(torch.int64)
+        at = word_start + rw[:, None] + torch.cumsum(c, dim=1) - c  # lane-ascending consume order
+        v = torch.where((at >= 0) & (at < word_end), vals[torch.clamp(at, 0, vals.numel() - 1)], 0)
+        rank = torch.where(consume, (v >> 16) & 0xFF, rank_of(st & mask))
+        st = torch.where(consume, ((st << 16) | (v & 0xFFFF)) & _M32, st)
+        rw = rw + c.sum(dim=1)
+    return out, from_u32(st), rw
+
+
+def decode_blocks_annotated_cuda(ann, index, states, fctab, *, bits: int, n: int, length: int):
+    """The annotated decode kernel (`csrc/mt_decode.cu`) on CUDA tensors;
+    same contract as decode_blocks_annotated_plain.  Raises for any other
+    tensor."""
+    dev = build.check_cuda("decode_blocks_annotated_cuda", ann, index, states, fctab, int64=(1,))
+    nb = index.shape[0]
+    if n not in (32, 64) or not 0 <= bits <= 15:
+        raise ValueError("decode_blocks_annotated_cuda: n must be 32 or 64 and bits at most 15")
+    if index.shape != (nb, len(INDEX_FIELDS)) or states.shape != (nb, n) or fctab.shape != (nb, 256):
+        raise ValueError("decode_blocks_annotated_cuda: operand shapes do not match the block count")
+    out = torch.zeros(length, dtype=torch.uint8, device=dev)
+    fin = torch.empty((nb, n), dtype=torch.int32, device=dev)
+    cursor = torch.empty(nb, dtype=torch.int64, device=dev)
+    if nb:
+        build.launch(
+            "mt_decode_annotated", "hsr_mt_decode_annotated", dev,
+            ann.data_ptr(), index.data_ptr(), states.data_ptr(), fctab.data_ptr(),
+            out.data_ptr(), fin.data_ptr(), cursor.data_ptr(), nb, n, bits, ann.numel(), length,
+        )
+    return out, fin, cursor
+
+
+def decode_blocks_annotated(ann, index, states, fctab, *, bits: int, n: int, length: int):
+    """The kernel for CUDA operands, its plain version for CPU operands."""
+    fn = decode_blocks_annotated_plain if ann.device.type == "cpu" else decode_blocks_annotated_cuda
+    return fn(ann, index, states, fctab, bits=bits, n=n, length=length)
+
+
 def index_blocks(blob: bytes | np.ndarray, n: int) -> tuple[int, np.ndarray, list[MtBlock], list[int]] | None:
     """block_index, then the word count of every coded block: the JAX
     decoder's `block_word_counts` for all of them but the last, whose words
@@ -200,8 +354,9 @@ def mt_decode_torch(
     coded block whose freqs do not sum to 2^B).
 
     With `layers`, adds the seconds of each layer of this call to it
-    (host_index, host_tables, h2d, kernel, d2h, host_assemble), the device
-    synchronized at each boundary."""
+    (host_index, host_tables, h2d, kernel, d2h, host_assemble, and
+    kernel_annotate on the annotated route), the device synchronized at
+    each boundary."""
     dev = resolve(device)
     if bits > 15 or n not in (32, 64):
         return None
@@ -219,8 +374,15 @@ def mt_decode_torch(
     index, states, fc = ops
     with layer_clock(layers, "h2d", dev):
         args = device_operands(stream, index, states, fc, n, dev)
-    with layer_clock(layers, "kernel", dev):
-        out_t, fin_t, cursor_t = decode_blocks(*args, bits=bits, n=n, length=length)
+    if _PAIR_V2:
+        stream_t, index_t, states_t, fc_t = args
+        with layer_clock(layers, "kernel_annotate", dev):
+            ann = annotate(stream_t, index_t, fc_t, bits=bits)
+        with layer_clock(layers, "kernel", dev):
+            out_t, fin_t, cursor_t = decode_blocks_annotated(ann, index_t, states_t, fc_t, bits=bits, n=n, length=length)
+    else:
+        with layer_clock(layers, "kernel", dev):
+            out_t, fin_t, cursor_t = decode_blocks(*args, bits=bits, n=n, length=length)
     # the trailing partial group (fewer than n bytes) continues the chain of
     # the last block, where that block is coded
     tail_from = int(index[-1, 2] + index[-1, 4] * n) if not blocks[-1].is_single else length

@@ -36,7 +36,8 @@ NVCC_FLAGS = [
 
 # kernel name -> successful launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {
-    "tpx_decode": 0, "tpx_encode": 0, "tpx_concat": 0, "mt_decode": 0, "mt_encode": 0, "mt_place": 0,
+    "tpx_decode": 0, "tpx_encode": 0, "tpx_concat": 0, "mt_decode": 0, "mt_annotate": 0, "mt_decode_annotated": 0,
+    "mt_encode": 0, "mt_place": 0,
 }
 
 _P = ctypes.c_void_p
@@ -50,6 +51,10 @@ _SIGNATURES = {
     "hsr_tpx_concat": [_P, _P, _P, _I, _I, _I, _I, _P],
     # stream, index, init states, fc table, out, final states, cursors, nb, n, bits, nwords, length, cuda stream
     "hsr_mt_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
+    # stream, index, fc table, annotation, nb, bits, nwords, cuda stream
+    "hsr_mt_annotate": [_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P],
+    # annotation, then as hsr_mt_decode
+    "hsr_mt_decode_annotated": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
     # data, index, freqs, words, final states, counts, nb, n, bits, zero_freq_emits, data_len, words_cap, cuda stream
     "hsr_mt_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
     # words, index, counts, final states, freqs, place rows, out, nb, n, words_cap, out_len, cuda stream

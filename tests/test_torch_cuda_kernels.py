@@ -131,6 +131,47 @@ def test_mt_main_path_64mib_equals_oracle(cuda):
     assert got == mt_decode_py(blob, 12, 64)
 
 
+@pytest.mark.parametrize("n", (32, 64))
+@pytest.mark.parametrize("bits", (10, 12, 15))
+def test_mt_annotated_kernels_equal_plain(cuda, bits, n, monkeypatch):
+    """The annotate kernel == its plain version (every word) and the
+    annotated decode kernel == its plain version and the rank kernel
+    (bytes, final states, cursors) on 61 blocks with an odd tail, whole and
+    on a word region cut to half, where reads past the cut give word 0 and
+    rank 0; then the annotated route of mt_decode_torch."""
+    rng = np.random.default_rng(bits + n)
+    data = text_like(rng, 61 * 4096 - 3983)
+    blob = mt_encode_py(data, bits, n, uniform_plan(data, bits, n, 4096))
+    length, (stream, index, states, fc) = _mt_operands(blob, bits, n, cuda)
+    kw = {"bits": bits, "n": n, "length": length}
+    for cut in (stream.numel(), stream.numel() // 4 * 2):
+        words = stream[:cut]
+        ann = mtd.annotate_cuda(words, index, fc, bits=bits)
+        torch.cuda.synchronize()
+        assert torch.equal(ann, mtd.annotate_plain(words, index, fc, bits=bits))
+        got = mtd.decode_blocks_annotated_cuda(ann, index, states, fc, **kw)
+        torch.cuda.synchronize()
+        want = mtd.decode_blocks_annotated_plain(ann, index, states, fc, **kw)
+        rank = mtd.decode_blocks_cuda(words, index, states, fc, **kw)
+        for g, w, r in zip(got, want, rank):
+            assert torch.equal(g, w) and torch.equal(g, r)
+    monkeypatch.setattr(mtd, "_PAIR_V2", True)
+    assert mtd.mt_decode_torch(blob, bits, n, device="cuda") == data.tobytes()
+
+
+def test_mt_annotated_main_path_64mib_equals_oracle(cuda, monkeypatch):
+    """chip_smoke.py's mt main path through the annotated route, held
+    against the numpy oracle `mt_decode_py`."""
+    from pathlib import Path
+
+    data = np.tile(np.fromfile(Path(__file__).parent / "corpus" / "xray.bin", np.uint8), 8)
+    blob = mt_encode_py(data, 12, 64, device_plan(data, 12, 64, 24 << 10))
+    monkeypatch.setattr(mtd, "_PAIR_V2", True)
+    got = mtd.mt_decode_torch(blob, 12, 64, device="cuda")
+    assert got == data.tobytes()
+    assert got == mt_decode_py(blob, 12, 64)
+
+
 @pytest.mark.parametrize("rule", mte.RULES)
 @pytest.mark.parametrize("n", (32, 64))
 @pytest.mark.parametrize("bits", (4, 10, 12, 13, 15))

@@ -68,6 +68,28 @@ def test_no_port_source_imports_jax(package):
                 assert words[1].split(".")[0] != package, (f, line)
 
 
+def test_every_entry_point_is_bound_and_reports_its_launch():
+    """Each C entry point of `csrc/*.cu` has a ctypes signature in
+    `runtime/build.py`, each signature an entry point, and every kernel
+    launch is followed by `cudaGetLastError()` before its function returns,
+    so `build.launch` sees a refused launch."""
+    import re
+
+    from hsrans_tpu_torch.runtime import build
+
+    entries = set()
+    for src in sorted((PORT / "csrc").glob("*.cu")):
+        text = src.read_text()
+        entries |= set(re.findall(r'extern "C" int (hsr_\w+)\(', text))
+        launches = [m.end() for m in re.finditer(r"<<<", text)]
+        assert launches, src
+        for at in launches:
+            body = text[at : text.index("\n}", at)]  # to the end of the launching function
+            assert "cudaGetLastError()" in body, (src.name, text[at - 80 : at])
+    assert entries == set(build._SIGNATURES)
+    assert {"mt_annotate", "mt_decode_annotated"} <= set(build.LAUNCHES)
+
+
 def test_cuda_without_a_card_raises():
     from hsrans_tpu_torch import mt_decode_torch, mt_encode_torch, tpx_decode_torch, tpx_encode_torch
     from hsrans_tpu_torch.parallel.sharded import mt_encode_device
@@ -108,6 +130,13 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         mt.decode_blocks_cuda(
             torch.zeros(64, dtype=torch.uint8), torch.zeros((1, 5), dtype=torch.int64),
+            torch.zeros((1, 64), dtype=torch.int32), t, bits=12, n=64, length=64,
+        )
+    with pytest.raises(ValueError, match="CUDA"):
+        mt.annotate_cuda(torch.zeros(64, dtype=torch.uint8), torch.zeros((1, 5), dtype=torch.int64), t, bits=12)
+    with pytest.raises(ValueError, match="CUDA"):
+        mt.decode_blocks_annotated_cuda(
+            torch.zeros(32, dtype=torch.int32), torch.zeros((1, 5), dtype=torch.int64),
             torch.zeros((1, 64), dtype=torch.int32), t, bits=12, n=64, length=64,
         )
     index = torch.tensor([[0, 1, 64, 64, 64]], dtype=torch.int64)
