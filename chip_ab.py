@@ -1,0 +1,192 @@
+#!/usr/bin/env python3
+"""Launch A/B of the mt decode and encode kernels of several source trees,
+side by side in one process on the same operands.
+
+    python3 chip_ab.py NAME=DIR [NAME=DIR ...] [--out FILE]
+
+Each DIR holds a copy of the port's package (`DIR/hsrans_tpu_torch/`): this
+checkout (`.`), a parent commit unpacked by `git archive`, or a copy whose
+kernel sources were edited to try another constant.  Each tree's own
+`runtime/build.py` builds that tree's kernel library (all trees at once)
+and binds it.  The operands are made by this checkout's Python: the 64 MiB
+x-ray `device_plan` blob and plan (a), the 8 MiB x-ray classes of
+`chip_smoke.py`'s kernel phases, and 64 MiB of enwik8-like text in uniform
+4 KiB blocks (plan (b)); the decode blobs are encoded on the card.  Every
+tree's outputs must equal the plain version's.  Each case times every
+tree's launch alone (`chip_smoke.launch_times`: CUDA events over 20
+launches queued behind a spin) in turns, each tree and then back in
+reverse order, and prints one JSON line with the card's name and power
+limit; `--out` also appends the lines to FILE.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import statistics
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import chip_smoke
+from chip_smoke import MIB, MT_CAPS
+
+REPO = Path(__file__).resolve().parent
+
+
+def load_tree(name: str, root: Path):
+    """`root`'s kernel library, built by `root`'s own build.py."""
+    spec = importlib.util.spec_from_file_location(f"chip_ab_build_{name}", root / "hsrans_tpu_torch" / "runtime" / "build.py")
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)
+    return build
+
+
+def decode_cases(dev: torch.device) -> list[tuple[str, int, int, tuple, int]]:
+    """(name, bits, n, kernel operands, output length) of the decode blobs."""
+    from hsrans_tpu_torch.kernels import mt_decode as mtd
+    from hsrans_tpu_torch.kernels.mt_encode import mt_encode_torch
+    from hsrans_tpu_torch.parallel.sharded import device_plan, mt_encode_device, uniform_plan
+
+    xray = np.fromfile(REPO / "tests" / "corpus" / "xray.bin", np.uint8)
+    main = np.tile(xray, 8)
+    specs = [("x-ray 64 MiB main path", main, 12, 64, device_plan(main, 12, 64, MT_CAPS[12]))]
+    specs += [(f"x-ray n={n} B={b} device_plan {MT_CAPS[b] >> 10} KiB", xray, b, n, device_plan(xray, b, n, MT_CAPS[b]))
+              for b, n in ((12, 64), (15, 64), (12, 32), (14, 32))]
+    specs.append(("x-ray n=64 B=12 uniform 16 KiB", xray, 12, 64, uniform_plan(xray, 12, 64, 16 << 10)))
+    cases = []
+    for name, src, bits, n, plan in specs:
+        blob = (mt_encode_torch(src, bits, plan=plan, device=dev) if n == 64
+                else mt_encode_device(src, bits, n, plan=plan, device=dev))
+        length, stream, blocks, w_counts = mtd.index_blocks(blob, n)
+        ops = mtd.device_operands(stream, *mtd.block_operands(length, stream, blocks, w_counts, bits, n), n, dev)
+        cases.append((name, bits, n, ops, length))
+    return cases
+
+
+def encode_cases(dev: torch.device) -> list[tuple[str, int, int, str, tuple]]:
+    """(name, bits, n, rule, kernel operands) of the encode plans."""
+    from hsrans_tpu_torch.kernels import mt_encode as mte
+    from hsrans_tpu_torch.parallel.sharded import device_plan
+    from tools.gen_inputs import text_like
+
+    xray = np.fromfile(REPO / "tests" / "corpus" / "xray.bin", np.uint8)
+    main = np.tile(xray, 8)
+    text = text_like(np.random.default_rng(8), 64 * MIB)
+    specs = [("x-ray 64 MiB main path (a)", main, device_plan(main, 12, 64, MT_CAPS[12]), 12, 64, "groups")]
+    specs += [(f"x-ray n={n} B={b} device_plan {MT_CAPS[b] >> 10} KiB", xray, device_plan(xray, b, n, MT_CAPS[b]), b, n,
+               "groups" if n == 64 else "section") for b, n in ((12, 64), (15, 64), (12, 32))]
+    specs.append(("x-ray n=64 B=12 uniform 4 KiB", xray, mte.uniform_rows(xray.size, 4096), 12, 64, "groups"))
+    specs.append(("text 64 MiB main path (b)", text, mte.uniform_rows(text.size, 4096), 12, 64, "groups"))
+    cases = []
+    for name, src, plan, bits, n, rule in specs:
+        _, _, index, freqs, _ = mte.plan_operands(src, plan, bits, n, rule)
+        cases.append((name, bits, n, rule, tuple(torch.from_numpy(a).to(dev) for a in (src, index, freqs.view(np.int16)))))
+    return cases
+
+
+def in_turns(launches: dict, max_groups: int) -> dict:
+    """Each tree's launch timed once, then again in reverse order."""
+    turns: dict[str, list[float]] = {k: [] for k in launches}
+    for k in [*launches, *reversed(launches)]:
+        turns[k].append(chip_smoke.launch_times(launches[k], max_groups)["launch_ms"])
+    ms = {k: statistics.mean(t) for k, t in turns.items()}
+    return {"max_groups": max_groups, "launch_ms": ms, "turns": turns,
+            "link_us": {k: t * 1e3 / max_groups for k, t in ms.items()}}
+
+
+def run(libs: dict, dev: torch.device, sink) -> None:
+    from hsrans_tpu_torch.kernels import mt_decode as mtd
+    from hsrans_tpu_torch.kernels import mt_encode as mte
+
+    cs = torch.cuda.current_stream(dev).cuda_stream
+
+    def checked(name: str, rc: int) -> None:
+        if rc:
+            raise RuntimeError(f"{name}: CUDA error {rc}")
+
+    for name, bits, n, ops, length in decode_cases(dev):
+        stream, index, states, fc = ops
+        nb = index.shape[0]
+        outs = {k: (torch.zeros(length, dtype=torch.uint8, device=dev), torch.empty((nb, n), dtype=torch.int32, device=dev),
+                    torch.empty(nb, dtype=torch.int64, device=dev)) for k in libs}
+
+        def decode(k: str) -> None:
+            out, fin, cursor = outs[k]
+            checked(k, libs[k].hsr_mt_decode(stream.data_ptr(), index.data_ptr(), states.data_ptr(), fc.data_ptr(),
+                                             out.data_ptr(), fin.data_ptr(), cursor.data_ptr(), nb, n, bits,
+                                             stream.numel() // 2, length, cs))
+
+        for k in libs:
+            decode(k)
+        torch.cuda.synchronize()
+        want = mtd.decode_blocks_plain(*ops, bits=bits, n=n, length=length)
+        for k in libs:
+            if chip_smoke.max_abs_err(outs[k], want):
+                raise AssertionError(f"{k} mt decode, {name}: differs from the plain version")
+        sink({"kernel": "mt_decode", "case": name, "bits": bits, "n": n, "blocks": nb,
+              **in_turns({k: (lambda k=k: decode(k)) for k in libs}, int(index[:, 4].max()))})
+
+    magic = mte.magic_tensor(dev)
+    for name, bits, n, rule, (data, index, freqs) in encode_cases(dev):
+        nb, cap = index.shape[0], int(index[-1, 4])
+        outs = {k: (torch.zeros(cap, dtype=torch.int16, device=dev), torch.empty(nb, dtype=torch.int64, device=dev),
+                    torch.empty((nb, n), dtype=torch.int32, device=dev)) for k in libs}
+
+        def encode(k: str) -> None:
+            words, count, fin = outs[k]
+            fn = libs[k].hsr_mt_encode
+            # a tree from before the magic table takes one pointer less
+            mg = (magic.data_ptr(),) if len(fn.argtypes) == 14 else ()
+            checked(k, fn(data.data_ptr(), index.data_ptr(), freqs.data_ptr(), *mg, words.data_ptr(), fin.data_ptr(),
+                          count.data_ptr(), nb, n, bits, int(rule == "groups"), data.numel(), cap, cs))
+
+        for k in libs:
+            encode(k)
+        torch.cuda.synchronize()
+        want = mte.encode_blocks_plain(data, index, freqs, bits=bits, n=n, rule=rule, words_cap=cap)
+        for k in libs:
+            words, count, fin = outs[k]
+            got = (count, fin, mte.emitted_words(words, index, count))
+            if chip_smoke.max_abs_err(got, (want[1], want[2], mte.emitted_words(want[0], index, want[1]))):
+                raise AssertionError(f"{k} mt encode, {name}: differs from the plain version")
+        sink({"kernel": "mt_encode", "case": name, "bits": bits, "n": n, "rule": rule, "blocks": nb,
+              **in_turns({k: (lambda k=k: encode(k)) for k in libs}, int(index[:, 1].max()))})
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="+", metavar="NAME=DIR", help="a name and a directory holding hsrans_tpu_torch/")
+    ap.add_argument("--out", type=Path, help="a file to which the JSON lines are appended")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device", file=sys.stderr)
+        return 1
+    trees = dict(t.split("=", 1) for t in args.trees)
+    builds = {k: load_tree(k, Path(d).resolve()) for k, d in trees.items()}
+    with ThreadPoolExecutor(len(builds)) as pool:  # nvcc runs in subprocesses: the trees build at once
+        libs = dict(zip(builds, pool.map(lambda b: b.load(), builds.values())))
+    card = chip_smoke.card()
+    log = open(args.out, "a") if args.out else None
+
+    def sink(row: dict) -> None:
+        line = json.dumps({**row, "card": card})
+        print(line, flush=True)
+        if log:
+            log.write(line + "\n")
+
+    try:
+        sink({"phase": "build", "trees": trees, "libraries": {k: str(b.library_path()) for k, b in builds.items()}})
+        run(libs, torch.device("cuda", 0), sink)
+    finally:
+        if log:
+            log.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,8 +23,14 @@ the port's two paths through their public entry points:
     uniform 4 KiB blocks encoded on the card and decoded on the card, other
     depths, n=32 (`mt_encode_device`), the reference planner's blocks, odd
     tails, single-symbol runs and block sizes off the 64-byte grid;
+  * the mt decode and encode kernels' shared-memory windows at their edges
+    (`DECODE_EDGES`, `ENCODE_EDGES`, which the card tests run too);
 
 and times the kernels and the paths with CUDA events and the host clock.
+The mt decode and encode kernels are timed twice: through their wrappers
+(`ms`, which allocate and zero their outputs) and by their launch alone on
+outputs allocated once (`launch_ms`, and `link_us`, that over the longest
+block's groups).
 Every blob the card writes must equal the port's CPU tier (the kernels'
 plain versions, which the CPU tests hold byte-equal to the JAX package) and
 decode back to its input.
@@ -154,6 +160,14 @@ def bound(moved: int, ops: int) -> dict:
             "bytes_moved": moved, "int_ops": ops}
 
 
+def launch_times(launch, max_groups: int) -> dict:
+    """A kernel's launch alone (no allocation, no fill of its outputs) by
+    CUDA events over 20 launches queued ahead, and that time over the
+    longest block's groups: one link of a lane's chain, in microseconds."""
+    ms = cuda_ms(launch, 20, queue_ahead=True)
+    return {"launch_ms": ms, "link_us": ms * 1e3 / max(max_groups, 1)}
+
+
 def max_abs_err(got, want) -> int:
     if isinstance(got, tuple):
         return max(max_abs_err(g, w) for g, w in zip(got, want))
@@ -227,10 +241,13 @@ def mt_kernel_vs_plain(name: str, blob: bytes, bits: int, n: int, dev: torch.dev
     err = max_abs_err(got, want)
     if err:
         raise AssertionError(f"mt {name}: kernel differs from its plain version (max abs err {err})")
+    outs = tuple(torch.empty_like(t) for t in got)  # the launch alone: outputs allocated once
+    max_groups = int(ops[0][:, 4].max())
     res = {
         "case": name, "bits": bits, "n": n, "blocks": int(ops[0].shape[0]), "max_abs_err": err,
-        "max_groups": int(ops[0][:, 4].max()),
+        "max_groups": max_groups,
         "ms": cuda_ms(lambda: mtd.decode_blocks_cuda(*args, **kw), 20, queue_ahead=True),
+        **launch_times(lambda: mtd.launch_decode(*args, *outs, bits=bits, n=n), max_groups),
         "ms_host_paced": cuda_ms(lambda: mtd.decode_blocks_cuda(*args, **kw), 20),
         "plain_ms": cuda_ms(lambda: mtd.decode_blocks_plain(*args, **kw), 1),
         **bound(nbytes(*args, *got), OPS_PER_SYMBOL["decode"] * length),
@@ -546,12 +563,16 @@ def mt_encode_kernel_vs_plain(name: str, data: np.ndarray, plan, bits: int, n: i
     coded_bytes = int(np.maximum(index[:, 2] - index[:, 0], 0).sum())
     words = 2 * int(count.sum())
     enc_moved = coded_bytes + nbytes(index_t, freqs_t, count_t, fin_t) + words
+    outs = tuple(torch.empty_like(t) for t in got)  # the launch alone: outputs allocated once
+    max_groups = int(index[:, 1].max())
     res = {
-        "case": name, "bits": bits, "n": n, "rule": rule, "blocks": len(ks), "max_groups": int(index[:, 1].max()),
+        "case": name, "bits": bits, "n": n, "rule": rule, "blocks": len(ks), "max_groups": max_groups,
         "coded_bytes": coded_bytes,
         "mt_encode": {
             "max_abs_err": err,
             "ms": cuda_ms(lambda: mte.encode_blocks_cuda(data_t, index_t, freqs_t, **kw), 20, queue_ahead=True),
+            **launch_times(lambda: mte.launch_encode(data_t, index_t, freqs_t, *outs, bits=bits, n=n, rule=rule),
+                           max_groups),
             "ms_host_paced": cuda_ms(lambda: mte.encode_blocks_cuda(data_t, index_t, freqs_t, **kw), 20),
             "plain_ms": cuda_ms(lambda: mte.encode_blocks_plain(data_t, index_t, freqs_t, **kw), 1),
             **bound(enc_moved, OPS_PER_SYMBOL["encode"] * coded_bytes),
@@ -674,6 +695,110 @@ def mt_encode_phases(repo: Path, dev: torch.device, ctx: dict) -> tuple[list[dic
     return rows, launches
 
 
+# the cases that hold the mt kernels' shared-memory windows at their edges
+# (tests/test_torch_cuda_kernels.py runs them too); the decode's at B=10, 12
+# and 15, n=32 and 64, the encode's at B=12, n=32 and 64, under both rules
+DECODE_EDGES = ("word_start residues", "blocks shorter than a half", "word regions cut mid-group", "one 1 MiB block")
+ENCODE_EDGES = ("in_start residues", "block sizes off the 64-byte grid", "one 1 MiB block")
+
+
+def decode_edge_operands(case: str, bits: int, n: int, dev: torch.device) -> list[tuple[str, tuple, dict]]:
+    """(name, decode kernel operands, keywords) of one DECODE_EDGES case:
+    uniform blocks of 4 KiB (512 bytes for blocks shorter than one window
+    half, 1 MiB for the one large block: ~16 Ki groups at n=64) of
+    enwik8-like text with an odd tail.  Residues: the word region shifted
+    by 0..7 words, so that each block's first word meets every 16-byte
+    phase.  Cut: each block's word region ends in the middle of its words,
+    and the whole region is cut to half."""
+    from hsrans_tpu_torch.kernels import mt_decode as mtd
+    from hsrans_tpu_torch.ops.mt import mt_encode_py
+    from hsrans_tpu_torch.parallel.sharded import uniform_plan
+    from tools.gen_inputs import text_like
+
+    block = {"blocks shorter than a half": 512, "one 1 MiB block": 1 << 20}.get(case, 4096)
+    data = text_like(np.random.default_rng(64 * bits + n), (1 << 20) + 4099 if block == 1 << 20 else 6 * block - 37)
+    blob = mt_encode_py(data, bits, n, uniform_plan(data, bits, n, block))
+    length, stream, blocks, w_counts = mtd.index_blocks(blob, n)
+    words, index, states, fc = mtd.device_operands(stream, *mtd.block_operands(length, stream, blocks, w_counts, bits, n),
+                                                   n, dev)
+    kw = {"bits": bits, "n": n, "length": length}
+    if case == "word_start residues":
+        shifted = []
+        for r in range(8):
+            ix = index.clone()
+            ix[:, :2] += r
+            shifted.append((f"shift {r}", (torch.cat([torch.zeros(2 * r, dtype=torch.uint8, device=dev), words]), ix,
+                                           states, fc), kw))
+        return shifted
+    if case == "word regions cut mid-group":
+        ix = index.clone()
+        ix[:, 1] = ix[:, 0] + (ix[:, 1] - ix[:, 0]) // 2 + 3
+        return [("block ends", (words, ix, states, fc), kw),
+                ("region cut to half", (words[: words.numel() // 4 * 2], index, states, fc), kw)]
+    return [(case, (words, index, states, fc), kw)]
+
+
+def encode_edge_operands(case: str, n: int, rule: str, dev: torch.device) -> list[tuple[str, tuple, dict]]:
+    """(name, encode kernel operands, keywords) of one ENCODE_EDGES case at
+    B=12 on enwik8-like text with the byte 0 in every block (so that the
+    "groups" rule's lanes past a block's end decode).  Residues: the input
+    shifted by 0..15 bytes under rows off the 64-byte grid, so that each
+    block's first byte meets every 16-byte phase."""
+    from hsrans_tpu_torch.kernels import mt_encode as mte
+    from hsrans_tpu_torch.ops.planner import BlockPlan
+    from tools.gen_inputs import text_like
+
+    if case == "one 1 MiB block":
+        cuts = [0, 1 << 20, (1 << 20) + 3001]
+    else:
+        cuts = [0, 1000, 5003, 9000, 20001, 33333, 40961]
+    data = text_like(np.random.default_rng(n + len(rule)), cuts[-1])
+    data[::31] = 0
+    out = []
+    for r in range(16) if case == "in_start residues" else (0,):
+        shifted = np.concatenate([np.zeros(r, np.uint8), data])
+        plan = [BlockPlan(r + cuts[i], cuts[i + 1] - cuts[i], False, 0, None) for i in range(len(cuts) - 1)]
+        _, _, index, freqs, _ = mte.plan_operands(shifted, plan, 12, n, rule)
+        ops = tuple(torch.from_numpy(a).to(dev) for a in (shifted, index, freqs.view(np.int16)))
+        out.append((f"shift {r}", ops, {"bits": 12, "n": n, "rule": rule, "words_cap": int(index[-1, 4])}))
+    return out
+
+
+def mt_window_edges(dev: torch.device) -> dict[str, list[dict]]:
+    """The mt decode and encode kernels against their plain versions on the
+    DECODE_EDGES and ENCODE_EDGES cases, exact (decode: bytes, final states,
+    cursors; encode: counts, final states, emitted words)."""
+    from hsrans_tpu_torch.kernels import mt_decode as mtd
+    from hsrans_tpu_torch.kernels import mt_encode as mte
+
+    rows: dict[str, list[dict]] = {"mt_decode": [], "mt_encode": []}
+    for case in DECODE_EDGES:
+        for bits in (10, 12, 15):
+            for n in (32, 64):
+                for name, args, kw in decode_edge_operands(case, bits, n, dev):
+                    got = mtd.decode_blocks_cuda(*args, **kw)
+                    torch.cuda.synchronize()
+                    err = max_abs_err(got, mtd.decode_blocks_plain(*args, **kw))
+                    if err:
+                        raise AssertionError(f"mt decode {case}, {name}, B={bits} n={n}: kernel differs (max abs err {err})")
+                    rows["mt_decode"].append({"case": case, "sub": name, "bits": bits, "n": n, "max_abs_err": err})
+    for case in ENCODE_EDGES:
+        for n in (32, 64):
+            for rule in ("groups", "section"):
+                for name, (data, index, freqs), kw in encode_edge_operands(case, n, rule, dev):
+                    got = mte.encode_blocks_cuda(data, index, freqs, **kw)
+                    torch.cuda.synchronize()
+                    want = mte.encode_blocks_plain(data, index, freqs, **kw)
+                    err = max_abs_err((got[1], got[2], mte.emitted_words(got[0], index, got[1])),
+                                      (want[1], want[2], mte.emitted_words(want[0], index, want[1])))
+                    if err:
+                        raise AssertionError(f"mt encode {case}, {name}, n={n} {rule}: kernel differs (max abs err {err})")
+                    rows["mt_encode"].append({"case": case, "sub": name, "n": n, "rule": rule, "max_abs_err": err})
+    emit("mt_window_edges", decode_cases=len(rows["mt_decode"]), encode_cases=len(rows["mt_encode"]),
+         max_abs_err=max(r["max_abs_err"] for r in rows["mt_decode"] + rows["mt_encode"]))
+    return rows
+
+
 def main() -> int:
     global CARD, OPS_PER_S
     if not torch.cuda.is_available():
@@ -790,6 +915,10 @@ def main() -> int:
     # 9. mt encode: kernels vs plain, main path (a) and (b), round trips, times
     enc_rows, enc_launches = mt_encode_phases(repo, dev, ctx)
 
+    # 10. the mt kernels' shared-memory windows at their edges, against the
+    #     plain versions
+    edge_rows = mt_window_edges(dev)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsrans_tpu"))
     if foreign:
         raise AssertionError(f"the run loaded modules of JAX or of the JAX package: {foreign}")
@@ -802,14 +931,17 @@ def main() -> int:
         # the 64 MiB x-ray n=64 B=12 device_plan blob (mt decode, both
         # routes) and plan (mt encode)
         if name == "mt_decode":
-            row = {"launches": mt_launches, "max_abs_err": max(r["max_abs_err"] for r in mt_rows),
-                   **{k: mt_rows[0][k] for k in keys}}
+            row = {"launches": mt_launches, "max_abs_err": max(r["max_abs_err"] for r in mt_rows + edge_rows["mt_decode"]),
+                   **{k: mt_rows[0][k] for k in (*keys, "launch_ms", "link_us")}}
         elif name in ann_launches:
             row = {"launches": ann_launches[name], "max_abs_err": max(r[name]["max_abs_err"] for r in ann_rows),
                    **{k: ann_rows[0][name][k] for k in keys}}
         elif name in enc_launches:
             row = {"launches": enc_launches[name], "max_abs_err": max(r[name]["max_abs_err"] for r in enc_rows),
                    **{k: enc_rows[0][name][k] for k in keys}}
+            if name == "mt_encode":
+                row["max_abs_err"] = max(row["max_abs_err"], *(r["max_abs_err"] for r in edge_rows["mt_encode"]))
+                row |= {k: enc_rows[0][name][k] for k in ("launch_ms", "link_us")}
         else:
             row = {"launches": launches[name], "max_abs_err": max(per_bits[b][name]["max_abs_err"] for b in per_bits),
                    **{k: per_bits[12][name][k] for k in keys}}

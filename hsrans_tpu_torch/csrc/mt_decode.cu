@@ -26,42 +26,70 @@
 // for n = 32 and 64 and any B <= 15, and gives the rank route's bytes.
 //
 // What bounds the decodes: each block's n states form one serial chain per
-// lane (table lookup -> state update -> renorm read) of ceil(size/n) links;
-// the bytes and arithmetic are small, so the number of blocks in flight and
-// the latency of one link set the rate.  A block is never split, so a blob
-// of a few giant blocks (the reference planner's, up to 2^25 bytes) leaves
-// the card with few chains.  The annotate pass is bound by bytes: it reads
-// 2 B and writes 4 B a word.
+// lane (table lookup -> state update -> ballot -> renorm read) of
+// ceil(size/n) links; the bytes and arithmetic are small, so the number of
+// blocks in flight and the latency of one link set the rate.  A block is
+// never split, so a blob of a few giant blocks (the reference planner's, up
+// to 2^25 bytes) leaves the card with few chains.  The renorm read's address
+// depends on the group's ballot, so nothing can issue it early: read from
+// device memory it put an L2 or HBM round trip on about every other link.
+// With the words in shared memory the link is the warp's own instructions,
+// issued in order, with dependent shared loads and popcounts among them, so
+// at one warp per scheduler a link is the chain's latency and at the 64 MiB
+// main blob's ~5 warps per scheduler it is nearly their issue.  The annotate pass is bound by bytes: it reads 2 B and
+// writes 4 B a word.
 //
 // Design: one warp per coded block in the decodes.  With n=64 thread j holds
 // lanes j and j+32 (two independent chains per thread), with n=32 lane j.
 // The warp builds its block's decode table in shared memory from the block's
 // freq | cumul << 16 row: the bucketed rank table of hsrans_tpu/ops/tpx.py::
 // make_rank_tables (per 32-slot bucket the rank of its first slot's symbol
-// and a bitmask of the symbol starts inside it; 6.3 KiB a warp at B=15
-// where a flat slot -> symbol table takes 33 KiB, so a block of four warps
-// keeps within the default 48 KiB of shared memory; on the H100 it also
-// beat the flat table at B=10..12).  The renorm words of a group go to the
-// lanes in ascending lane order over all n lanes: a ballot over lanes
+// and a bitmask of the symbol starts inside it; a flat slot -> symbol table
+// takes 33 KiB at B=15).  The rank route packs it so that each lookup is one
+// 8-byte shared load, bucket then rank entry (symbol | freq << 8, cumul;
+// 10.3 KiB a warp at B=15), and at B <= 12 it also spreads the bucket table
+// into a flat slot -> rank byte map (4 KiB a warp at B=12), which takes the
+// bucket load and a popcount off the link.  The renorm words of a group go
+// to the lanes in ascending lane order over all n lanes: a ballot over lanes
 // 0..31, then one over lanes 32..63 offset by the first's popcount.  The
-// stream is the blob's u16 word region as it is (the rank route) or its
-// annotation (the annotated route); every read is clamped to the block's
-// [word_start, word_end) and a word past it reads as 0, so a corrupt blob
-// cannot read out of bounds.  Lane j's symbol of group g goes to byte
-// out_start + g*n + idx2idx[j] when that byte is below the block's
-// out_limit (its end, or the blob's length for the last block).  The final
-// states and the words consumed come back, for the host's partial tail
-// group.  The annotate pass runs one CTA per coded block: its first warp
-// builds the same table, then all its threads stride over the block's
-// words, a few loads in flight each; it also zeroes the words between
-// blocks, so every word of the annotation is written.
+// rank route reads them from a window of the block's words in shared memory
+// (window.cuh: two halves of kWindowHalf words, 2 KiB a warp) that the warp
+// refills by cp.async far ahead of the chain: when its cursor leaves a half
+// it copies the half after the next into that slot, and it waits for a half
+// only when the next group could read into it, ~kWindowHalf - 2n words of
+// reading after the copy began.  Every lane reads (a consuming lane keeps
+// the word), so the warp never splits to reconverge, and each lane knows
+// from the start the groups whose byte it writes, so no 64-bit arithmetic
+// or per-group bound is left on the lanes.  The window zero-fills every
+// byte outside the block's [0, min(word_end, nwords)), so a read past a
+// block's words reads 0 and a corrupt blob cannot read out of bounds.  The
+// annotated route reads its annotation from device memory, clamped the
+// same way.  Lane j's symbol of group g goes to byte out_start + g*n +
+// idx2idx[j] when that byte is below the block's out_limit (its end, or the
+// blob's length for the last block).  The final states and the words
+// consumed come back, for the host's partial tail group.  The annotate pass
+// runs one CTA per coded block: its first warp builds the same table, then
+// all its threads stride over the block's words, a few loads in flight
+// each; it also zeroes the words between blocks, so every word of the
+// annotation is written.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "window.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;  // blocks (one warp each) per CTA of the decodes
+// words in each half of the rank route's stream window (a power of two, at
+// least 256 and above 2n: a group reads at most n words); 1024 costs the
+// 64 MiB main blob a CTA an SM (PERF.md)
+constexpr int kWindowHalf = 512;
+// the rank kernel looks a slot's rank up in a flat slot -> rank byte map at
+// B up to this (2^B bytes a warp; faster than the bucket table at B=12,
+// PERF.md), in the bucket table above it
+constexpr int kFlatMaxBits = 12;
+static_assert((kWindowHalf & (kWindowHalf - 1)) == 0 && kWindowHalf >= 256, "window half: a power of two >= 256");
 constexpr int kAnnThreads = 256;  // threads of an annotate CTA (one coded block)
 constexpr int kAnnUnroll = 4;     // words in flight per annotate thread
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
@@ -101,16 +129,10 @@ __device__ __forceinline__ RankTable rank_table_at(uint32_t* tab, int bits) {
           tab + 256 + 64 + (buckets(bits) + 3) / 4};
 }
 
-// The table of the block whose freq | cumul << 16 row is fc_row, built in
-// `tab` (table_words(bits) words) by the 32 threads of one warp, thread j.
-// Ends with __syncwarp: the warp may read it on return.
-__device__ __forceinline__ RankTable build_rank_table(uint32_t* tab, const uint32_t* __restrict__ fc_row, int bits,
-                                                      int j) {
-  const uint32_t n_slots = 1u << bits;
-  const RankTable t = rank_table_at(tab, bits);
-  for (int i = j; i < buckets(bits); i += 32) t.bm[i] = 0u;
-  // thread j owns symbols 8j..8j+7; rank = present symbols before it
-  uint32_t fcs[8];
+// Thread j of a warp loads symbols 8j..8j+7 of a freq | cumul << 16 row into
+// fcs and returns the rank of its first: the present (freq > 0) symbols
+// before it.
+__device__ __forceinline__ int load_symbols(uint32_t (&fcs)[8], const uint32_t* __restrict__ fc_row, int j) {
   int present = 0;
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
@@ -123,7 +145,19 @@ __device__ __forceinline__ RankTable build_rank_table(uint32_t* tab, const uint3
     const int v = __shfl_up_sync(kFullMask, incl, d);
     if (j >= d) incl += v;
   }
-  int rank = incl - present;
+  return incl - present;
+}
+
+// The table of the block whose freq | cumul << 16 row is fc_row, built in
+// `tab` (table_words(bits) words) by the 32 threads of one warp, thread j.
+// Ends with __syncwarp: the warp may read it on return.
+__device__ __forceinline__ RankTable build_rank_table(uint32_t* tab, const uint32_t* __restrict__ fc_row, int bits,
+                                                      int j) {
+  const uint32_t n_slots = 1u << bits;
+  const RankTable t = rank_table_at(tab, bits);
+  for (int i = j; i < buckets(bits); i += 32) t.bm[i] = 0u;
+  uint32_t fcs[8];
+  int rank = load_symbols(fcs, fc_row, j);
   __syncwarp();  // bm zeroed before any start bit is set
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
@@ -148,9 +182,67 @@ __device__ __forceinline__ uint32_t rank_of(const RankTable& t, uint32_t slot) {
   return t.c0[bk] + __popc(t.bm[bk] & ((2u << (slot & 31)) - 2u));
 }
 
-template <int K>
+// The rank kernel's table, each lookup one 8-byte shared load: per bucket
+// {start mask without bit 0, rank of the symbol that owns its first slot},
+// per rank {symbol | freq << 8, cumul}.  At B=15 it takes 10.3 KiB a warp.
+struct PackedTable {
+  uint2* bucket;
+  uint2* entry;
+};
+
+// 256 ranks and 32 more: a bucket's rank plus its popcount stays inside the
+// table whatever the freqs
+__host__ __device__ constexpr int packed_table_bytes(int bits) { return 8 * (buckets(bits) + 256 + 32); }
+
+// As build_rank_table, into `tab` (packed_table_bytes(bits) of shared
+// memory, 8-byte aligned).
+__device__ __forceinline__ PackedTable build_packed_table(uint2* tab, const uint32_t* __restrict__ fc_row, int bits,
+                                                          int j) {
+  const uint32_t n_slots = 1u << bits;
+  const PackedTable t{tab, tab + buckets(bits)};
+  for (int i = j; i < buckets(bits); i += 32) t.bucket[i] = make_uint2(0u, 0u);
+  uint32_t fcs[8];
+  int rank = load_symbols(fcs, fc_row, j);
+  __syncwarp();  // buckets zeroed before any start bit is set
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint32_t f = fcs[q] & 0xFFFFu, c = fcs[q] >> 16;
+    if (f == 0 || c >= n_slots) continue;
+    t.entry[rank] = make_uint2(static_cast<uint32_t>(8 * j + q) | f << 8, c);
+    if (c & 31) atomicOr(&t.bucket[c >> 5].x, 1u << (c & 31));  // a bucket's first slot counts in its rank
+    const uint32_t end = min(c + f, n_slots);
+    for (uint32_t bk = (c + 31) >> 5; (bk << 5) < end; ++bk) t.bucket[bk].y = static_cast<uint32_t>(rank);
+    ++rank;
+  }
+  __syncwarp();
+  return t;
+}
+
+// the rank of the symbol that owns `slot`: its bucket's first rank plus the
+// symbols that start in bits 1..slot % 32 of its bucket
+__device__ __forceinline__ uint32_t packed_rank(const PackedTable& t, uint32_t slot) {
+  const uint2 b = t.bucket[slot >> 5];
+  return b.y + __popc(b.x << (~slot & 31u));
+}
+
+// shared memory of one warp's tables in mt_decode_kernel: the packed table,
+// then with kFlat the slot -> rank map (16-byte multiples)
+__host__ __device__ constexpr int decode_table_bytes(int bits, bool flat) {
+  return (packed_table_bytes(bits) + (flat ? 1 << bits : 0) + 15) / 16 * 16;
+}
+
+// shared memory of one CTA of mt_decode_kernel: the warps' windows, then
+// their tables
+__host__ __device__ constexpr size_t decode_smem_bytes(int bits, bool flat) {
+  return kWarps * (2 * kWindowHalf * sizeof(uint16_t) + decode_table_bytes(bits, flat));
+}
+
+// ceil(a / n) for any sign of a, n > 0
+__device__ __forceinline__ long long ceil_div(long long a, int n) { return a > 0 ? (a + n - 1) / n : -((-a) / n); }
+
+template <int K, bool kFlat>
 __global__ void __launch_bounds__(kWarps * 32)
-mt_decode_kernel(const uint16_t* __restrict__ stream,   // [nwords] the blob's word region
+mt_decode_kernel(const uint16_t* __restrict__ stream,   // [nwords] the blob's word region (2-byte aligned)
                  const BlockIndex* __restrict__ index,  // [nb]
                  const uint32_t* __restrict__ init,     // [nb, 32K] header states
                  const uint32_t* __restrict__ fctab,    // [nb, 256] freq | cumul << 16
@@ -158,58 +250,113 @@ mt_decode_kernel(const uint16_t* __restrict__ stream,   // [nwords] the blob's w
                  uint32_t* __restrict__ fin,            // [nb, 32K] states after the last group
                  long long* __restrict__ cursor,        // [nb] words consumed
                  int nb, int bits, long long nwords, long long length) {
-  extern __shared__ uint32_t smem[];
+  extern __shared__ __align__(16) uint32_t dsmem[];
   constexpr int n = 32 * K;
+  constexpr int kRing = 2 * kWindowHalf;  // words of a warp's window
+  static_assert(kWindowHalf >= 2 * n, "a half holds a group's reads twice over");
   const int w = threadIdx.x >> 5;
   const int j = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps + w;
   if (b >= nb) return;  // warp-uniform; the kernel syncs only within a warp
+  uint16_t* ring = reinterpret_cast<uint16_t*>(dsmem) + w * kRing;
   const uint32_t slot_mask = (1u << bits) - 1u;
-  const RankTable t = build_rank_table(smem + w * table_words(bits), fctab + (size_t)b * 256, bits, j);
 
-  // ---- the block's groups, lanes j + 32k in registers
+  // ---- the window: word p of the stream at ring[(p - wbase) % kRing], wbase
+  //      the block's first word rounded down to a 16-byte address; words at or
+  //      past min(word_end, nwords), or below 0, read as 0.  Its first two
+  //      halves are on their way while the warp builds its table.
   const BlockIndex ix = index[b];
-  // a corrupt index row stays inside the stream and the output all the same
   const long long word_end = min(ix.word_end, nwords);
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(stream);
+  const int ph = window::phase(src, 2 * ix.word_start) >> 1;  // the block's first word's window position
+  const long long wbase = ix.word_start - ph;
+  long long next_half = 0;  // the next half to copy, into slot next_half % 2
+  auto fill_next = [&]() {
+    window::fill<2 * kWindowHalf>(reinterpret_cast<uint8_t*>(ring + (next_half & 1) * kWindowHalf), src,
+                                  2 * (wbase + next_half * kWindowHalf), 2 * word_end, j);
+    ++next_half;
+  };
+  fill_next();
+  fill_next();
+  uint8_t* tables = reinterpret_cast<uint8_t*>(dsmem) + kWarps * kRing * sizeof(uint16_t) +
+                    w * decode_table_bytes(bits, kFlat);
+  const PackedTable t = build_packed_table(reinterpret_cast<uint2*>(tables), fctab + (size_t)b * 256, bits, j);
+  uint8_t* rank_map = tables + packed_table_bytes(bits);  // with kFlat: slot -> rank
+  if (kFlat) {
+    for (uint32_t slot = j; slot <= slot_mask; slot += 32) rank_map[slot] = static_cast<uint8_t>(packed_rank(t, slot));
+  }
+  window::wait_all();
+  __syncwarp();
+  long long rel = ph;                     // window position of the block's next word
+  long long refill_at = kWindowHalf;      // once rel reaches it, the half below it is free
+  long long ready_end = kRing;            // the window holds positions below it
+  long long event = min(refill_at, ready_end - n + 1);  // the next rel at which either check fires
+
+  // ---- the block's groups, lanes j + 32k in registers.  Lane j + 32k's
+  //      symbol of group g goes to lane_out[k] + g*n when g lies in
+  //      [g_lo[k], g_lo[k] + g_span[k]): its byte is in [0, out_limit)
+  const int groups = static_cast<int>(min(ix.num_groups, static_cast<long long>(INT32_MAX)));
   const long long out_limit = min(ix.out_limit, length);
   const uint32_t lt = (1u << j) - 1u;
   uint32_t st[K];
-  int byte_of[K];
+  uint8_t* lane_out[K];
+  int g_lo[K];
+  unsigned g_span[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     st[k] = init[(size_t)b * n + j + 32 * k];
-    byte_of[k] = idx2idx32(j) + 32 * k;
+    const long long first = ix.out_start + idx2idx32(j) + 32 * k;  // the lane's byte of group 0
+    lane_out[k] = out + first;
+    const long long lo = min(max(ceil_div(-first, n), 0LL), static_cast<long long>(groups));
+    const long long hi = min(max(ceil_div(out_limit - first, n), lo), static_cast<long long>(groups));
+    g_lo[k] = static_cast<int>(lo);
+    g_span[k] = static_cast<unsigned>(hi - lo);
   }
-  long long rw = 0;  // words of the block consumed so far
-  for (long long g = 0; g < ix.num_groups; ++g) {
-    const long long group_pos = ix.out_start + g * n;
+  for (int g = 0; g < groups; ++g) {
     bool consume[K];
     unsigned ballot[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const uint32_t slot = st[k] & slot_mask;
-      const uint32_t r = rank_of(t, slot);
-      const uint32_t sym = t.sym[r], fc = t.fc[r];
-      st[k] = (st[k] >> bits) * (fc & 0xFFFFu) + slot - (fc >> 16);
-      const long long pos = group_pos + byte_of[k];
-      if (pos >= 0 && pos < out_limit) out[pos] = static_cast<uint8_t>(sym);
+      const uint2 e = t.entry[kFlat ? rank_map[slot] : packed_rank(t, slot)];
+      st[k] = (st[k] >> bits) * (e.x >> 8) + slot - e.y;
+      if (static_cast<unsigned>(g - g_lo[k]) < g_span[k])
+        lane_out[k][static_cast<size_t>(g) * n] = static_cast<uint8_t>(e.x);  // the symbol: e.x's low byte
       consume[k] = st[k] < kConsumePoint;
       ballot[k] = __ballot_sync(kFullMask, consume[k]);
     }
-    long long base = rw;
+    // every lane reads (no branch to reconverge); a lane that consumes keeps
+    // the word.  Ring offsets in bytes wrap, so 32 bits do.
+    uint32_t at = 2 * static_cast<uint32_t>(rel);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (consume[k]) {
-        const long long a = ix.word_start + base + __popc(ballot[k] & lt);
-        st[k] = (st[k] << 16) | (a >= 0 && a < word_end ? static_cast<uint32_t>(stream[a]) : 0u);
-      }
-      base += __popc(ballot[k]);
+      const uint32_t word = *reinterpret_cast<const uint16_t*>(
+          reinterpret_cast<const uint8_t*>(ring) + ((at + 2 * __popc(ballot[k] & lt)) & (2 * kRing - 1)));
+      st[k] = consume[k] ? __byte_perm(word, st[k], 0x5410) : st[k];  // (st << 16) | word
+      at += 2 * __popc(ballot[k]);
     }
-    rw = base;
+    rel += (at - 2 * static_cast<uint32_t>(rel)) / 2;
+    if (rel >= event) {
+      // every later read lies at or past rel: once rel leaves a half, its
+      // slot takes the half after the next, which has ~kWindowHalf - 2n
+      // words of reading to land before a group can reach it
+      if (rel >= refill_at) {
+        __syncwarp();  // every lane's reads of the slot are done
+        fill_next();
+        refill_at += kWindowHalf;
+      }
+      if (rel + n > ready_end) {  // the next group may read into the half last copied
+        window::wait_all();
+        __syncwarp();
+        ready_end += kWindowHalf;
+      }
+      event = min(refill_at, ready_end - n + 1);
+    }
   }
+  window::wait_all();  // no copy may land after the warp leaves
 #pragma unroll
   for (int k = 0; k < K; ++k) fin[(size_t)b * n + j + 32 * k] = st[k];
-  if (j == 0) cursor[b] = rw;
+  if (j == 0) cursor[b] = rel - ph;
 }
 
 // ann[w] = word | rank(word & mask) << 16 for every word w of coded block
@@ -326,11 +473,10 @@ using DecodeKernel = void (*)(const Word*, const BlockIndex*, const uint32_t*, c
                               long long*, int, int, long long, long long);
 
 template <typename Word>
-cudaError_t launch_decode(DecodeKernel<Word> kernel, const void* stream, const void* index, const void* init,
-                          const void* fctab, void* out, void* fin, void* cursor, int nb, int bits, long long nwords,
-                          long long length, cudaStream_t cs) {
+cudaError_t launch_decode(DecodeKernel<Word> kernel, size_t smem, const void* stream, const void* index,
+                          const void* init, const void* fctab, void* out, void* fin, void* cursor, int nb, int bits,
+                          long long nwords, long long length, cudaStream_t cs) {
   const int blocks = (nb + kWarps - 1) / kWarps;
-  const size_t smem = sizeof(uint32_t) * kWarps * table_words(bits);  // <= 25.6 KB
   kernel<<<blocks, kWarps * 32, smem, cs>>>(
       static_cast<const Word*>(stream), static_cast<const BlockIndex*>(index), static_cast<const uint32_t*>(init),
       static_cast<const uint32_t*>(fctab), static_cast<uint8_t*>(out), static_cast<uint32_t*>(fin),
@@ -344,10 +490,19 @@ extern "C" int hsr_mt_decode(const void* stream, const void* index, const void* 
                              void* out, void* fin, void* cursor, int nb, int n, int bits, long long nwords,
                              long long length, void* cuda_stream) {
   if (nb <= 0) return 0;
-  if ((n != 32 && n != 64) || bits < 0 || bits > 15) return static_cast<int>(cudaErrorInvalidValue);
+  if ((n != 32 && n != 64) || bits < 0 || bits > 15 || reinterpret_cast<uintptr_t>(stream) % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
-  const cudaError_t err = launch_decode<uint16_t>(n == 64 ? mt_decode_kernel<2> : mt_decode_kernel<1>, stream, index,
-                                                  init, fctab, out, fin, cursor, nb, bits, nwords, length, cs);
+  const bool flat = bits <= kFlatMaxBits;
+  const auto kernel = n == 64 ? (flat ? mt_decode_kernel<2, true> : mt_decode_kernel<2, false>)
+                              : (flat ? mt_decode_kernel<1, true> : mt_decode_kernel<1, false>);
+  const size_t smem = decode_smem_bytes(bits, flat);  // 49 KB at B=15 with 512-word halves
+  if (smem > 48 * 1024) {
+    const cudaError_t set = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (set != cudaSuccess) return static_cast<int>(set);
+  }
+  const cudaError_t err = launch_decode<uint16_t>(kernel, smem, stream, index, init, fctab, out, fin, cursor, nb, bits,
+                                                  nwords, length, cs);
   return static_cast<int>(err);
 }
 
@@ -368,8 +523,9 @@ extern "C" int hsr_mt_decode_annotated(const void* ann, const void* index, const
   if (nb <= 0) return 0;
   if ((n != 32 && n != 64) || bits < 0 || bits > 15) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
+  const size_t smem = sizeof(uint32_t) * kWarps * table_words(bits);  // <= 25.6 KB
   const cudaError_t err =
-      launch_decode<uint32_t>(n == 64 ? mt_decode_annotated_kernel<2> : mt_decode_annotated_kernel<1>, ann, index,
-                              init, fctab, out, fin, cursor, nb, bits, nwords, length, cs);
+      launch_decode<uint32_t>(n == 64 ? mt_decode_annotated_kernel<2> : mt_decode_annotated_kernel<1>, smem, ann,
+                              index, init, fctab, out, fin, cursor, nb, bits, nwords, length, cs);
   return static_cast<int>(err);
 }

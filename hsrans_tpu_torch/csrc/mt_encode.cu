@@ -13,22 +13,38 @@
 // the arithmetic are small, so the rate is set by the blocks in flight and
 // the latency of one link.  A block is never split, so a plan of a few giant
 // blocks (the reference planner's, up to 2^25 bytes) leaves the card few
-// chains, as the TPU kernel's serial segment chain does.  The placement is a
-// copy of the emitted words plus a 0.8 KB header a block: bound by memory
-// traffic.
+// chains, as the TPU kernel's serial segment chain does.  A byte loaded from
+// device memory inside the loop, right before the table lookup that needs
+// it, put an L2 or HBM round trip on every link: the input is read backward
+// (no prefetcher helps) and is larger than L2 at 64 MiB.  With the bytes in
+// shared memory, loaded a group ahead, the link is its ~10 dependent integer
+// operations and the rest of the warp's instructions a group, issued in
+// order.  The placement is a copy of the emitted words plus a 0.8 KB header
+// a block: bound by memory traffic.
 //
 // Design (encode): one warp per coded block, as csrc/mt_decode.cu.  With
 // n=64 thread j holds lanes j and j+32, with n=32 lane j, starting from
 // DECODE_CONSUME_POINT_16.  The warp builds its block's encode table in
 // shared memory from the block's u16 freq row (the header's own): cumul by a
-// warp scan, and per symbol the Granlund-Montgomery magic m of d = max(freq,
-// 1), so q = x / d is (m * x) >> (31 + l) with l = ceil(log2 d), exact for
-// every x < 2^31 (the rANS32 state invariant).  Per group, backward, lane j
-// codes byte in_start + g*n + idx2idx[j]: it emits its low 16 bits when valid
-// and state >= 2^(31-B) * e, then state = (q << B) + cumul + (x - q*d).  The
-// state update is written with the remainder, not as q*(2^B - freq) + cumul
-// + x, so that a symbol of freq 0 encodes exactly as the numpy oracle
-// encodes it; e is freq (ops/reference.py::encode_groups) or d
+// warp scan, and per symbol, in one 16-byte entry, the emit threshold, the
+// Granlund-Montgomery magic m of d = max(freq, 1) read from `magic` (a table
+// of m by d for every d <= 2^15 that the host builds once and keeps on the
+// card, in place of a 64-bit division per symbol and block), 2^B - d, cumul
+// and l = ceil(log2 d): q = x / d is (m * x) >> (31 + l), exact for every
+// x < 2^31 (the rANS32 state invariant).  The block's input bytes come
+// through a window in shared memory (window.cuh: two halves of kWindowHalf
+// bytes, 32 groups at n=64), which the warp refills by cp.async backward,
+// far ahead of the chain: when its groups leave a half it copies the half
+// below the next into that slot, and it waits for a half only when the next
+// group could read into it.  A group's bytes and table entries depend on g
+// alone and are loaded a group ahead, off the chain.  Each lane knows from
+// the start the groups in which it takes part, and its words go out by one
+// predicated store, so no 64-bit arithmetic, per-group bound or branch to
+// reconverge is left on the lanes.  Per group, backward, lane j codes byte
+// in_start + g*n + idx2idx[j]: it emits its low 16 bits when valid and
+// state >= 2^(31-B) * e, then state = q * (2^B - d) + x + cumul, which is
+// (q << B) + cumul + (x - q*d) modulo 2^32, so that a symbol of freq 0
+// encodes exactly as the numpy oracle encodes it; e is freq (ops/reference.py::encode_groups) or d
 // (ops/raw_jax.py::encode_section) by the caller's rule.  The two rules, and
 // the two valid limits below, differ only on lanes that read a byte the
 // block's freqs do not cover.
@@ -42,21 +58,30 @@
 // contiguous and in wire order at the region's end; the count of them and
 // the final states come back.  Where the plan's block size is not a multiple
 // of n, the last group is partial: its lanes past `byte_limit` read the byte
-// 0 and take part while below `valid_limit` (the host route of
-// mt64_encode_tpu: valid up to the input's end; mt_encode_device: up to the
-// block's end).
+// 0 (the window zero-fills it) and take part while below `valid_limit` (the
+// host route of mt64_encode_tpu: valid up to the input's end;
+// mt_encode_device: up to the block's end).
 //
 // Design (placement): one warp per coded block writes the block's whole part
 // of the blob (size, offset, n final states, 256 freqs, then its words) as
 // u16 stores at the part's offset, which the host computes from the counts.
 // Every part is a whole number of u16, so the blob is one u16 array.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "window.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;  // blocks (one warp each) per CTA
+// bytes in each half of the encode's input window (a power of two, at least
+// 512 and above 2n: a group reads n bytes); 2048 beat 1024 at plan (a) and
+// on the 8 MiB plans and tied at (b) (PERF.md)
+constexpr int kWindowHalf = 2048;
+static_assert((kWindowHalf & (kWindowHalf - 1)) == 0 && kWindowHalf >= 512, "window half: a power of two >= 512");
+constexpr int kMagicMax = 1 << 15;  // the magic table covers d = 0..2^15 (freqs sum to 2^B <= 2^15)
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr uint32_t kFreshState = 1u << 15;  // DECODE_CONSUME_POINT_16
 
@@ -76,30 +101,70 @@ __device__ __forceinline__ int idx2idx32(int j) {
   return ((j >> 2) & 1) * 16 + (j >> 3) * 4 + (j & 3);
 }
 
+// ceil(a / n) for any sign of a, n > 0
+__device__ __forceinline__ long long ceil_div(long long a, int n) { return a > 0 ? (a + n - 1) / n : -((-a) / n); }
+
+// *p = v where `pred`: one predicated store, no branch for the warp to reconverge
+__device__ __forceinline__ void store_if(uint16_t* p, uint32_t v, bool pred) {
+  asm volatile("{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q st.global.u16 [%0], %1;\n}\n" ::"l"(p),
+               "h"(static_cast<uint16_t>(v)), "r"(static_cast<int>(pred)));
+}
+
+// 32 KiB of shared memory a CTA and ~74 registers a thread: either allows 6
+// CTAs an SM (a 56-register cap timed within ~1 %, PERF.md)
 template <int K>
 __global__ void __launch_bounds__(kWarps * 32)
 mt_encode_kernel(const uint8_t* __restrict__ data,     // [data_len] the input
                  const EncIndex* __restrict__ index,   // [nb]
                  const uint16_t* __restrict__ freqs,   // [nb, 256] the header's freqs (sum 2^bits)
+                 const uint32_t* __restrict__ magic,   // [kMagicMax + 1] m of d, ceil(2^(31+l) / max(d, 1))
                  uint16_t* __restrict__ words,         // [words_cap] scratch; block b's region ends at region_end
                  uint32_t* __restrict__ fin,           // [nb, 32K] final (= header) states
                  long long* __restrict__ count,        // [nb] words emitted
                  int nb, int bits, int zero_freq_emits, long long data_len, long long words_cap) {
-  // per symbol: x = cumul | e << 16, y = magic m
-  __shared__ uint2 tab_all[kWarps][256];
+  // per symbol: x = emit threshold e << (15 - B) on state >> 16, y = magic m,
+  // z = 2^B - d, w = cumul | l << 16
+  __shared__ uint4 tab_all[kWarps][256];
+  constexpr int kRing = 2 * kWindowHalf;  // bytes of a warp's window
+  __shared__ __align__(16) uint8_t ring_all[kWarps][kRing];
   constexpr int n = 32 * K;
+  static_assert(kWindowHalf >= 2 * n, "a half holds a group's bytes twice over");
   const int w = threadIdx.x >> 5;
   const int j = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps + w;
   if (b >= nb) return;  // warp-uniform; the kernel syncs only within a warp
-  uint2* tab = tab_all[w];
+  uint4* tab = tab_all[w];
+  uint8_t* ring = ring_all[w];
+  const EncIndex ix = index[b];
+  const long long byte_limit = min(ix.byte_limit, data_len);
+  const int groups = static_cast<int>(min(max(ix.num_groups, 0LL), static_cast<long long>(INT32_MAX)));
+
+  // ---- the window: byte p of the input at ring[(p - base) % kRing], base
+  //      the block's first byte rounded down to a 16-byte address; bytes at
+  //      or past byte_limit, or below 0, read as 0.  Group g reads window
+  //      positions [g*n + ph, g*n + ph + n); the loop walks them downward.
+  //      Its first two halves are on their way while the warp builds its table.
+  const int ph = window::phase(data, ix.in_start);
+  const long long base = ix.in_start - ph;
+  long long next_half = groups > 0 ? (static_cast<long long>(groups) * n + ph - 1) / kWindowHalf : -1;
+  auto fill_next = [&]() {  // the next half down, into slot next_half % 2
+    window::fill<kWindowHalf>(ring + (next_half & 1) * kWindowHalf, data, base + next_half * kWindowHalf, byte_limit,
+                              j);
+    --next_half;
+  };
+  long long refill_at = (next_half + 1) * kWindowHalf;  // the top half is free once reads lie below next_half's top
+  long long ready_lo = (next_half - 1) * kWindowHalf;   // the window holds positions from it up
+  if (next_half >= 0) fill_next();
+  if (next_half >= 0) fill_next();
+  refill_at -= kWindowHalf;
 
   // ---- the block's table: thread j owns symbols 8j..8j+7
-  uint32_t f[8];
+  uint32_t f[8], m[8];
   uint32_t sum = 0;
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
     f[q] = freqs[(size_t)b * 256 + 8 * j + q];
+    m[q] = magic[min(f[q], static_cast<uint32_t>(kMagicMax))];
     sum += f[q];
   }
   uint32_t incl = sum;
@@ -113,60 +178,89 @@ mt_encode_kernel(const uint8_t* __restrict__ data,     // [data_len] the input
   for (int q = 0; q < 8; ++q) {
     const uint32_t d = max(f[q], 1u);
     const uint32_t l = 32 - __clz(d - 1);  // ceil(log2 d); 0 for d = 1
-    const uint32_t m = static_cast<uint32_t>(((1ull << (31 + l)) + d - 1) / d);
     const uint32_t e = zero_freq_emits ? f[q] : d;
-    tab[8 * j + q] = make_uint2((cum & 0xFFFFu) | (e << 16), m);  // cumul is u16 on the wire
+    // cumul is u16 on the wire
+    tab[8 * j + q] = make_uint4(e << (15 - bits), m[q], (1u << bits) - d, (cum & 0xFFFFu) | l << 16);
     cum += f[q];
   }
-  __syncwarp();
+  window::wait_all();
+  __syncwarp();  // the table and the window's first halves
 
-  // ---- the block's groups, backward, lanes j + 32k in registers
-  const EncIndex ix = index[b];
-  const long long byte_limit = min(ix.byte_limit, data_len);
-  const int emit_shift = 31 - bits;
+  // ---- the block's groups, backward, lanes j + 32k in registers.  Lane
+  //      j + 32k takes part in group g while g < g_valid[k]: its byte lies
+  //      below valid_limit.  The group's words go to [tail, tail + c); a
+  //      block whose whole region lies in [0, words_cap) writes them unchecked.
   const uint32_t lt = (1u << j) - 1u;
   uint32_t st[K];
-  int byte_of[K];
+  int byte_of[K], g_valid[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     st[k] = kFreshState;
     byte_of[k] = idx2idx32(j) + 32 * k;
+    const long long v = ceil_div(ix.valid_limit - ix.in_start - byte_of[k], n);
+    g_valid[k] = static_cast<int>(min(max(v, 0LL), static_cast<long long>(groups)));
   }
   long long tail = ix.region_end;  // the block's words so far sit at [tail, region_end)
-  for (long long g = ix.num_groups - 1; g >= 0; --g) {
-    const long long group_pos = ix.in_start + g * n;
+  const bool region_inside = ix.region_end <= words_cap && ix.region_end - static_cast<long long>(groups) * n >= 0;
+  // group g's lanes read window positions lo + byte_of, lo = g*n + ph; each
+  // group's bytes and table entries are loaded one group ahead, so their
+  // shared-memory latency stays off the next group's chain
+  long long lo = static_cast<long long>(groups - 1) * n + ph;
+  uint4 t[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) t[k] = tab[ring[(static_cast<uint32_t>(lo) + byte_of[k]) & (kRing - 1)]];
+  // the next lo at which a window half must be copied (lo <= refill_at) or
+  // waited for (the next group reads below ready_lo)
+  long long event = max(next_half >= 0 ? refill_at : LLONG_MIN, ready_lo + n - 1);
+  for (int g = groups - 1; g >= 0; --g, lo -= n) {
     bool emit[K];
     uint32_t word[K];
     unsigned ballot[K];
     int c = 0;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const long long pos = group_pos + byte_of[k];
-      const uint32_t byte = pos >= 0 && pos < byte_limit ? data[pos] : 0u;
-      const bool valid = pos < ix.valid_limit;
-      const uint2 t = tab[byte];
-      const uint32_t e = t.x >> 16;
-      emit[k] = valid && st[k] >= (e << emit_shift);
-      word[k] = st[k] & 0xFFFFu;
-      if (valid) {
-        const uint32_t x = emit[k] ? st[k] >> 16 : st[k];
-        const uint32_t d = max(e, 1u);
-        const uint32_t l = 32 - __clz(d - 1);
-        const uint32_t q = static_cast<uint32_t>((static_cast<uint64_t>(t.y) * x) >> (31 + l));
-        st[k] = (q << bits) + (t.x & 0xFFFFu) + (x - q * d);
-      }
+      const bool valid = g < g_valid[k];
+      const uint32_t hi16 = st[k] >> 16;
+      emit[k] = valid && hi16 >= t[k].x;
+      word[k] = st[k];
+      const uint32_t x = emit[k] ? hi16 : st[k];
+      // (m * x) >> (31 + l), and (m * x) >> 31 fits 32 bits: x < 2^31, as a lane
+      // that does not emit has state < e << (31 - B) <= 2^31
+      const uint64_t mx = static_cast<uint64_t>(t[k].y) * x;
+      const uint32_t q =
+          __funnelshift_l(static_cast<uint32_t>(mx), static_cast<uint32_t>(mx >> 32), 1) >> (t[k].w >> 16);
+      if (valid) st[k] = q * t[k].z + x + (t[k].w & 0xFFFFu);
       ballot[k] = __ballot_sync(kFullMask, emit[k]);
       c += __popc(ballot[k]);
     }
+    // the next group reads [lo - n, lo): once that lies below refill_at, the
+    // half above it is free for next_half, which has ~kWindowHalf - 2n bytes
+    // of reading to land before a group can reach it
+    if (lo <= event) {
+      if (lo <= refill_at && next_half >= 0) {
+        __syncwarp();  // every lane's reads of the slot are done
+        fill_next();
+        refill_at -= kWindowHalf;
+      }
+      if (lo - n < ready_lo) {  // the next group may read into the half last copied
+        window::wait_all();
+        __syncwarp();
+        ready_lo -= kWindowHalf;
+      }
+      event = max(next_half >= 0 ? refill_at : LLONG_MIN, ready_lo + n - 1);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) t[k] = tab[ring[(static_cast<uint32_t>(lo - n) + byte_of[k]) & (kRing - 1)]];
     tail -= c;
-    long long base = tail;
+    int o = 0;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const long long at = base + __popc(ballot[k] & lt);
-      if (emit[k] && at >= 0 && at < words_cap) words[at] = static_cast<uint16_t>(word[k]);
-      base += __popc(ballot[k]);
+      const long long at = tail + o + __popc(ballot[k] & lt);
+      store_if(words + at, word[k], emit[k] && (region_inside || (at >= 0 && at < words_cap)));
+      o += __popc(ballot[k]);
     }
   }
+  window::wait_all();  // no copy may land after the warp leaves
 #pragma unroll
   for (int k = 0; k < K; ++k) fin[(size_t)b * n + j + 32 * k] = st[k];
   if (j == 0) count[b] = ix.region_end - tail;
@@ -214,8 +308,8 @@ mt_place_kernel(const uint16_t* __restrict__ words,    // [words_cap] the encode
 
 }  // namespace
 
-extern "C" int hsr_mt_encode(const void* data, const void* index, const void* freqs, void* words, void* fin,
-                             void* count, int nb, int n, int bits, int zero_freq_emits, long long data_len,
+extern "C" int hsr_mt_encode(const void* data, const void* index, const void* freqs, const void* magic, void* words,
+                             void* fin, void* count, int nb, int n, int bits, int zero_freq_emits, long long data_len,
                              long long words_cap, void* cuda_stream) {
   if (nb <= 0) return 0;
   if ((n != 32 && n != 64) || bits < 1 || bits > 15) return static_cast<int>(cudaErrorInvalidValue);
@@ -224,13 +318,16 @@ extern "C" int hsr_mt_encode(const void* data, const void* index, const void* fr
   const auto* d = static_cast<const uint8_t*>(data);
   const auto* ix = static_cast<const EncIndex*>(index);
   const auto* fq = static_cast<const uint16_t*>(freqs);
+  const auto* mg = static_cast<const uint32_t*>(magic);
   auto* wd = static_cast<uint16_t*>(words);
   auto* fs = static_cast<uint32_t*>(fin);
   auto* ct = static_cast<long long*>(count);
   if (n == 64)
-    mt_encode_kernel<2><<<blocks, kWarps * 32, 0, cs>>>(d, ix, fq, wd, fs, ct, nb, bits, zero_freq_emits, data_len, words_cap);
+    mt_encode_kernel<2><<<blocks, kWarps * 32, 0, cs>>>(d, ix, fq, mg, wd, fs, ct, nb, bits, zero_freq_emits, data_len,
+                                                        words_cap);
   else
-    mt_encode_kernel<1><<<blocks, kWarps * 32, 0, cs>>>(d, ix, fq, wd, fs, ct, nb, bits, zero_freq_emits, data_len, words_cap);
+    mt_encode_kernel<1><<<blocks, kWarps * 32, 0, cs>>>(d, ix, fq, mg, wd, fs, ct, nb, bits, zero_freq_emits, data_len,
+                                                        words_cap);
   return static_cast<int>(cudaGetLastError());
 }
 

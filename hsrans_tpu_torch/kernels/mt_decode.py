@@ -122,16 +122,26 @@ def decode_blocks_cuda(stream, index, states, fctab, *, bits: int, n: int, lengt
         raise ValueError("decode_blocks_cuda: n must be 32 or 64 and bits at most 15")
     if index.shape != (nb, len(INDEX_FIELDS)) or states.shape != (nb, n) or fctab.shape != (nb, 256):
         raise ValueError("decode_blocks_cuda: operand shapes do not match the block count")
+    if stream.data_ptr() % 2:
+        raise ValueError("decode_blocks_cuda: the word region must start at an even address (u16 words)")
     out = torch.zeros(length, dtype=torch.uint8, device=dev)
     fin = torch.empty((nb, n), dtype=torch.int32, device=dev)
     cursor = torch.empty(nb, dtype=torch.int64, device=dev)
     if nb:
-        build.launch(
-            "mt_decode", "hsr_mt_decode", dev,
-            stream.data_ptr(), index.data_ptr(), states.data_ptr(), fctab.data_ptr(),
-            out.data_ptr(), fin.data_ptr(), cursor.data_ptr(), nb, n, bits, stream.numel() // 2, length,
-        )
+        launch_decode(stream, index, states, fctab, out, fin, cursor, bits=bits, n=n)
     return out, fin, cursor
+
+
+def launch_decode(stream, index, states, fctab, out, fin, cursor, *, bits: int, n: int) -> None:
+    """One launch of the decode kernel into the outputs given (out uint8
+    [length], fin int32 [nb, n], cursor int64 [nb] on the operands'
+    device); decode_blocks_cuda's checks are the caller's.  The kernel
+    writes only the bytes its blocks cover."""
+    build.launch(
+        "mt_decode", "hsr_mt_decode", stream.device,
+        stream.data_ptr(), index.data_ptr(), states.data_ptr(), fctab.data_ptr(),
+        out.data_ptr(), fin.data_ptr(), cursor.data_ptr(), index.shape[0], n, bits, stream.numel() // 2, out.numel(),
+    )
 
 
 def decode_blocks(stream, index, states, fctab, *, bits: int, n: int, length: int):

@@ -18,6 +18,7 @@ block goes to a host encoder (the final block, and sizes off its kernel's
 
 from __future__ import annotations
 
+import functools
 import warnings
 
 import numpy as np
@@ -43,6 +44,9 @@ PLACE_FIELDS = ("dest", "size_field", "offset_bias")
 # ops/reference.py::encode_groups emits always, ops/raw_jax.py::encode_section
 # tests the state against the emit point of freq 1
 RULES = ("groups", "section")
+# the encode kernel's magic table covers every divisor a block can have:
+# freqs sum to 2^B <= 2^15
+MAGIC_D_MAX = 1 << 15
 
 
 def coded_header_u16(n: int) -> int:
@@ -65,6 +69,25 @@ def encode_tables(freqs: torch.Tensor, bits: int, rule: str) -> tuple[torch.Tens
     m = (torch.bitwise_left_shift(torch.ones_like(l), 31 + l) + d - 1) // d
     e = f if rule == "groups" else d
     return e, cum, d, m, l
+
+
+def magic_table() -> np.ndarray:
+    """uint32 [MAGIC_D_MAX + 1]: at d the Granlund-Montgomery magic of
+    max(d, 1), m = ceil(2^(31 + l) / d) with l = ceil(log2 d), so that
+    (m * x) >> (31 + l) == x // d for every x < 2^31.  The encode kernel
+    reads a block's m from it by freq, in place of a 64-bit division per
+    symbol and block."""
+    d = np.maximum(np.arange(MAGIC_D_MAX + 1, dtype=np.int64), 1)
+    l = np.zeros_like(d)
+    for k in range(16):
+        l = np.where(d > (1 << k), k + 1, l)
+    return (-(-(np.int64(1) << (31 + l)) // d)).astype(np.uint32)
+
+
+@functools.cache
+def magic_tensor(dev: torch.device) -> torch.Tensor:
+    """magic_table() as int32 (u32 bits) on `dev`, made once per device."""
+    return torch.from_numpy(magic_table().view(np.int32)).to(dev)
 
 
 def encode_blocks_plain(data, index, freqs, *, bits: int, n: int, rule: str, words_cap: int):
@@ -125,12 +148,20 @@ def encode_blocks_cuda(data, index, freqs, *, bits: int, n: int, rule: str, word
     count = torch.empty(nb, dtype=torch.int64, device=dev)
     fin = torch.empty((nb, n), dtype=torch.int32, device=dev)
     if nb:
-        build.launch(
-            "mt_encode", "hsr_mt_encode", dev,
-            data.data_ptr(), index.data_ptr(), freqs.data_ptr(), words.data_ptr(), fin.data_ptr(),
-            count.data_ptr(), nb, n, bits, int(rule == "groups"), data.numel(), words_cap,
-        )
+        launch_encode(data, index, freqs, words, count, fin, bits=bits, n=n, rule=rule)
     return words, count, fin
+
+
+def launch_encode(data, index, freqs, words, count, fin, *, bits: int, n: int, rule: str) -> None:
+    """One launch of the encode kernel into the outputs given (words int16
+    [words_cap], count int64 [nb], fin int32 [nb, n] on the operands'
+    device); encode_blocks_cuda's checks are the caller's."""
+    dev = data.device
+    build.launch(
+        "mt_encode", "hsr_mt_encode", dev,
+        data.data_ptr(), index.data_ptr(), freqs.data_ptr(), magic_tensor(dev).data_ptr(), words.data_ptr(),
+        fin.data_ptr(), count.data_ptr(), index.shape[0], n, bits, int(rule == "groups"), data.numel(), words.numel(),
+    )
 
 
 def encode_blocks(data, index, freqs, *, bits: int, n: int, rule: str, words_cap: int):

@@ -55,8 +55,9 @@ _SIGNATURES = {
     "hsr_mt_annotate": [_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P],
     # annotation, then as hsr_mt_decode
     "hsr_mt_decode_annotated": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
-    # data, index, freqs, words, final states, counts, nb, n, bits, zero_freq_emits, data_len, words_cap, cuda stream
-    "hsr_mt_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
+    # data, index, freqs, magic table, words, final states, counts, nb, n, bits, zero_freq_emits, data_len,
+    # words_cap, cuda stream
+    "hsr_mt_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
     # words, index, counts, final states, freqs, place rows, out, nb, n, words_cap, out_len, cuda stream
     "hsr_mt_place": [_P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
 }

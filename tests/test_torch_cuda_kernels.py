@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hsrans_tpu.ops.mt import mt_decode_py, mt_encode_py
 from hsrans_tpu.ops.tpx import TpxParams, _mega_layout, tpx_encode, tpx_encode_adaptive
 from hsrans_tpu_torch.kernels import mt_decode as mtd
@@ -222,3 +223,37 @@ def test_mt_encode_main_path_64mib_round_trip(cuda):
     blob = mte.mt_encode_torch(data, 12, plan=plan, device="cuda")
     assert blob == mte.mt_encode_torch(data, 12, plan=plan, device="cpu")
     assert mtd.mt_decode_torch(blob, 12, 64, device="cuda") == data.tobytes() == mt_decode_py(blob, 12, 64)
+
+
+@pytest.mark.parametrize("n", (32, 64))
+@pytest.mark.parametrize("bits", (10, 12, 15))
+@pytest.mark.parametrize("case", chip_smoke.DECODE_EDGES)
+def test_mt_decode_window_edges(cuda, case, bits, n):
+    """The mt decode kernel == its plain version (bytes, final states,
+    cursors) where its shared-memory window meets its edges: block word
+    regions at every 16-byte phase, blocks with fewer words than one window
+    half, word regions that run out mid-group (reads past them give 0), and
+    one 1 MiB block (~16 Ki groups at n=64, many refills)."""
+    for name, args, kw in chip_smoke.decode_edge_operands(case, bits, n, cuda):
+        got = mtd.decode_blocks_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        want = mtd.decode_blocks_plain(*args, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("rule", mte.RULES)
+@pytest.mark.parametrize("n", (32, 64))
+@pytest.mark.parametrize("case", chip_smoke.ENCODE_EDGES)
+def test_mt_encode_window_edges(cuda, case, n, rule):
+    """The mt encode kernel == its plain version (counts, final states, the
+    emitted words) where its input window meets its edges: blocks starting
+    at every 16-byte phase, block sizes off the 64-byte grid (a partial last
+    group read as 0 past the block's end) under both rules, and one 1 MiB
+    block."""
+    for name, (data, index, freqs), kw in chip_smoke.encode_edge_operands(case, n, rule, cuda):
+        got = mte.encode_blocks_cuda(data, index, freqs, **kw)
+        torch.cuda.synchronize()
+        want = mte.encode_blocks_plain(data, index, freqs, **kw)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]), name
+        assert torch.equal(mte.emitted_words(got[0], index, got[1]), mte.emitted_words(want[0], index, want[1])), name

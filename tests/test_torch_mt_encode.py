@@ -259,3 +259,33 @@ def test_bad_arguments_raise():
     freq[0] = 100  # does not sum to 2^12
     with pytest.raises(ValueError, match="plan row 0"):
         mt_encode_torch(data, 12, plan=[BlockPlan(0, 10, False, 0, freq)], device="cpu")
+
+
+def test_magic_table_equals_div_magic():
+    """The encode kernel's magic table holds `kernels/tpx_encode.py::
+    div_magic`'s m for every divisor d in 1..2^15; d = 0 (a symbol of freq
+    0, coded as d = 1) holds d = 1's."""
+    from hsrans_tpu_torch.kernels.tpx_encode import div_magic
+
+    table = penc.magic_table()
+    assert table.shape == (penc.MAGIC_D_MAX + 1,) and table.dtype == np.uint32
+    d = np.arange(1, penc.MAGIC_D_MAX + 1, dtype=np.int64)
+    want = np.concatenate([div_magic(row)[0] for row in d.reshape(-1, 256)])
+    assert np.array_equal(table[1:], want)
+    assert table[0] == table[1] == 1 << 31
+
+
+@pytest.mark.parametrize("xs", ("boundaries", "seeded"))
+def test_magic_table_divides_exactly(xs):
+    """(m * x) >> (31 + l) == x // d, l = ceil(log2 d), for every d in
+    1..2^15 at x in {0, d - 1, d, 2^31 - 1} and at 64 seeded random x < 2^31
+    per d: the kernel's quotient for every state x < 2^31."""
+    table = penc.magic_table().astype(np.uint64)
+    d = np.arange(1, penc.MAGIC_D_MAX + 1, dtype=np.uint64)
+    l = np.array([int(v - 1).bit_length() for v in d], np.uint64)
+    if xs == "boundaries":
+        x = np.stack([np.zeros_like(d), d - 1, d, np.full_like(d, (1 << 31) - 1)], axis=1)
+    else:
+        x = np.random.default_rng(5).integers(0, 1 << 31, (d.size, 64), dtype=np.uint64)
+    q = (table[1:, None] * x) >> (np.uint64(31) + l[:, None])
+    assert np.array_equal(q, x // d[:, None])

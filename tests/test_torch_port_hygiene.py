@@ -55,9 +55,10 @@ def test_import_and_cpu_round_trip_without_jax():
 
 @pytest.mark.parametrize("package", ("jax", "hsrans_tpu"))
 def test_no_port_source_imports_jax(package):
-    """Neither the port nor chip_smoke.py names jax or the JAX package in an
-    import (the `hsrans_tpu_torch` package itself is the port)."""
-    files = [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
+    """Neither the port nor its card scripts (chip_smoke.py, chip_ab.py)
+    name jax or the JAX package in an import (the `hsrans_tpu_torch`
+    package itself is the port)."""
+    files = [*PORT.rglob("*.py"), REPO / "chip_smoke.py", REPO / "chip_ab.py"]
     assert len(files) >= 10
     for f in files:
         for line in f.read_text().splitlines():
