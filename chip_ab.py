@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Launch A/B of the mt decode and encode kernels of several source trees,
-side by side in one process on the same operands.
+"""Launch A/B of the mt and tpx decode and encode kernels of several source
+trees, side by side in one process on the same operands.
 
     python3 chip_ab.py NAME=DIR [NAME=DIR ...] [--out FILE]
 
@@ -10,9 +10,12 @@ kernel sources were edited to try another constant.  Each tree's own
 `runtime/build.py` builds that tree's kernel library (all trees at once)
 and binds it.  The operands are made by this checkout's Python: the 64 MiB
 x-ray `device_plan` blob and plan (a), the 8 MiB x-ray classes of
-`chip_smoke.py`'s kernel phases, and 64 MiB of enwik8-like text in uniform
-4 KiB blocks (plan (b)); the decode blobs are encoded on the card.  Every
-tree's outputs must equal the plain version's.  Each case times every
+`chip_smoke.py`'s kernel phases, 64 MiB of enwik8-like text in uniform
+4 KiB blocks (plan (b)), and the tpx main path's call (the same 64 MiB of
+text at B=12 and B=15, four megas in one launch); the decode blobs are
+encoded on the card.  A tree whose tpx kernels take another argument list
+(one launch a mega, before the one-launch design) runs the mt cases only.
+Every tree's outputs must equal the plain version's.  Each case times every
 tree's launch alone (`chip_smoke.launch_times`: CUDA events over 20
 launches queued behind a spin) in turns, each tree and then back in
 reverse order, and prints one JSON line with the card's name and power
@@ -22,6 +25,7 @@ limit; `--out` also appends the lines to FILE.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import statistics
@@ -89,6 +93,25 @@ def encode_cases(dev: torch.device) -> list[tuple[str, int, int, str, tuple]]:
     return cases
 
 
+def tpx_cases(dev: torch.device) -> list[tuple[int, tuple, tuple]]:
+    """(bits, encode operands, decode operands and keywords) of the tpx main
+    path's call at B=12 and B=15."""
+    from hsrans_tpu_torch import tpx_encode_torch
+    from hsrans_tpu_torch.kernels import tpx_encode as enc
+    from hsrans_tpu_torch.ops.tpx import TpxParams, _mega_layout
+    from tools.gen_inputs import text_like
+
+    data = text_like(np.random.default_rng(8), 64 * MIB)
+    cases = []
+    for bits in (12, 15):
+        p = TpxParams(bits=bits)
+        geoms = [(base, p.rows, p.steps, n_tiles, valid) for base, n_tiles, valid in _mega_layout(data.size, p)]
+        desc, _, tabs = enc.mega_operands(data, geoms, bits=bits)
+        eops = (torch.from_numpy(data).to(dev), desc, *(torch.from_numpy(tabs[k]).to(dev) for k in ("fc", "m", "l")))
+        cases.append((bits, eops, chip_smoke.tpx_decode_args(tpx_encode_torch(data, bits, device=dev), dev)))
+    return cases
+
+
 def in_turns(launches: dict, max_groups: int) -> dict:
     """Each tree's launch timed once, then again in reverse order."""
     turns: dict[str, list[float]] = {k: [] for k in launches}
@@ -97,6 +120,46 @@ def in_turns(launches: dict, max_groups: int) -> dict:
     ms = {k: statistics.mean(t) for k, t in turns.items()}
     return {"max_groups": max_groups, "launch_ms": ms, "turns": turns,
             "link_us": {k: t * 1e3 / max_groups for k, t in ms.items()}}
+
+
+def run_tpx(libs: dict, dev: torch.device, sink) -> None:
+    """The tpx encode and decode kernels of the trees with the one-launch
+    argument list, on the main path's call."""
+    from hsrans_tpu_torch.kernels import tpx_decode as dec
+    from hsrans_tpu_torch.kernels import tpx_encode as enc
+
+    libs = {k: lib for k, lib in libs.items() if lib.hsr_tpx_decode.argtypes[1] is ctypes.c_longlong}
+    cs = torch.cuda.current_stream(dev).cuda_stream
+    links = 4 * 32  # a row's chain: 4 tiles x 32 steps
+    for bits, (data, desc, *tabs), ((blob, ddesc, *dops), kw) in tpx_cases(dev):
+        desc_t, ddesc_t, ctas = torch.from_numpy(desc).to(dev), torch.from_numpy(ddesc).to(dev), enc.ctas_of(desc)
+        eouts = {k: tuple(torch.empty_like(t) for t in enc.encode_mega_cuda(data, desc, *tabs, bits=bits)) for k in libs}
+        douts = {k: torch.zeros(kw["out_len"], dtype=torch.uint8, device=dev) for k in libs}
+
+        def encode(k: str) -> None:
+            rc = libs[k].hsr_tpx_encode(data.data_ptr(), desc_t.data_ptr(), len(desc), ctas, *(t.data_ptr() for t in tabs),
+                                        *(t.data_ptr() for t in eouts[k]), bits, cs)
+            if rc:
+                raise RuntimeError(f"{k} tpx encode: CUDA error {rc}")
+
+        def decode(k: str) -> None:
+            rc = libs[k].hsr_tpx_decode(blob.data_ptr(), blob.numel(), ddesc_t.data_ptr(), len(ddesc), ctas,
+                                        *(t.data_ptr() for t in dops), douts[k].data_ptr(), bits, cs)
+            if rc:
+                raise RuntimeError(f"{k} tpx decode: CUDA error {rc}")
+
+        for k in libs:
+            encode(k)
+            decode(k)
+        torch.cuda.synchronize()
+        want_enc = enc.encode_mega_plain(data, desc, *tabs, bits=bits)
+        want_dec = dec.decode_mega_plain(blob, ddesc, *dops, **kw)
+        for k in libs:
+            if chip_smoke.max_abs_err(eouts[k], want_enc) or chip_smoke.max_abs_err(douts[k], want_dec):
+                raise AssertionError(f"{k} tpx, B={bits}: differs from the plain version")
+        for name, fn in (("tpx_encode", encode), ("tpx_decode", decode)):
+            sink({"kernel": name, "case": "text 64 MiB main path", "bits": bits, "megas": len(desc),
+                  **in_turns({k: (lambda k=k: fn(k)) for k in libs}, links)})
 
 
 def run(libs: dict, dev: torch.device, sink) -> None:
@@ -181,6 +244,7 @@ def main(argv: list[str] | None = None) -> int:
 
     try:
         sink({"phase": "build", "trees": trees, "libraries": {k: str(b.library_path()) for k, b in builds.items()}})
+        run_tpx(libs, torch.device("cuda", 0), sink)
         run(libs, torch.device("cuda", 0), sink)
     finally:
         if log:

@@ -1,28 +1,43 @@
-// tpx megablock encode on Hopper: the rANS state machine and the per-row
-// stream concatenation, as two kernels.
+// tpx encode on Hopper: the rANS state machine over every megablock of the
+// input in one launch, and the per-row stream concatenation, as two kernels.
 //
 // tpx_encode_kernel replaces hsrans_tpu/kernels/tpx_encode.py::_encode_kernel
-// (launched by _encode_mega); tpx_concat_kernel replaces ::_concat_kernel
-// (launched by _concat_mega), which the mt encoder reuses as its phase B.
+// (launched once a mega by _encode_mega); tpx_concat_kernel replaces
+// ::_concat_kernel (launched by _concat_mega), which the mt encoder reuses as
+// its phase B.
 //
 // What bounds them: the encode is a serial dependent chain per rANS state
 // (emit test -> shift -> divide by freq -> state update) over every step of
-// every tile, run in reverse; the rate is set by chains in flight and the
-// latency of one link, not by bytes or arithmetic throughput.  The concat is
-// a copy of the emitted words (about 5 bytes read and 2 written per word
-// kept), bounded by memory traffic and by the serial walk over each row's
-// steps.
+// every tile, run in reverse, and it writes each step's 128-word window whole
+// (the Pallas kernel's contract: the emitted words compacted, 0 past the
+// count): 4 bytes a coded byte, 256 MiB at 64 MiB of input, 0.080 ms at
+// 3.35 TB/s.  That write is its floor; the chains in flight and one link's
+// latency set the rest.  The concat is a copy of the emitted words (about 5
+// bytes read and 2 written per word kept), bounded by memory traffic and by
+// the serial walk over each row's steps.
 //
 // Design (encode): one warp per tpx row, the same lane mapping as the decode
 // (thread j owns lanes j+32k), walking tiles, step groups and steps backward
 // with the four states per thread in registers, starting from
-// DECODE_CONSUME_POINT_16.  The per-tile encode tables of
-// make_enc_tables_batch (fc, division magic m, shift l) sit in shared
-// memory; q = state / freq is the Granlund-Montgomery magic multiply
-// (m * x) >> (31 + l), exact for every state < 2^31.  Each step's emitted
-// words are compacted in lane order with the ballot + popc prefix
-// (tpx_common.cuh) into the step's window; window slots past the count are
-// written 0, as the TPU kernel leaves them.
+// DECODE_CONSUME_POINT_16.  One launch covers every mega: each mega's
+// descriptor (EncodeMega) names its geometry, its first CTA, where its input,
+// tables, windows, counts and states are, and a CTA finds its mega by a
+// binary search over the CTAs' prefix (tpx_common.cuh::find_mega).  The input
+// is the whole data as it is: a group's four steps of a lane are one aligned
+// u32 of it, loaded a group ahead of its use (a register double buffer); the
+// row's partial last group reads its bytes one by one, and a group past the
+// data reads nothing and writes zero windows and counts.  Whole groups take
+// the plain path; only the partial group checks positions.  The per-tile
+// encode tables of make_enc_tables_batch (fc, division magic m, shift l) sit
+// in shared memory; q = state / freq is the Granlund-Montgomery magic multiply
+// (m * x) >> (31 + l), exact for every state < 2^31, by one wide multiply and
+// a funnel shift.  The B <= 12 packed fc layout and the B >= 13 one are two
+// instances of the kernel.  Each step's emitted words are compacted in lane
+// order with the ballot + popc prefix (tpx_common.cuh) into the step's window,
+// and its slots past the count are written 0, as the TPU kernel leaves them.
+// The windows are built in shared memory and a group's four go out as whole
+// 512-byte rows, 16 bytes a lane: stored straight from the lanes, a step's
+// window took eight partial, predicated stores.
 //
 // Design (concat): one warp per (tile, row).  It walks the row's steps in
 // order, keeping the running word offset (the exclusive prefix of the step
@@ -36,94 +51,172 @@
 
 namespace {
 
+using tpx::kGroupPositions;
 using tpx::kLanes;
 using tpx::kWarps;
 
+// one megablock of the launch: the layout of kernels/tpx_encode.py::ENCODE_FIELDS
+struct EncodeMega {
+  long long cta0, rows, steps, n_tiles, in_off, tab0, vlen, cnt_off, state0;
+};
+
+// One step group of a row, its steps backward: lane j + 32k's four input
+// bytes are pk[k] (step i in byte i).  Each step's window is built in the
+// warp's `stage` (shared, 4 x 128 words), then the group's four windows go
+// to wg + i * stride (i = 0..3) as whole 512-byte rows, 16 bytes a lane, and
+// its four counts to cg[0..3] in one 16-byte store.  kCheck: only the
+// group's first rem positions hold data (the rest emit nothing and keep
+// their state).
+template <bool kPacked, bool kCheck>
+__device__ __forceinline__ void encode_group(uint32_t (&st)[4], const uint32_t (&pk)[4], uint32_t* stage, uint32_t* wg,
+                                             size_t stride, uint32_t* cg, const uint32_t* fc_s, const uint32_t* m_s,
+                                             const uint32_t* l_s, int bits, uint32_t lt, int j, int rem) {
+  const uint32_t emit_point = 1u << (31 - bits);  // state >= emit_point * freq fits u32 even at freq = 2^B
+  const uint32_t total = 1u << bits;
+  uint32_t counts[4];
+#pragma unroll
+  for (int i = 3; i >= 0; --i) {
+    bool emit[4];
+    uint32_t word[4];
+    unsigned ballot[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t byte = (pk[k] >> (8 * i)) & 0xFFu;
+      const uint32_t fc = fc_s[byte];
+      uint32_t freq, cum, shift;
+      if (kPacked) {
+        freq = fc & 0x1FFFu;
+        cum = (fc >> 13) & 0xFFFu;
+        shift = fc >> 25;
+      } else {
+        freq = fc & 0xFFFFu;
+        cum = fc >> 16;
+        shift = l_s[byte];
+      }
+      const bool valid = !kCheck || (j + 32 * k) * 4 + i < rem;  // past the data: nothing emitted, state kept
+      emit[k] = valid && st[k] >= emit_point * freq;
+      word[k] = st[k] & 0xFFFFu;
+      const uint32_t x = emit[k] ? st[k] >> 16 : st[k];
+      // (m * x) >> (31 + shift): m < 2^32 and x < 2^31, so m * x >> 31 fits 32 bits
+      const uint64_t mx = static_cast<uint64_t>(m_s[byte]) * x;
+      const uint32_t q = __funnelshift_l(static_cast<uint32_t>(mx), static_cast<uint32_t>(mx >> 32), 1) >> shift;
+      const uint32_t next = q * (total - freq) + cum + x;  // == (q << B) + cum + x % freq
+      st[k] = valid ? next : st[k];
+      ballot[k] = __ballot_sync(tpx::kFullMask, emit[k]);
+    }
+    uint32_t* row = stage + i * kLanes;
+    int n = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (emit[k]) row[n + __popc(ballot[k] & lt)] = word[k];
+      n += __popc(ballot[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (j + 32 * k >= n) row[j + 32 * k] = 0u;
+    }
+    counts[i] = n;
+  }
+  __syncwarp();  // the four windows are in the stage
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    reinterpret_cast<uint4*>(wg + i * stride)[j] = reinterpret_cast<const uint4*>(stage + i * kLanes)[j];
+  }
+  if (j == 0) *reinterpret_cast<uint4*>(cg) = make_uint4(counts[0], counts[1], counts[2], counts[3]);
+  __syncwarp();  // every lane has read the stage before the next group writes it
+}
+
+template <bool kPacked>
 __global__ void __launch_bounds__(kWarps * 32)
-tpx_encode_kernel(const uint32_t* __restrict__ packed,  // [T, R, S/4, 128] input bytes, 4 steps per u32
-                  const uint32_t* __restrict__ fctab,   // [T, 256] B<=12: freq | cumul<<13 | l<<25; else freq | cumul<<16
-                  const uint32_t* __restrict__ mtab,    // [T, 256] division magic
-                  const uint32_t* __restrict__ ltab,    // [T, 256] division shift (read for B>=13)
-                  uint32_t* __restrict__ win,           // [T, S, R, 128] per-step compacted words
-                  uint32_t* __restrict__ cnt,           // [T, R, S] per-step word counts
-                  uint32_t* __restrict__ states_out,    // [R, 128] final (decode-start) states
-                  int rows, int steps, int n_tiles, int bits, long long vlen) {
+tpx_encode_kernel(const uint8_t* __restrict__ data,       // the whole input (4-byte aligned)
+                  const EncodeMega* __restrict__ desc,    // [n_megas]
+                  int n_megas,
+                  const uint32_t* __restrict__ fctab,     // [sum tiles, 256] B<=12: freq | cumul<<13 | l<<25; else freq | cumul<<16
+                  const uint32_t* __restrict__ mtab,      // [sum tiles, 256] division magic
+                  const uint32_t* __restrict__ ltab,      // [sum tiles, 256] division shift (read for B>=13)
+                  uint32_t* __restrict__ win,             // per mega [T, S, R, 128] per-step compacted words
+                  uint32_t* __restrict__ cnt,             // per mega [T, R, S] per-step word counts
+                  uint32_t* __restrict__ states_out,      // per mega [R, 128] final (decode-start) states
+                  int bits) {
   __shared__ uint32_t fc_s[256];
   __shared__ uint32_t m_s[256];
   __shared__ uint32_t l_s[256];
+  __shared__ __align__(16) uint32_t stages[kWarps][4 * kLanes];  // each warp's windows of one step group
+  const int w = threadIdx.x >> 5;
   const int j = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const EncodeMega md = desc[tpx::find_mega(desc, n_megas, blockIdx.x)];
+  const long long r0 = (blockIdx.x - md.cta0) * kWarps;
+  if (r0 >= md.rows) return;  // past the last mega's rows: the whole CTA
+  const int rows = static_cast<int>(md.rows);
+  const int steps = static_cast<int>(md.steps);
+  const int r = static_cast<int>(r0) + w;
   const bool active = r < rows;
   const uint32_t lt = tpx::lanemask_lt();
   const int s4c = steps >> 2;
-  const uint32_t emit_point = 1u << (31 - bits);  // state >= emit_point * freq fits u32 even at freq = 2^B
-  const uint32_t total = 1u << bits;
+  const size_t stride = static_cast<size_t>(rows) * kLanes;  // from one step's windows to the next's
+  uint32_t* stage = stages[w];
 
   uint32_t st[4] = {tpx::kConsumePoint, tpx::kConsumePoint, tpx::kConsumePoint, tpx::kConsumePoint};
-  for (int t = n_tiles - 1; t >= 0; --t) {
+  for (int t = static_cast<int>(md.n_tiles) - 1; t >= 0; --t) {
     __syncthreads();  // every warp is done with the previous tile's tables
+    const long long tab = (md.tab0 + t) * 256;
     for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-      fc_s[i] = fctab[(size_t)t * 256 + i];
-      m_s[i] = mtab[(size_t)t * 256 + i];
-      l_s[i] = ltab[(size_t)t * 256 + i];
+      fc_s[i] = fctab[tab + i];
+      m_s[i] = mtab[tab + i];
+      if (!kPacked) l_s[i] = ltab[tab + i];
     }
     __syncthreads();
     if (!active) continue;
 
-    const size_t row_id = (size_t)t * rows + r;
-    const long long row_pos = (long long)row_id * s4c * kLanes * 4;
-    for (int s4 = s4c - 1; s4 >= 0; --s4) {
+    const long long row_id = static_cast<long long>(t) * rows + r;
+    const long long row_pos = row_id * s4c * kGroupPositions;  // wire position of the row's first byte
+    const tpx::GroupSpan span = tpx::group_span(md.vlen - row_pos, s4c);
+    const uint8_t* in_row = data + md.in_off + row_pos;
+    uint32_t* wt = win + md.cnt_off * kLanes + (static_cast<long long>(t) * steps * rows + r) * kLanes;
+    uint32_t* ct = cnt + md.cnt_off + row_id * steps;
+    // groups past the data: no word emitted, no state changed
+    for (int s4 = s4c - 1; s4 >= span.full + (span.rem > 0); --s4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) reinterpret_cast<uint4*>(wt + (4 * s4 + i) * stride)[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (j == 0) *reinterpret_cast<uint4*>(ct + 4 * s4) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (span.rem > 0) {  // the partial group: its bytes one by one, those past the data as 0
+      const int s4 = span.full;
       uint32_t pk[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) pk[k] = packed[(row_id * s4c + s4) * kLanes + j + 32 * k];
-      for (int i = 3; i >= 0; --i) {
-        bool emit[4];
-        uint32_t word[4];
-        unsigned ballot[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const uint32_t byte = (pk[k] >> (8 * i)) & 0xFFu;
-          const uint32_t fc = fc_s[byte];
-          uint32_t freq, cum, shift;
-          if (bits <= 12) {
-            freq = fc & 0x1FFFu;
-            cum = (fc >> 13) & 0xFFFu;
-            shift = fc >> 25;
-          } else {
-            freq = fc & 0xFFFFu;
-            cum = fc >> 16;
-            shift = l_s[byte];
-          }
-          const long long pos = row_pos + ((long long)s4 * kLanes + j + 32 * k) * 4 + i;
-          const bool valid = pos < vlen;  // past the data: nothing emitted, state kept
-          emit[k] = valid && st[k] >= emit_point * freq;
-          word[k] = st[k] & 0xFFFFu;
-          if (valid) {
-            const uint32_t x = emit[k] ? st[k] >> 16 : st[k];
-            const uint32_t q = static_cast<uint32_t>((static_cast<uint64_t>(m_s[byte]) * x) >> (31 + shift));
-            st[k] = q * (total - freq) + cum + x;  // == (q << B) + cum + x % freq
-          }
-          ballot[k] = __ballot_sync(tpx::kFullMask, emit[k]);
+      for (int k = 0; k < 4; ++k) {
+        pk[k] = 0u;
+        for (int i = 0; i < 4; ++i) {
+          const int at = (j + 32 * k) * 4 + i;
+          if (at < span.rem) pk[k] |= static_cast<uint32_t>(in_row[s4 * kGroupPositions + at]) << (8 * i);
         }
-        const int s = s4 * 4 + i;
-        uint32_t* wrow = win + (((size_t)t * steps + s) * rows + r) * kLanes;
-        int n = 0;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (emit[k]) wrow[n + __popc(ballot[k] & lt)] = word[k];
-          n += __popc(ballot[k]);
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (j + 32 * k >= n) wrow[j + 32 * k] = 0u;
-        }
-        if (j == 0) cnt[row_id * steps + s] = n;
       }
+      encode_group<kPacked, true>(st, pk, stage, wt + 4 * s4 * stride, stride, ct + 4 * s4, fc_s, m_s, l_s, bits, lt,
+                                  j, span.rem);
+    }
+    // the whole groups, each one's input loaded while the group after it (the
+    // one before in the walk) runs
+    const uint32_t* in_words = reinterpret_cast<const uint32_t*>(in_row);
+    uint32_t ahead[4];
+    if (span.full > 0) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) ahead[k] = in_words[(span.full - 1) * kLanes + j + 32 * k];
+    }
+    for (int s4 = span.full - 1; s4 >= 0; --s4) {
+      uint32_t pk[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pk[k] = ahead[k];
+      if (s4 > 0) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) ahead[k] = in_words[(s4 - 1) * kLanes + j + 32 * k];
+      }
+      encode_group<kPacked, false>(st, pk, stage, wt + 4 * s4 * stride, stride, ct + 4 * s4, fc_s, m_s, l_s, bits, lt,
+                                   j, kGroupPositions);
     }
   }
   if (active) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) states_out[(size_t)r * kLanes + j + 32 * k] = st[k];
+    for (int k = 0; k < 4; ++k) states_out[(md.state0 + r) * kLanes + j + 32 * k] = st[k];
   }
 }
 
@@ -154,15 +247,17 @@ tpx_concat_kernel(const uint32_t* __restrict__ win,  // [T, S, R, 128] per-step 
 
 }  // namespace
 
-extern "C" int hsr_tpx_encode(const void* packed, const void* fctab, const void* mtab, const void* ltab,
-                              void* win, void* cnt, void* states, int rows, int steps, int n_tiles,
-                              int bits, long long vlen, void* cuda_stream) {
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  tpx_encode_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const uint32_t*>(packed), static_cast<const uint32_t*>(fctab),
-      static_cast<const uint32_t*>(mtab), static_cast<const uint32_t*>(ltab),
-      static_cast<uint32_t*>(win), static_cast<uint32_t*>(cnt), static_cast<uint32_t*>(states),
-      rows, steps, n_tiles, bits, vlen);
+extern "C" int hsr_tpx_encode(const void* data, const void* desc, int n_megas, int ctas, const void* fctab,
+                              const void* mtab, const void* ltab, void* win, void* cnt, void* states, int bits,
+                              void* cuda_stream) {
+  if (n_megas <= 0 || ctas <= 0) return 0;
+  if (bits < 10 || bits > 15 || reinterpret_cast<uintptr_t>(data) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = bits <= 12 ? tpx_encode_kernel<true> : tpx_encode_kernel<false>;
+  kernel<<<ctas, kWarps * 32, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const uint8_t*>(data), static_cast<const EncodeMega*>(desc), n_megas,
+      static_cast<const uint32_t*>(fctab), static_cast<const uint32_t*>(mtab), static_cast<const uint32_t*>(ltab),
+      static_cast<uint32_t*>(win), static_cast<uint32_t*>(cnt), static_cast<uint32_t*>(states), bits);
   return static_cast<int>(cudaGetLastError());
 }
 

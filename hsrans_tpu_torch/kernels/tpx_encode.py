@@ -1,9 +1,11 @@
 """tpx encode: the port of `hsrans_tpu/kernels/tpx_encode.py` to PyTorch and
 CUDA (`csrc/tpx_encode.cu`).
 
-Phase A (`encode_mega`) runs the rANS state machine backward over a
-megablock and leaves each step's emitted words compacted in lane order;
-phase B (`concat`) lays each (tile, row)'s words out as its u32-slot stream.
+Phase A (`encode_mega`) runs the rANS state machine backward over every
+megablock of the input in one call (one kernel launch on the card) and
+leaves each step's emitted words compacted in lane order; phase B
+(`concat`, once a mega) lays each (tile, row)'s words out as its u32-slot
+stream.
 Per-tile histograms, the encode tables and the wire mux stay on the host
 (the port's copy of the wire in `..ops.tpx`), and the blobs equal the JAX
 package's `hsrans_tpu.ops.tpx.tpx_encode` and `tpx_encode_adaptive` byte for
@@ -28,9 +30,11 @@ from ..ops.tpx import (
 )
 from ..runtime import build
 from ..runtime.device import layer_clock, resolve
-from .tpx_decode import from_u32, to_u32
+from .tpx_decode import WARPS, ctas_of, desc_on, from_u32, to_u32
 
 _M32 = 0xFFFFFFFF
+# columns of the int64 per-mega descriptor; csrc/tpx_encode.cu::EncodeMega
+ENCODE_FIELDS = ("cta0", "rows", "steps", "n_tiles", "in_off", "tab0", "vlen", "cnt_off", "state0")
 
 
 def div_magic(freq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -82,14 +86,27 @@ def make_enc_tables_batch(freqs: np.ndarray, cumuls: np.ndarray, bits: int) -> d
     }
 
 
-def encode_mega_plain(packed, fc, m, l, *, bits: int, steps: int, vlen: int):
-    """Plain PyTorch version of the encode kernel, on any device.
+def _check_desc(name: str, desc: np.ndarray, n_data: int, n_tabs: int) -> tuple[int, int]:
+    """Every mega's input and tables lie inside the operands, and its
+    outputs follow the previous mega's; returns (counts, state rows) of all
+    megas, the sizes of the outputs."""
+    cta0, rows, steps, n_tiles, in_off, tab0, vlen, cnt_off, state0 = desc.T
+    n_cnt = n_tiles * rows * steps
+    if (
+        (steps % 4).any() or (steps < 4).any() or (rows < 1).any() or (n_tiles < 1).any() or (in_off % 4).any()
+        or (in_off < 0).any() or (vlen < 0).any() or (vlen > n_cnt * L).any() or (in_off + vlen > n_data).any()
+        or (tab0 < 0).any() or (tab0 + n_tiles > n_tabs).any()
+        or (cta0 != np.cumsum(-(-rows // WARPS)) - -(-rows // WARPS)).any()
+        or (cnt_off != np.cumsum(n_cnt) - n_cnt).any() or (state0 != np.cumsum(rows) - rows).any()
+    ):
+        raise ValueError(f"{name}: a mega descriptor does not fit the operands")
+    return int(n_cnt.sum()), int(rows.sum())
 
-    packed int32 [T, R, S/4 * 128] (the megablock's bytes in wire order, 4
-    steps per u32), fc/m/l int32 [T, 256] (make_enc_tables_batch) ->
-    (win int32 [T, S, R, 128]: each step's emitted words in lane order, 0
-    past the count; cnt int32 [T, R, S]: words per step; states int32
-    [R, 128]: the final states, which the decoder starts from)."""
+
+def _encode_one_plain(packed, fc, m, l, *, bits: int, steps: int, vlen: int):
+    """One mega of encode_mega_plain: packed int32 [T, R, S/4 * 128] (its
+    bytes in wire order, 4 steps per u32), fc/m/l int32 [T, 256] -> (win
+    int64 [T, S, R, 128], cnt int64 [T, R, S], states int64 [R, 128])."""
     n_tiles, rows, _ = packed.shape
     dev = packed.device
     s4c = steps // 4
@@ -121,33 +138,82 @@ def encode_mega_plain(packed, fc, m, l, *, bits: int, steps: int, vlen: int):
             step_win.scatter_(1, dest, word)
             win[t, s] = step_win[:, :L]
             cnt[t, :, s] = e.sum(dim=1)
-    return win.to(torch.int32), cnt.to(torch.int32), from_u32(st)
+    return win, cnt, st
 
 
-def encode_mega_cuda(packed, fc, m, l, *, bits: int, steps: int, vlen: int):
-    """The CUDA encode kernel (`csrc/tpx_encode.cu`) on CUDA tensors; same
-    contract as encode_mega_plain.  Raises for any other tensor."""
-    dev = build.check_cuda("encode_mega_cuda", packed, fc, m, l)
-    n_tiles, rows, width = packed.shape
-    if steps % 4 or width != steps // 4 * L or any(x.shape != (n_tiles, 256) for x in (fc, m, l)):
-        raise ValueError("encode_mega_cuda: operand shapes do not match the megablock geometry")
-    win = torch.empty((n_tiles, steps, rows, L), dtype=torch.int32, device=dev)
-    cnt = torch.empty((n_tiles, rows, steps), dtype=torch.int32, device=dev)
-    states = torch.empty((rows, L), dtype=torch.int32, device=dev)
-    if win.numel():
-        build.launch(
-            "tpx_encode", "hsr_tpx_encode", dev,
-            packed.data_ptr(), fc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            win.data_ptr(), cnt.data_ptr(), states.data_ptr(),
-            rows, steps, n_tiles, bits, int(vlen),
-        )
+def encode_mega_plain(data, desc, fc, m, l, *, bits: int):
+    """Plain PyTorch version of the encode kernel, on any device.
+
+    data uint8 [n] (the whole input), desc int64 [M, 9] host array
+    (ENCODE_FIELDS), fc/m/l int32 [sum tiles, 256] (make_enc_tables_batch)
+    -> (win, cnt, states), int32, each the megas' outputs back to back (see
+    `mega_views`): mega m's windows [T, S, R, 128] from cnt_off * 128, each
+    step's emitted words in lane order and 0 past its count; its counts
+    [T, R, S] from cnt_off, words per step; its final states [R, 128] from
+    state0 * 128, which the decoder starts from.  Mega m encodes data[in_off
+    : in_off + vlen] in wire order, the positions past vlen as absent."""
+    n_cnt, n_rows = _check_desc("encode_mega_plain", desc, data.numel(), fc.shape[0])
+    dev = data.device
+    win = torch.zeros(n_cnt * L, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(n_cnt, dtype=torch.int32, device=dev)
+    states = torch.zeros(n_rows * L, dtype=torch.int32, device=dev)
+    for _, rows, steps, n_tiles, in_off, tab0, vlen, cnt_off, state0 in desc.tolist():
+        flat = torch.zeros(n_tiles * rows * steps * L, dtype=torch.uint8, device=dev)
+        flat[:vlen] = data[in_off : in_off + vlen]
+        tabs = (x[tab0 : tab0 + n_tiles] for x in (fc, m, l))
+        w, c, st = _encode_one_plain(flat.view(torch.int32).reshape(n_tiles, rows, -1), *tabs, bits=bits, steps=steps,
+                                     vlen=vlen)
+        win[cnt_off * L : cnt_off * L + w.numel()] = w.reshape(-1).to(torch.int32)
+        cnt[cnt_off : cnt_off + c.numel()] = c.reshape(-1).to(torch.int32)
+        states[state0 * L : (state0 + rows) * L] = from_u32(st.reshape(-1))
     return win, cnt, states
 
 
-def encode_mega(packed, fc, m, l, *, bits: int, steps: int, vlen: int):
+def encode_mega_cuda(data, desc, fc, m, l, *, bits: int):
+    """The CUDA encode kernel (`csrc/tpx_encode.cu`) on CUDA tensors, every
+    mega of `desc` in one launch; same contract as encode_mega_plain.
+    Raises for any other tensor."""
+    dev = build.check_cuda("encode_mega_cuda", data, fc, m, l, uint8=(0,))
+    if not 10 <= bits <= 15 or any(x.shape != (fc.shape[0], 256) for x in (fc, m, l)) or data.data_ptr() % 4:
+        raise ValueError("encode_mega_cuda: the tables must be [tiles, 256] and the input 4-byte aligned")
+    n_cnt, n_rows = _check_desc("encode_mega_cuda", desc, data.numel(), fc.shape[0])
+    win = torch.empty(n_cnt * L, dtype=torch.int32, device=dev)  # the kernel writes every word
+    cnt = torch.empty(n_cnt, dtype=torch.int32, device=dev)
+    states = torch.empty(n_rows * L, dtype=torch.int32, device=dev)
+    if len(desc):
+        launch_encode(data, desc_on(desc, dev), fc, m, l, win, cnt, states, bits=bits, ctas=ctas_of(desc))
+    return win, cnt, states
+
+
+def launch_encode(data, desc_t, fc, m, l, win, cnt, states, *, bits: int, ctas: int) -> None:
+    """One launch of the encode kernel with the descriptors on the card
+    (`desc_t`) into the outputs given; encode_mega_cuda's checks are the
+    caller's."""
+    build.launch(
+        "tpx_encode", "hsr_tpx_encode", data.device,
+        data.data_ptr(), desc_t.data_ptr(), desc_t.shape[0], ctas, fc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        win.data_ptr(), cnt.data_ptr(), states.data_ptr(), bits,
+    )
+
+
+def encode_mega(data, desc, fc, m, l, *, bits: int):
     """The kernel for CUDA operands, its plain version for CPU operands."""
-    fn = encode_mega_plain if packed.device.type == "cpu" else encode_mega_cuda
-    return fn(packed, fc, m, l, bits=bits, steps=steps, vlen=vlen)
+    fn = encode_mega_plain if data.device.type == "cpu" else encode_mega_cuda
+    return fn(data, desc, fc, m, l, bits=bits)
+
+
+def mega_views(win, cnt, states, desc: np.ndarray) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Each mega's (windows [T, S, R, 128], counts [T, R, S], final states
+    [R, 128]) in the one-call encode's outputs."""
+    views = []
+    for _, rows, steps, n_tiles, _, _, _, cnt_off, state0 in desc.tolist():
+        n = n_tiles * rows * steps
+        views.append((
+            win[cnt_off * L : (cnt_off + n) * L].view(n_tiles, steps, rows, L),
+            cnt[cnt_off : cnt_off + n].view(n_tiles, rows, steps),
+            states[state0 * L : (state0 + rows) * L].view(rows, L),
+        ))
+    return views
 
 
 def concat_plain(win, cnt, w_slots: int) -> torch.Tensor:
@@ -194,55 +260,73 @@ def concat(win, cnt, w_slots: int) -> torch.Tensor:
 def _as_array(data: bytes | np.ndarray) -> np.ndarray:
     if isinstance(data, (bytes, bytearray, memoryview)):
         return np.frombuffer(data, dtype=np.uint8)
-    return np.asarray(data, dtype=np.uint8)
+    return np.ascontiguousarray(data, dtype=np.uint8)
 
 
 def mega_operands(
-    arr: np.ndarray, mega_base: int, n_tiles: int, valid_bytes: int, *, bits: int, rows: int, steps: int
-) -> tuple[np.ndarray, np.ndarray, dict[str, np.ndarray], int]:
-    """Host side of one megablock's encode: (packed input int32
-    [T, R, S/4 * 128], wire freqs u16 [T, 256], make_enc_tables_batch
-    tables [T, 256], valid bytes), exactly as the JAX encoder prepares them."""
-    tile_bytes = rows * steps * L
-    n_valid = min(valid_bytes, n_tiles * tile_bytes)
-    flat = np.zeros(n_tiles * tile_bytes, dtype=np.uint8)
-    flat[:n_valid] = arr[mega_base : mega_base + n_valid]
-    # per-tile histograms over the tile's contiguous wire range of valid
-    # bytes; absent trailing tiles get the 1-symbol histogram
-    hists = [make_tile_hist(flat[t * tile_bytes : min((t + 1) * tile_bytes, n_valid)], bits) for t in range(n_tiles)]
+    arr: np.ndarray, geoms: list[tuple[int, int, int, int, int]], *, bits: int
+) -> tuple[np.ndarray, np.ndarray, dict[str, np.ndarray]]:
+    """Host side of the one-call encode of the megas [(base, rows, steps,
+    n_tiles, valid bytes)]: (desc int64 [M, 9] (ENCODE_FIELDS), wire freqs
+    u16 [sum tiles, 256], make_enc_tables_batch tables [sum tiles, 256]),
+    exactly as the JAX encoder prepares them: each tile's histogram over its
+    contiguous wire range of valid bytes, the 1-symbol histogram for a tile
+    wholly past them.  (`make_tile_hists`, batched for the mt encoder's
+    small blocks, is slower on these 4 MiB tiles: one bincount of int32 keys
+    against one of the tile's bytes each.)"""
+    desc, starts, ends = [], [], []
+    cta = tab0 = cnt_off = state0 = 0
+    for base, rows, steps, n_tiles, valid in geoms:
+        tile_bytes = rows * steps * L
+        vlen = min(valid, n_tiles * tile_bytes)
+        desc.append((cta, rows, steps, n_tiles, base, tab0, vlen, cnt_off, state0))
+        first = base + tile_bytes * np.arange(n_tiles, dtype=np.int64)
+        starts.append(first)
+        ends.append(np.minimum(first + tile_bytes, base + vlen))
+        cta += -(-rows // WARPS)
+        tab0 += n_tiles
+        cnt_off += n_tiles * rows * steps
+        state0 += rows
+    hists = [make_tile_hist(arr[s:e], bits) for s, e in zip(np.concatenate(starts), np.concatenate(ends))]
     freqs = np.stack([h.symbol_count for h in hists])
-    tabs = make_enc_tables_batch(freqs, np.stack([h.cumul for h in hists]), bits)
-    return flat.view(np.int32).reshape(n_tiles, rows, steps // 4 * L), freqs, tabs, n_valid
+    return np.array(desc, np.int64), freqs, make_enc_tables_batch(freqs, np.stack([h.cumul for h in hists]), bits)
 
 
-def _encode_mega_into(
+def _encode_megas(
     out: bytearray,
     arr: np.ndarray,
-    mega_base: int,
-    n_tiles: int,
-    valid_bytes: int,
+    geoms: list[tuple[int, int, int, int, int]],
     *,
     bits: int,
-    rows: int,
-    steps: int,
+    v3: bool,
     device: torch.device,
     layers: dict[str, float] | None,
 ) -> None:
-    """Encode one megablock at the given geometry on `device` and append its
-    wire section; bytes equal `hsrans_tpu.ops.tpx._encode_mega_into`'s."""
+    """Encode the megas [(base, rows, steps, n_tiles, valid bytes)] on
+    `device`, one kernel launch for all of them, and append their wire
+    sections (with v3 each after its u32 rows | u32 steps); bytes equal
+    `hsrans_tpu.ops.tpx._encode_mega_into`'s mega by mega."""
     with layer_clock(layers, "host_hist_tables", device):
-        packed, freqs, tabs, n_valid = mega_operands(arr, mega_base, n_tiles, valid_bytes, bits=bits, rows=rows, steps=steps)
+        desc, freqs, tabs = mega_operands(arr, geoms, bits=bits)
     with layer_clock(layers, "h2d", device):
-        ops = [torch.from_numpy(a).to(device) for a in (packed, tabs["fc"], tabs["m"], tabs["l"])]
+        ops = [torch.from_numpy(a).to(device) for a in (arr, tabs["fc"], tabs["m"], tabs["l"])]
     with layer_clock(layers, "kernel_encode", device):
-        win, cnt, states = encode_mega(*ops, bits=bits, steps=steps, vlen=n_valid)
+        views = mega_views(*encode_mega(ops[0], desc, *ops[1:], bits=bits), desc)
     with layer_clock(layers, "kernel_concat", device):
-        counts = cnt.sum(dim=2)  # words per (tile, row)
-        stream = concat(win, cnt, wire_w_slots(int(counts.max())))
+        streams = []
+        for win, cnt, _ in views:
+            counts = cnt.sum(dim=2)  # words per (tile, row)
+            streams.append((counts, concat(win, cnt, wire_w_slots(int(counts.max())))))
     with layer_clock(layers, "d2h", device):
-        host = (states.cpu().numpy().view(np.uint32), counts.cpu().numpy().astype(np.uint16), stream.cpu().numpy().view(np.uint32))
+        host = [
+            (st.cpu().numpy().view(np.uint32), counts.cpu().numpy().astype(np.uint16), stream.cpu().numpy().view(np.uint32))
+            for (_, _, st), (counts, stream) in zip(views, streams)
+        ]
     with layer_clock(layers, "host_mux", device):
-        _write_mega(out, n_tiles, stream.shape[2], host[0], freqs, host[1], host[2])
+        for (_, rows, steps, n_tiles, _, tab0, *_), (states, counts, stream) in zip(desc.tolist(), host):
+            if v3:
+                out += int(rows).to_bytes(4, "little") + int(steps).to_bytes(4, "little")
+            _write_mega(out, n_tiles, stream.shape[2], states, freqs[tab0 : tab0 + n_tiles], counts, stream)
 
 
 def wire_w_slots(max_words: int) -> int:
@@ -272,10 +356,8 @@ def tpx_encode_torch(
     if p.lanes != L or p.steps % 4 or not 10 <= p.bits <= 15:
         raise ValueError("tpx encode requires lanes == 128, steps % 4 == 0 and 10 <= bits <= 15")
     out = tpx_header(length, p)
-    for mega_base, n_tiles, valid_bytes in _mega_layout(length, p):
-        _encode_mega_into(
-            out, arr, mega_base, n_tiles, valid_bytes, bits=p.bits, rows=p.rows, steps=p.steps, device=dev, layers=layers
-        )
+    geoms = [(base, p.rows, p.steps, n_tiles, valid) for base, n_tiles, valid in _mega_layout(length, p)]
+    _encode_megas(out, arr, geoms, bits=p.bits, v3=False, device=dev, layers=layers)
     out[16:24] = len(out).to_bytes(8, "little")
     return bytes(out)
 
@@ -296,12 +378,7 @@ def tpx_encode_adaptive_torch(data: bytes | np.ndarray, bits: int = 12, device: 
     g0 = geoms[0]
     for v in (bits, g0.rows, L, g0.steps, g0.n_tiles):
         out += int(v).to_bytes(4, "little")
-    for g in geoms:
-        out += int(g.rows).to_bytes(4, "little")
-        out += int(g.steps).to_bytes(4, "little")
-        _encode_mega_into(
-            out, arr, g.base, g.n_tiles, max(0, min(length - g.base, g.span)),
-            bits=bits, rows=g.rows, steps=g.steps, device=dev, layers=None,
-        )
+    megas = [(g.base, g.rows, g.steps, g.n_tiles, max(0, min(length - g.base, g.span))) for g in geoms]
+    _encode_megas(out, arr, megas, bits=bits, v3=True, device=dev, layers=None)
     out[16:24] = len(out).to_bytes(8, "little")
     return bytes(out)

@@ -225,7 +225,8 @@ class TpxMega:
     states: np.ndarray  # u32[R, L]
     freqs: np.ndarray  # u16[n_tiles, 256]
     counts: np.ndarray  # u16[n_tiles, R]
-    stream: np.ndarray  # u32[n_tiles, R, W]
+    slot_off: int  # blob byte offset of the mega's u32 slots (even, not always a multiple of 4)
+    row_start: np.ndarray  # i64[n_tiles * R + 1]: row (t, r)'s first slot, t * R + r, counted from slot_off; then the end
     rows: int = 0
     steps: int = 0
 
@@ -236,8 +237,10 @@ class TpxMega:
 
 def tpx_parse(blob: bytes | np.ndarray) -> tuple[TpxParams, int, list[TpxMega]] | None:
     """Parse the container (v1, v2 or v3); None on malformed or truncated
-    input.  Ragged (v2/v3) streams are rebuilt into the rectangular
-    [T, R, W] layout the kernels consume."""
+    input.  The slots stay where the wire keeps them: each mega records
+    where its slot region starts and where each row's slots start in it
+    (back to back on the ragged v2/v3 wire, row * w_slots on the rectangular
+    v1 one)."""
     buf = np.frombuffer(blob, dtype=np.uint8) if isinstance(blob, (bytes, bytearray, memoryview)) else np.asarray(blob, dtype=np.uint8)
     if buf.size < 44 or buf[:8].tobytes() not in (MAGIC, MAGIC2, MAGIC3):
         return None
@@ -287,23 +290,14 @@ def tpx_parse(blob: bytes | np.ndarray) -> tuple[TpxParams, int, list[TpxMega]] 
             sc = (counts.astype(np.int64).reshape(-1) + 1) // 2
             if sc.max(initial=0) > w_slots:
                 return None
-            total = int(sc.sum())
-            if off + 4 * total > buf.size:
-                return None
-            flat_words = buf[off : off + 4 * total].view("<u4")
-            off += 4 * total
-            stream = np.zeros((n_tiles * rows, w_slots), dtype=np.uint32)
-            starts = np.cumsum(sc) - sc
-            row_of = np.repeat(np.arange(n_tiles * rows), sc)
-            col_of = np.arange(total) - np.repeat(starts, sc)
-            stream[row_of, col_of] = flat_words
-            stream = stream.reshape(n_tiles, rows, w_slots)
+            row_start = np.concatenate([np.zeros(1, np.int64), np.cumsum(sc)])
         else:
-            n_stream = n_tiles * rows * w_slots
-            if off + 4 * n_stream > buf.size:
-                return None
-            stream = buf[off : off + 4 * n_stream].view("<u4").reshape(n_tiles, rows, w_slots).astype(np.uint32)
-            off += 4 * n_stream
-        megas.append(TpxMega(base, n_tiles, w_slots, states, freqs, counts, stream, rows, steps))
+            row_start = np.arange(n_tiles * rows + 1, dtype=np.int64) * w_slots
+        total = int(row_start[-1])
+        if off + 4 * total > buf.size:
+            return None
+        slot_off = off
+        off += 4 * total
+        megas.append(TpxMega(base, n_tiles, w_slots, states, freqs, counts, slot_off, row_start, rows, steps))
         base += rows * n_tiles * steps * lanes
     return p, length, megas

@@ -43,10 +43,11 @@ LAUNCHES: dict[str, int] = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # stream, init states, sym table, fc table, out, rows, steps, n_tiles, w_slots, bits, vlen, cuda stream
-    "hsr_tpx_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _P],
-    # packed, fc, m, l, win, cnt, states, rows, steps, n_tiles, bits, vlen, cuda stream
-    "hsr_tpx_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _P],
+    # blob, blob bytes, mega descriptors, megas, CTAs, row starts, init states, sym table, fc table, out, bits,
+    # cuda stream
+    "hsr_tpx_decode": [_P, ctypes.c_longlong, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    # data, mega descriptors, megas, CTAs, fc, m, l, win, cnt, states, bits, cuda stream
+    "hsr_tpx_encode": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
     # win, cnt, out, rows, steps, n_tiles, w_slots, cuda stream
     "hsr_tpx_concat": [_P, _P, _P, _I, _I, _I, _I, _P],
     # stream, index, init states, fc table, out, final states, cursors, nb, n, bits, nwords, length, cuda stream

@@ -31,30 +31,66 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("bits", (10, 12, 13, 15))
-@pytest.mark.parametrize("rows,steps,n_tiles,partial", [(40, 8, 3, 5000), (1024, 32, 4, 0)])
-def test_kernels_equal_plain(cuda, bits, rows, steps, n_tiles, partial):
-    """Encode, concat and decode kernels == their plain versions; rows=40
-    leaves idle warps in the last block, `partial` cuts the data short."""
-    span = rows * steps * 128 * n_tiles
-    data = text_like(np.random.default_rng(bits), span - partial)
-    packed, freqs, tabs, n_valid = enc.mega_operands(data, 0, n_tiles, data.size, bits=bits, rows=rows, steps=steps)
-    ops = [torch.from_numpy(a).to(cuda) for a in (packed, tabs["fc"], tabs["m"], tabs["l"])]
-    got = enc.encode_mega_cuda(*ops, bits=bits, steps=steps, vlen=n_valid)
-    want = enc.encode_mega_plain(*ops, bits=bits, steps=steps, vlen=n_valid)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    win, cnt, states = got
-    w_slots = enc.wire_w_slots(int(cnt.sum(dim=2).max()))
-    stream = enc.concat_cuda(win, cnt, w_slots)
-    assert torch.equal(stream, enc.concat_plain(win, cnt, w_slots))
+# (rows, steps, n_tiles) of each mega: v2 (one geometry, the last mega
+# partial), v3 with mixed geometry, and rows not a multiple of 4 (the last
+# CTA of each mega has idle warps)
+TPX_GEOMS = {
+    "v2 multi-mega partial": ((40, 8, 3),) * 3,
+    "v3 mixed geometry": ((128, 8, 2), (13, 4, 3), (1024, 32, 1)),
+    "rows 37": ((37, 8, 2),) * 2,
+}
 
-    sym, fc = dec.dec_tables(freqs, bits)
-    dops = (stream, states, torch.from_numpy(sym).to(cuda), torch.from_numpy(fc).to(cuda))
-    out = dec.decode_mega_cuda(*dops, bits=bits, steps=steps, vlen=n_valid)
+
+@pytest.mark.parametrize("bits", (10, 12, 13, 15))
+@pytest.mark.parametrize("case", sorted(TPX_GEOMS))
+def test_kernels_equal_plain(cuda, bits, case):
+    """The encode kernel (every mega in one launch), the concat kernel (once
+    a mega) and the decode kernel (every mega in one launch, reading the
+    ragged wire) == their plain versions, and the blob == the authority's
+    where the wire is v2; the last mega is cut short."""
+    spans = [rows * steps * 128 * n for rows, steps, n in TPX_GEOMS[case]]
+    data = text_like(np.random.default_rng(bits), sum(spans) - 5000)
+    bases = np.cumsum([0, *spans[:-1]]).tolist()
+    geoms = [(b, rows, steps, n, min(data.size - b, z)) for b, (rows, steps, n), z in zip(bases, TPX_GEOMS[case], spans)]
+    desc, _, tabs = enc.mega_operands(data, geoms, bits=bits)
+    ops = (torch.from_numpy(data).to(cuda), desc, *(torch.from_numpy(tabs[k]).to(cuda) for k in ("fc", "m", "l")))
+    got = enc.encode_mega_cuda(*ops, bits=bits)
     torch.cuda.synchronize()
-    assert torch.equal(out, dec.decode_mega_plain(*dops, bits=bits, steps=steps, vlen=n_valid))
-    assert out.cpu().numpy().reshape(-1).view(np.uint8)[:n_valid].tobytes() == data.tobytes()
+    for g, w in zip(got, enc.encode_mega_plain(*ops, bits=bits)):
+        assert torch.equal(g, w)
+    for win, cnt, _ in enc.mega_views(*got, desc):
+        w_slots = enc.wire_w_slots(int(cnt.sum(dim=2).max()))
+        assert torch.equal(enc.concat_cuda(win, cnt, w_slots), enc.concat_plain(win, cnt, w_slots))
+
+    v3 = case.startswith("v3")
+    blob = bytearray(b"HSRTPX03" if v3 else b"HSRTPX02")
+    blob += data.size.to_bytes(8, "little") + bytes(8)
+    for v in (bits, *TPX_GEOMS[case][0][:1], 128, TPX_GEOMS[case][0][1], TPX_GEOMS[case][0][2]):
+        blob += v.to_bytes(4, "little")
+    enc._encode_megas(blob, data, geoms, bits=bits, v3=v3, device=cuda, layers=None)
+    blob[16:24] = len(blob).to_bytes(8, "little")
+    if not v3:
+        p = TpxParams(bits=bits, rows=geoms[0][1], steps=geoms[0][2], tiles=geoms[0][3])
+        assert bytes(blob) == tpx_encode(data, p=p)
+    args, kw = chip_smoke.tpx_decode_args(bytes(blob), cuda)
+    out = dec.decode_mega_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dec.decode_mega_plain(*args, **kw))
+    assert out[: data.size].cpu().numpy().tobytes() == data.tobytes()
+    assert dec.tpx_decode_torch(bytes(blob), device="cuda") == data.tobytes()
+
+
+@pytest.mark.parametrize("bits", (10, 12, 15))
+@pytest.mark.parametrize("case", chip_smoke.TPX_DECODE_EDGES)
+def test_tpx_decode_window_edges(cuda, case, bits):
+    """The tpx decode kernel == its plain version where its ragged reads and
+    shared-memory window meet their edges: slot regions at every even
+    16-byte phase, rows cut to w_slots that read past their last slot, rows
+    shorter than a window half, one mega of one tile, the v1 wire."""
+    for name, args, kw in chip_smoke.tpx_decode_edge_operands(case, bits, cuda):
+        got = dec.decode_mega_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, dec.decode_mega_plain(*args, **kw)), name
 
 
 @pytest.mark.parametrize("bits", (10, 12, 15))

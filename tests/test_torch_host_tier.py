@@ -132,19 +132,29 @@ def test_write_mega_equals_original():
     assert a == b
 
 
-def _parsed(res):
+def _parsed(res, blob=None):
+    """The parse's fields; with `blob` (the port's parse) each mega's
+    rectangular [T, R, W] stream is rebuilt from its ragged fields: row i's
+    row_start[i + 1] - row_start[i] slots at blob byte slot_off + 4 *
+    row_start[i], then 0 up to w_slots."""
     if res is None:
         return None
     p, length, megas = res
-    return (
-        (p.bits, p.rows, p.lanes, p.steps, p.tiles),
-        length,
-        [
+    rows = []
+    for m in megas:
+        if blob is None:
+            stream = m.stream
+        else:
+            slots = np.frombuffer(blob[m.slot_off : m.slot_off + 4 * int(m.row_start[-1])], "<u4")
+            sc = np.diff(m.row_start)
+            stream = np.zeros((m.n_tiles * m.rows, m.w_slots), np.uint32)
+            stream[np.repeat(np.arange(sc.size), sc), np.arange(slots.size) - np.repeat(m.row_start[:-1], sc)] = slots
+            stream = stream.reshape(m.n_tiles, m.rows, m.w_slots)
+        rows.append(
             (m.base, m.n_tiles, m.w_slots, m.rows, m.steps, m.span, m.states.tobytes(), m.freqs.tobytes(),
-             m.counts.tobytes(), m.stream.dtype.str, m.stream.shape, m.stream.tobytes())
-            for m in megas
-        ],
-    )
+             m.counts.tobytes(), stream.dtype.str, stream.shape, stream.tobytes())
+        )
+    return (p.bits, p.rows, p.lanes, p.steps, p.tiles), length, rows
 
 
 def test_parse_equals_original_on_valid_and_corrupt_blobs():
@@ -167,5 +177,5 @@ def test_parse_equals_original_on_valid_and_corrupt_blobs():
             cases.append(bytes(b))
     cases.append(bytes(v1))
     for blob in cases:
-        assert _parsed(pt.tpx_parse(blob)) == _parsed(jt.tpx_parse(blob))
+        assert _parsed(pt.tpx_parse(blob), blob) == _parsed(jt.tpx_parse(blob))
     assert pt.tpx_parse(blobs[2]) is not None

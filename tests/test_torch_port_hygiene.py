@@ -120,12 +120,14 @@ def test_wrappers_refuse_cpu_tensors():
     from hsrans_tpu_torch.kernels import tpx_decode as dec
     from hsrans_tpu_torch.kernels import tpx_encode as enc
 
-    z = torch.zeros((1, 8, 256), dtype=torch.int32)
     t = torch.zeros((1, 256), dtype=torch.int32)
+    u8 = torch.zeros(4096, dtype=torch.uint8)
+    desc = np.array([[0, 8, 8, 1, 128, 0, 0, 0, 0, 0, 1]], np.int64)
     with pytest.raises(ValueError, match="CUDA"):
-        dec.decode_mega_cuda(z, torch.zeros((8, 128), dtype=torch.int32), torch.zeros((1, 4096), dtype=torch.uint8), t, bits=12, steps=8, vlen=1)
+        dec.decode_mega_cuda(u8, desc, torch.zeros(9, dtype=torch.int64), torch.zeros((8, 128), dtype=torch.int32),
+                             torch.zeros((1, 4096), dtype=torch.uint8), t, bits=12, out_len=4)
     with pytest.raises(ValueError, match="CUDA"):
-        enc.encode_mega_cuda(z, t, t, t, bits=12, steps=8, vlen=1)
+        enc.encode_mega_cuda(u8, np.array([[0, 8, 8, 1, 0, 0, 1, 0, 0]], np.int64), t, t, t, bits=12)
     with pytest.raises(ValueError, match="CUDA"):
         enc.concat_cuda(torch.zeros((1, 8, 8, 128), dtype=torch.int32), torch.zeros((1, 8, 8), dtype=torch.int32), 128)
     with pytest.raises(ValueError, match="CUDA"):

@@ -55,13 +55,18 @@ def test_encode_equals_pallas_and_authority(name, bits):
 
 @pytest.mark.parametrize("bits", (10, 12, 15))
 def test_encode_mega_and_concat_plain_equal_pallas_kernels(bits):
-    """Phase A: windows, counts and final states equal the Pallas encode
-    kernel's (counts after _unpack_counts).  Phase B: the concat equals the
-    Pallas concat kernel on the same windows."""
+    """Phase A: windows, counts and final states of the one-call plain
+    version, reading the input as it is, equal the Pallas encode kernel's on
+    the zero-padded mega (counts after _unpack_counts).  Phase B: the concat
+    equals the Pallas concat kernel on the same windows."""
     p = small(bits)
     n_tiles, rows, steps = p.tiles, p.rows, p.steps
     data = text_like(np.random.default_rng(bits), p.mega_bytes - 1000)
-    packed, _, tabs, n_valid = pt.mega_operands(data, 0, n_tiles, data.size, bits=bits, rows=rows, steps=steps)
+    desc, _, tabs = pt.mega_operands(data, [(0, rows, steps, n_tiles, data.size)], bits=bits)
+    n_valid = int(desc[0, pt.ENCODE_FIELDS.index("vlen")])
+    packed = np.zeros(p.mega_bytes, np.uint8)
+    packed[: data.size] = data
+    packed = packed.view(np.int32).reshape(n_tiles, rows, steps // 4 * 128)
 
     def chunks(tab):  # [T, 256] -> the Pallas kernel's (lo, hi) [T, 8, 128] operands
         lo, hi = np.zeros((2, n_tiles, 8, 128), np.int32)
@@ -73,9 +78,8 @@ def test_encode_mega_and_concat_plain_equal_pallas_kernels(bits):
         rows=rows, s4c=steps // 4, n_tiles=n_tiles, bits=bits, interpret=True,
     )
     cnt_j = jx._unpack_counts(cntp_j, s4c=steps // 4)
-    win, cnt, st = pt.encode_mega_plain(
-        *(torch.from_numpy(a) for a in (packed, tabs["fc"], tabs["m"], tabs["l"])), bits=bits, steps=steps, vlen=n_valid
-    )
+    outs = pt.encode_mega_plain(torch.from_numpy(data), desc, *(torch.from_numpy(tabs[k]) for k in ("fc", "m", "l")), bits=bits)
+    ((win, cnt, st),) = pt.mega_views(*outs, desc)
     assert np.array_equal(win.numpy(), np.asarray(win_j))
     assert np.array_equal(cnt.numpy(), np.asarray(cnt_j)[:, :, :steps])
     assert np.array_equal(st.numpy().view(np.uint32), np.asarray(st_j))
