@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Launch A/B of the mt and tpx decode and encode kernels of several source
-trees, side by side in one process on the same operands.
+"""Launch A/B of the mt and tpx kernels of several source trees, side by
+side in one process on the same operands.
 
     python3 chip_ab.py NAME=DIR [NAME=DIR ...] [--out FILE]
 
@@ -15,11 +15,18 @@ x-ray `device_plan` blob and plan (a), the 8 MiB x-ray classes of
 text at B=12 and B=15, four megas in one launch); the decode blobs are
 encoded on the card.  A tree whose tpx kernels take another argument list
 (one launch a mega, before the one-launch design) runs the mt cases only.
-Every tree's outputs must equal the plain version's.  Each case times every
-tree's launch alone (`chip_smoke.launch_times`: CUDA events over 20
-launches queued behind a spin) in turns, each tree and then back in
-reverse order, and prints one JSON line with the card's name and power
-limit; `--out` also appends the lines to FILE.
+The two wire writers are timed on this checkout's encode outputs: a tree
+with the one-launch writers (`hsr_tpx_wire`, `hsr_mt_wire`) writes every
+mega's section, or the whole mt blob, in one launch; a tree from before
+them runs its concat once a mega (the rectangular streams, which the host
+then gathered into the wire) and its placement of the coded parts (the
+host then wrote the head and the indicators), and is held against this
+checkout's wire by that host step.  Every tree's outputs must equal the
+plain version's.  Each case times every tree's launch alone
+(`chip_smoke.launch_times`: CUDA events over 20 launches queued behind a
+spin) in turns, each tree and then back in reverse order, and prints one
+JSON line with the card's name and power limit; `--out` also appends the
+lines to FILE.
 """
 
 from __future__ import annotations
@@ -72,8 +79,9 @@ def decode_cases(dev: torch.device) -> list[tuple[str, int, int, tuple, int]]:
     return cases
 
 
-def encode_cases(dev: torch.device) -> list[tuple[str, int, int, str, tuple]]:
-    """(name, bits, n, rule, kernel operands) of the encode plans."""
+def encode_cases(dev: torch.device) -> list[tuple[str, int, int, str, tuple, tuple]]:
+    """(name, bits, n, rule, kernel operands, (plan, kinds, ks, bias)) of
+    the encode plans."""
     from hsrans_tpu_torch.kernels import mt_encode as mte
     from hsrans_tpu_torch.parallel.sharded import device_plan
     from tools.gen_inputs import text_like
@@ -88,14 +96,15 @@ def encode_cases(dev: torch.device) -> list[tuple[str, int, int, str, tuple]]:
     specs.append(("text 64 MiB main path (b)", text, mte.uniform_rows(text.size, 4096), 12, 64, "groups"))
     cases = []
     for name, src, plan, bits, n, rule in specs:
-        _, _, index, freqs, _ = mte.plan_operands(src, plan, bits, n, rule)
-        cases.append((name, bits, n, rule, tuple(torch.from_numpy(a).to(dev) for a in (src, index, freqs.view(np.int16)))))
+        kinds, ks, index, freqs, bias = mte.plan_operands(src, plan, bits, n, rule)
+        cases.append((name, bits, n, rule, tuple(torch.from_numpy(a).to(dev) for a in (src, index, freqs.view(np.int16))),
+                      (plan, kinds, ks, bias)))
     return cases
 
 
-def tpx_cases(dev: torch.device) -> list[tuple[int, tuple, tuple]]:
-    """(bits, encode operands, decode operands and keywords) of the tpx main
-    path's call at B=12 and B=15."""
+def tpx_cases(dev: torch.device) -> list[tuple[int, tuple, tuple, np.ndarray]]:
+    """(bits, encode operands, decode operands and keywords, wire freqs) of
+    the tpx main path's call at B=12 and B=15."""
     from hsrans_tpu_torch import tpx_encode_torch
     from hsrans_tpu_torch.kernels import tpx_encode as enc
     from hsrans_tpu_torch.ops.tpx import TpxParams, _mega_layout
@@ -106,9 +115,9 @@ def tpx_cases(dev: torch.device) -> list[tuple[int, tuple, tuple]]:
     for bits in (12, 15):
         p = TpxParams(bits=bits)
         geoms = [(base, p.rows, p.steps, n_tiles, valid) for base, n_tiles, valid in _mega_layout(data.size, p)]
-        desc, _, tabs = enc.mega_operands(data, geoms, bits=bits)
+        desc, freqs, tabs = enc.mega_operands(data, geoms, bits=bits)
         eops = (torch.from_numpy(data).to(dev), desc, *(torch.from_numpy(tabs[k]).to(dev) for k in ("fc", "m", "l")))
-        cases.append((bits, eops, chip_smoke.tpx_decode_args(tpx_encode_torch(data, bits, device=dev), dev)))
+        cases.append((bits, eops, chip_smoke.tpx_decode_args(tpx_encode_torch(data, bits, device=dev), dev), freqs))
     return cases
 
 
@@ -128,10 +137,11 @@ def run_tpx(libs: dict, dev: torch.device, sink) -> None:
     from hsrans_tpu_torch.kernels import tpx_decode as dec
     from hsrans_tpu_torch.kernels import tpx_encode as enc
 
+    all_libs = libs
     libs = {k: lib for k, lib in libs.items() if lib.hsr_tpx_decode.argtypes[1] is ctypes.c_longlong}
     cs = torch.cuda.current_stream(dev).cuda_stream
     links = 4 * 32  # a row's chain: 4 tiles x 32 steps
-    for bits, (data, desc, *tabs), ((blob, ddesc, *dops), kw) in tpx_cases(dev):
+    for bits, (data, desc, *tabs), ((blob, ddesc, *dops), kw), freqs in tpx_cases(dev):
         desc_t, ddesc_t, ctas = torch.from_numpy(desc).to(dev), torch.from_numpy(ddesc).to(dev), enc.ctas_of(desc)
         eouts = {k: tuple(torch.empty_like(t) for t in enc.encode_mega_cuda(data, desc, *tabs, bits=bits)) for k in libs}
         douts = {k: torch.zeros(kw["out_len"], dtype=torch.uint8, device=dev) for k in libs}
@@ -160,6 +170,62 @@ def run_tpx(libs: dict, dev: torch.device, sink) -> None:
         for name, fn in (("tpx_encode", encode), ("tpx_decode", decode)):
             sink({"kernel": name, "case": "text 64 MiB main path", "bits": bits, "megas": len(desc),
                   **in_turns({k: (lambda k=k: fn(k)) for k in libs}, links)})
+        run_tpx_wire(all_libs, enc.encode_mega_cuda(data, desc, *tabs, bits=bits), desc, freqs, bits, dev, sink)
+
+
+def run_tpx_wire(libs: dict, outs: tuple, desc: np.ndarray, freqs: np.ndarray, bits: int, dev: torch.device,
+                 sink) -> None:
+    """The tpx wire writer of each tree on this checkout's encode outputs:
+    one launch of `hsr_tpx_wire`, or a tree's concat once a mega, whose
+    rectangular streams the host then gathered (`ops/tpx.py::_write_mega`)
+    into the same sections."""
+    from hsrans_tpu_torch.kernels import tpx_encode as enc
+    from hsrans_tpu_torch.ops.tpx import _write_mega
+
+    cs = torch.cuda.current_stream(dev).cuda_stream
+    head = chip_smoke.HEAD_U16
+    views = enc.mega_views(*outs, desc)
+    row_words = torch.cat([c.sum(dim=2).reshape(-1) for _, c, _ in views]).cpu().numpy()
+    wdesc, row_at, out_u16 = enc.wire_layout(desc, row_words, v3=False, base=head)
+    freqs_t = torch.from_numpy(freqs.view(np.int16)).to(dev)
+    want = enc.write_wire_plain(*outs, freqs_t, wdesc, row_at, v3=False, out_u16=out_u16)
+    wdesc_t, row_at_t = torch.from_numpy(wdesc).to(dev), torch.from_numpy(row_at).to(dev)
+    w_slots = wdesc[:, enc.WIRE_FIELDS.index("w_slots")].tolist()
+    rects = {k: [torch.empty((t, r, w), dtype=torch.int32, device=dev) for (t, r), w in
+                 zip(desc[:, [3, 1]].tolist(), w_slots)] for k in libs}
+    wires = {k: torch.empty(out_u16, dtype=torch.int16, device=dev) for k in libs}
+
+    def write(k: str) -> None:
+        lib = libs[k]
+        if hasattr(lib, "hsr_tpx_wire"):
+            rc = lib.hsr_tpx_wire(*(t.data_ptr() for t in outs), freqs_t.data_ptr(), wdesc_t.data_ptr(), len(wdesc),
+                                  enc.wire_ctas(wdesc), row_at_t.data_ptr(), wires[k].data_ptr(), out_u16, 0, cs)
+        else:
+            for (win, cnt, _), rect, (_, rows, steps, n_tiles, *_) in zip(views, rects[k], desc.tolist()):
+                rc = lib.hsr_tpx_concat(win.data_ptr(), cnt.data_ptr(), rect.data_ptr(), rows, steps, n_tiles,
+                                        rect.shape[2], cs)
+                if rc:
+                    break
+        if rc:
+            raise RuntimeError(f"{k} tpx wire: CUDA error {rc}")
+
+    for k in libs:
+        write(k)
+    torch.cuda.synchronize()
+    for k, lib in libs.items():
+        if hasattr(lib, "hsr_tpx_wire"):
+            got = wires[k].view(torch.uint8)[2 * head :].cpu().numpy().tobytes()
+        else:
+            sections = bytearray()
+            for (_, c, st), rect, (_, _, _, n_tiles, _, tab0, *_) in zip(views, rects[k], desc.tolist()):
+                _write_mega(sections, n_tiles, rect.shape[2], st.cpu().numpy().view(np.uint32), freqs[tab0 : tab0 + n_tiles],
+                            c.sum(dim=2).cpu().numpy().astype(np.uint16), rect.cpu().numpy().view(np.uint32))
+            got = bytes(sections)
+        if got != want[2 * head :].cpu().numpy().tobytes():
+            raise AssertionError(f"{k} tpx wire, B={bits}: differs from the plain version")
+    sink({"kernel": "tpx_concat", "case": "text 64 MiB main path", "bits": bits, "megas": len(desc),
+          "launches": {k: 1 if hasattr(lib, "hsr_tpx_wire") else len(desc) for k, lib in libs.items()},
+          **in_turns({k: (lambda k=k: write(k)) for k in libs}, 1)})
 
 
 def run(libs: dict, dev: torch.device, sink) -> None:
@@ -195,7 +261,7 @@ def run(libs: dict, dev: torch.device, sink) -> None:
               **in_turns({k: (lambda k=k: decode(k)) for k in libs}, int(index[:, 4].max()))})
 
     magic = mte.magic_tensor(dev)
-    for name, bits, n, rule, (data, index, freqs) in encode_cases(dev):
+    for name, bits, n, rule, (data, index, freqs), layout in encode_cases(dev):
         nb, cap = index.shape[0], int(index[-1, 4])
         outs = {k: (torch.zeros(cap, dtype=torch.int16, device=dev), torch.empty(nb, dtype=torch.int64, device=dev),
                     torch.empty((nb, n), dtype=torch.int32, device=dev)) for k in libs}
@@ -219,6 +285,51 @@ def run(libs: dict, dev: torch.device, sink) -> None:
                 raise AssertionError(f"{k} mt encode, {name}: differs from the plain version")
         sink({"kernel": "mt_encode", "case": name, "bits": bits, "n": n, "rule": rule, "blocks": nb,
               **in_turns({k: (lambda k=k: encode(k)) for k in libs}, int(index[:, 1].max()))})
+        run_mt_place(libs, name, want, index, freqs, layout, n, data.numel(), dev, sink)
+
+
+def run_mt_place(libs: dict, name: str, outs: tuple, index: torch.Tensor, freqs: torch.Tensor, layout: tuple, n: int,
+                 length: int, dev: torch.device, sink) -> None:
+    """The mt placement of each tree on the encode's outputs `outs`: one
+    launch of `hsr_mt_wire` writing the whole blob, or a tree's placement
+    of the coded parts alone, the head and indicators then written as its
+    host wrote them."""
+    from hsrans_tpu_torch.kernels import mt_encode as mte
+
+    cs = torch.cuda.current_stream(dev).cuda_stream
+    words, count, fin = outs
+    plan, kinds, ks, bias = layout
+    place, out_u16 = mte.part_layout(plan, kinds, ks, bias, count.cpu().numpy(), n, length)
+    coded = place[:, 2] >= 0
+    old_place = torch.from_numpy(np.ascontiguousarray(place[coded][:, [0, 1, 3]])).to(dev)
+    place_t = torch.from_numpy(place).to(dev)
+    want = mte.place_blocks_plain(words, index, count, fin, freqs, place_t, n=n, out_u16=out_u16)
+    blobs = {k: torch.zeros(out_u16, dtype=torch.int16, device=dev) for k in libs}
+    nb = index.shape[0]
+
+    def write(k: str) -> None:
+        lib = libs[k]
+        if hasattr(lib, "hsr_mt_wire"):
+            rc = lib.hsr_mt_wire(words.data_ptr(), index.data_ptr(), count.data_ptr(), fin.data_ptr(), freqs.data_ptr(),
+                                 nb, place_t.data_ptr(), len(place), blobs[k].data_ptr(), n, words.numel(), out_u16, cs)
+        else:
+            rc = lib.hsr_mt_place(words.data_ptr(), index.data_ptr(), count.data_ptr(), fin.data_ptr(), freqs.data_ptr(),
+                                  old_place.data_ptr(), blobs[k].data_ptr(), nb, n, words.numel(), out_u16, cs)
+        if rc:
+            raise RuntimeError(f"{k} mt place, {name}: CUDA error {rc}")
+
+    for k in libs:
+        write(k)
+    torch.cuda.synchronize()
+    literal = torch.from_numpy(2 * place[~coded][:, :1] + np.arange(8)).to(dev).reshape(-1)
+    for k, lib in libs.items():
+        got = blobs[k].view(torch.uint8)
+        if not hasattr(lib, "hsr_mt_wire"):
+            got[literal] = want[literal]  # the head and indicators, which that tree's host wrote
+        if not torch.equal(got, want):
+            raise AssertionError(f"{k} mt place, {name}: differs from the plain version")
+    sink({"kernel": "mt_place", "case": name, "n": n, "blocks": nb, "parts": len(place),
+          **in_turns({k: (lambda k=k: write(k)) for k in libs}, 1)})
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -9,10 +9,11 @@ each kernel against its plain PyTorch version on the same CUDA tensors
 the port's two paths through their public entry points:
 
   * tpx: the round trip on 64 MiB of enwik8-like text at the full 1024-row
-    geometry (four megas: one encode launch and one decode launch, the
-    decode reading the ragged wire as it is), other depths, the v3 adaptive
-    wire, malformed blobs, and the decode kernel's ragged reads and window
-    at their edges (`TPX_DECODE_EDGES`, which the card tests run too);
+    geometry (four megas: one launch each of the encode, the wire writer,
+    which writes the blob's ragged sections on the card, and the decode,
+    which reads them as they are), other depths, the v3 adaptive wire,
+    malformed blobs, and the decode kernel's ragged reads and window at
+    their edges (`TPX_DECODE_EDGES`, which the card tests run too);
   * mt: decode of the C++ reference's mt wire on 64 MiB of x-ray
     (`device_plan` blocks, B=12, n=64), other depths, n=32, the reference
     planner's blocks, odd tails, single-symbol runs and malformed blobs, on
@@ -25,16 +26,22 @@ the port's two paths through their public entry points:
   * mt encode: the same 64 MiB of x-ray and 64 MiB of enwik8-like text in
     uniform 4 KiB blocks encoded on the card and decoded on the card, other
     depths, n=32 (`mt_encode_device`), the reference planner's blocks, odd
-    tails, single-symbol runs and block sizes off the 64-byte grid;
+    tails, single-symbol runs and block sizes off the 64-byte grid, and
+    the reference planner's blocks (up to 2^25 bytes) on a homogeneous
+    input;
   * the mt decode and encode kernels' shared-memory windows at their edges
-    (`DECODE_EDGES`, `ENCODE_EDGES`, which the card tests run too);
+    (`DECODE_EDGES`, `ENCODE_EDGES`), and the two wire writers, tpx and
+    mt, at theirs (`TPX_WIRE_EDGES`, `MT_PLACE_EDGES`), which the card tests
+    run too;
 
 and times the kernels and the paths with CUDA events and the host clock.
-The tpx decode and encode kernels and the mt decode and encode kernels are
-timed twice: through their wrappers (`ms`, which allocate and zero their
-outputs) and by their launch alone on outputs allocated once (`launch_ms`,
-and `link_us`, that over the chain's links: a tpx row's 4 tiles x 32 steps,
-an mt block's groups).
+The tpx and mt decode and encode kernels and the two wire writers are
+timed twice: through their wrappers (`ms`, which allocate their outputs)
+and by their launch alone on outputs allocated once (`launch_ms`; for the
+chains also `link_us`, that over the chain's links: a tpx row's 4 tiles x
+32 steps, an mt block's groups).  The wire writers' launches alone also
+write into outputs filled with 0xAA first, to show that they write every
+byte.
 Every blob the card writes must equal the port's CPU tier (the kernels'
 plain versions, which the CPU tests hold byte-equal to the JAX package) and
 decode back to its input.
@@ -61,6 +68,7 @@ import numpy as np
 import torch
 
 MIB = 1 << 20
+HEAD_U16 = 22  # the tpx blob's 44-byte header, which the wire writer's sections follow
 GEOM = {"rows": 1024, "steps": 32, "n_tiles": 4}  # the default megablock (ops/tpx.py R, S, T)
 KERNELS = {
     "tpx_decode": ("hsrans_tpu_torch/csrc/tpx_decode.cu", "hsrans_tpu/kernels/tpx_decode.py:41"),
@@ -183,9 +191,9 @@ def max_abs_err(got, want) -> int:
 def kernels_vs_plain(bits: int, data: np.ndarray, dev: torch.device) -> dict:
     """Each tpx kernel against its plain version on the same CUDA tensors of
     the main path's call: every mega of `data` at the default geometry in
-    one launch of the encode and one of the decode (the concat once a mega,
-    each timed and bounded per launch); times both, and the encode's and
-    the decode's launch alone on outputs allocated once."""
+    one launch of the encode, one of the wire writer and one of the decode;
+    times each through its wrapper and by its launch alone on outputs
+    allocated once."""
     from hsrans_tpu_torch import tpx_encode_torch
     from hsrans_tpu_torch.kernels import tpx_decode as dec
     from hsrans_tpu_torch.kernels import tpx_encode as enc
@@ -193,7 +201,7 @@ def kernels_vs_plain(bits: int, data: np.ndarray, dev: torch.device) -> dict:
 
     p = TpxParams(bits=bits)
     geoms = [(base, p.rows, p.steps, n_tiles, valid) for base, n_tiles, valid in _mega_layout(data.size, p)]
-    desc, _, tabs = enc.mega_operands(data, geoms, bits=bits)
+    desc, freqs, tabs = enc.mega_operands(data, geoms, bits=bits)
     data_t = torch.from_numpy(data).to(dev)
     ops = [torch.from_numpy(tabs[k]).to(dev) for k in ("fc", "m", "l")]
     res = {}
@@ -222,27 +230,36 @@ def kernels_vs_plain(bits: int, data: np.ndarray, dev: torch.device) -> dict:
     n_valid = int(desc[:, enc.ENCODE_FIELDS.index("vlen")].sum())
     eouts = tuple(torch.empty_like(t) for t in enc.encode_mega_cuda(data_t, desc, *ops, bits=bits))
     desc_t = torch.from_numpy(desc).to(dev)
-    # the encode writes, and the concat reads, only the emitted u32 words of each padded window
+    # the encode writes, and the wire writer reads, only the emitted u32 words of each padded window
     outs = check(
         "tpx_encode", lambda: enc.encode_mega_cuda(data_t, desc, *ops, bits=bits),
         lambda: enc.encode_mega_plain(data_t, desc, *ops, bits=bits),
         lambda got: nbytes(data_t, *ops, got[1], got[2]) + 4 * int(got[1].sum()), OPS_PER_SYMBOL["encode"] * n_valid,
         launch=lambda: enc.launch_encode(data_t, desc_t, *ops, *eouts, bits=bits, ctas=enc.ctas_of(desc)),
     )
-    views = enc.mega_views(*outs, desc)
-    w_slots = [enc.wire_w_slots(int(cnt.sum(dim=2).max())) for _, cnt, _ in views]
-    cnts = [cnt for _, cnt, _ in views]
+    # the wire writer behind the blob's 44-byte header, as tpx_encode_torch
+    # calls it: it reads the kept words' u32s, the counts, states, freqs and
+    # the layout, and writes the sections
+    row_words = torch.cat([c.sum(dim=2).reshape(-1) for _, c, _ in enc.mega_views(*outs, desc)]).cpu().numpy()
+    wdesc, row_at, out_u16 = enc.wire_layout(desc, row_words, v3=False, base=HEAD_U16)
+    wargs, wkw = (*outs, torch.from_numpy(freqs.view(np.int16)).to(dev), wdesc, row_at), {"v3": False, "out_u16": out_u16}
+    wout = torch.empty(out_u16, dtype=torch.int16, device=dev)
+    wlaunch = wire_launch(wargs, wkw, wout, dev)
     check(
-        "tpx_concat", lambda: tuple(enc.concat_cuda(win, cnt, w) for (win, cnt, _), w in zip(views, w_slots)),
-        lambda: tuple(enc.concat_plain(win, cnt, w) for (win, cnt, _), w in zip(views, w_slots)),
-        lambda got: sum(4 * int(c.sum()) + nbytes(c, g) for c, g in zip(cnts, got)), 0, per=len(views),
+        "tpx_concat", lambda: enc.write_wire_cuda(*wargs, **wkw)[2 * HEAD_U16 :],
+        lambda: enc.write_wire_plain(*wargs, **wkw)[2 * HEAD_U16 :],
+        lambda got: 4 * int(row_words.sum()) + nbytes(*outs[1:], wargs[3]) + row_at.nbytes + wdesc.nbytes + got.numel(),
+        0, launch=wlaunch,
     )
+    del res["tpx_concat"]["link_us"]  # the writer runs no chain
+    res["tpx_concat"]["every_byte_written"] = prefilled_equal(wlaunch, wout, enc.write_wire_plain(*wargs, **wkw), HEAD_U16)
+    w_slots = wdesc[:, enc.WIRE_FIELDS.index("w_slots")].tolist()
     blob = tpx_encode_torch(data, bits, device="cuda")
     args, kw = tpx_decode_args(blob, dev)
     blob_t, ddesc, *dops = args
     dout = torch.empty(kw["out_len"], dtype=torch.uint8, device=dev)
     ddesc_t = torch.from_numpy(ddesc).to(dev)
-    words = 2 * int(sum(c.sum() for c in cnts))  # the decode reads each row's words (u16), not the wire's rest
+    words = 2 * int(row_words.sum())  # the decode reads each row's words (u16), not the wire's rest
     out = check(
         "tpx_decode", lambda: dec.decode_mega_cuda(*args, **kw), lambda: dec.decode_mega_plain(*args, **kw),
         lambda got: words + nbytes(*dops) + data.size, OPS_PER_SYMBOL["decode"] * data.size,
@@ -252,6 +269,30 @@ def kernels_vs_plain(bits: int, data: np.ndarray, dev: torch.device) -> dict:
         raise AssertionError(f"B={bits}: the decode kernel does not return the encoded input")
     emit("kernels_vs_plain", bits=bits, bytes=data.size, megas=len(desc), geometry=GEOM, w_slots=w_slots, **res)
     return res
+
+
+def wire_launch(wargs: tuple, wkw: dict, out: torch.Tensor, dev: torch.device):
+    """The wire writer's launch alone into `out`, its layout on the card."""
+    from hsrans_tpu_torch.kernels import tpx_encode as enc
+
+    win, cnt, states, freqs, wdesc, row_at = wargs
+    wdesc_t, row_at_t = torch.from_numpy(wdesc).to(dev), torch.from_numpy(row_at).to(dev)
+    ctas = enc.wire_ctas(wdesc)
+    return lambda: enc.launch_wire(win, cnt, states, freqs, wdesc_t, row_at_t, out, v3=wkw["v3"], ctas=ctas)
+
+
+def prefilled_equal(launch, out: torch.Tensor, want: torch.Tensor, skip_u16: int) -> bool:
+    """`out` filled with the byte 0xAA, then one launch that writes it: from
+    u16 `skip_u16` on it must equal `want` (uint8), so the launch wrote
+    every byte there, and below it nothing."""
+    out.fill_(-0x5556)  # 0xAAAA
+    launch()
+    torch.cuda.synchronize()
+    got = out.view(torch.uint8)
+    err = max_abs_err(got[2 * skip_u16 :], want[2 * skip_u16 :])
+    if err or (got[: 2 * skip_u16] != 0xAA).any():
+        raise AssertionError(f"a launch into a 0xAA-filled output left a byte unwritten or wrote outside (err {err})")
+    return True
 
 
 def tpx_decode_args(blob: bytes, dev: torch.device, shift: int = 0) -> tuple[tuple, dict]:
@@ -596,14 +637,8 @@ def mt_encode_kernel_vs_plain(name: str, data: np.ndarray, plan, bits: int, n: i
         raise AssertionError(f"mt encode {name}: kernel differs from its plain version (max abs err {err})")
     words_t, count_t, fin_t = got
     count = count_t.cpu().numpy()
-    place, _, out_u16 = mte.part_layout(plan, kinds, ks, bias, count, n)
-    place_t = torch.from_numpy(place).to(dev)
-    pargs, pkw = (words_t, index_t, count_t, fin_t, freqs_t, place_t), {"n": n, "out_u16": out_u16}
-    blob_t = mte.place_blocks_cuda(*pargs, **pkw)
-    torch.cuda.synchronize()
-    perr = max_abs_err(blob_t, mte.place_blocks_plain(*pargs, **pkw))
-    if perr:
-        raise AssertionError(f"mt place {name}: kernel differs from its plain version (max abs err {perr})")
+    pargs, pkw = place_operands(plan, kinds, ks, bias, words_t, index_t, count_t, fin_t, freqs_t, n, data.size)
+    place = place_check(f"mt place {name}", pargs, pkw)
     coded_bytes = int(np.maximum(index[:, 2] - index[:, 0], 0).sum())
     words = 2 * int(count.sum())
     enc_moved = coded_bytes + nbytes(index_t, freqs_t, count_t, fin_t) + words
@@ -621,15 +656,89 @@ def mt_encode_kernel_vs_plain(name: str, data: np.ndarray, plan, bits: int, n: i
             "plain_ms": cuda_ms(lambda: mte.encode_blocks_plain(data_t, index_t, freqs_t, **kw), 1),
             **bound(enc_moved, OPS_PER_SYMBOL["encode"] * coded_bytes),
         },
-        "mt_place": {
-            "max_abs_err": perr,
-            "ms": cuda_ms(lambda: mte.place_blocks_cuda(*pargs, **pkw), 20, queue_ahead=True),
-            "ms_host_paced": cuda_ms(lambda: mte.place_blocks_cuda(*pargs, **pkw), 20),
-            "plain_ms": cuda_ms(lambda: mte.place_blocks_plain(*pargs, **pkw), 1),
-            **bound(words + nbytes(index_t, count_t, fin_t, freqs_t, place_t, blob_t), 0),
-        },
+        "mt_place": place,
     }
     emit("mt_encode_kernels_vs_plain", **res)
+    return res
+
+
+def mt_planner_blocks(dev: torch.device) -> dict:
+    """The reference planner's largest block on a homogeneous input: 64 MiB
+    of independent bytes of one Zipf distribution (seed 8), which
+    `plan_blocks_mt` cuts into blocks up to its 2^25-byte cap.  The encode
+    kernel's launch alone on that plan (one chain of 512 Ki groups for the
+    largest block), the placement against its plain version and timed, and
+    `mt_encode_torch` end to end, its blob decoded on the card back to the
+    input.  The encode's plain version would walk those groups one at a
+    time, so the decode holds the encode here."""
+    from hsrans_tpu_torch import mt_decode_torch, mt_encode_torch
+    from hsrans_tpu_torch.kernels import mt_encode as mte
+    from hsrans_tpu_torch.ops.planner import plan_blocks_mt
+
+    zipf = 1.0 / np.arange(1, 257)
+    data = np.random.default_rng(8).choice(256, size=64 * MIB, p=zipf / zipf.sum()).astype(np.uint8)
+    t0 = time.perf_counter()
+    plan = plan_blocks_mt(data, 12, 64)
+    plan_s = time.perf_counter() - t0
+    kinds, ks, index, freqs, bias = mte.plan_operands(data, plan, 12, 64, "groups")
+    data_t = torch.from_numpy(data).to(dev)
+    index_t, freqs_t = torch.from_numpy(index).to(dev), torch.from_numpy(freqs.view(np.int16)).to(dev)
+    kw = {"bits": 12, "n": 64, "rule": "groups", "words_cap": int(index[-1, 4])}
+    outs = mte.encode_blocks_cuda(data_t, index_t, freqs_t, **kw)
+    max_groups = int(index[:, 1].max())
+    encode = launch_times(lambda: mte.launch_encode(data_t, index_t, freqs_t, *outs, bits=12, n=64, rule="groups"),
+                          max_groups)
+    pargs, pkw = place_operands(plan, kinds, ks, bias, *outs[:1], index_t, *outs[1:], freqs_t, 64, data.size)
+    place = place_check("mt place, the reference planner's blocks", pargs, pkw)
+    blob = mt_encode_torch(data, 12, plan=plan, device="cuda")
+    if mt_decode_torch(blob, 12, 64, device="cuda") != data.tobytes():
+        raise AssertionError("mt encode, the reference planner's blocks: decode on the card does not return the input")
+    enc_s = host_s(lambda: mt_encode_torch(data, 12, plan=plan, device="cuda"), 3)
+    res = {"bytes": data.size, "blocks": len(plan), "block_sizes": [r.size for r in plan], "max_groups": max_groups,
+           "plan_s": plan_s, "ratio": len(blob) / data.size, "mt_encode": encode, "mt_place": place,
+           "encode_s": enc_s, "encode_MiBps": data.size / MIB / statistics.median(enc_s)}
+    emit("mt_encode_planner_blocks", **res)
+    return res
+
+
+def place_operands(plan, kinds, ks, bias, words_t, index_t, count_t, fin_t, freqs_t, n: int, length: int):
+    """The placement kernel's operands and keywords for the encode's outputs
+    on `plan`, as `encode_plan` lays the blob out."""
+    from hsrans_tpu_torch.kernels import mt_encode as mte
+
+    place, out_u16 = mte.part_layout(plan, kinds, ks, bias, count_t.cpu().numpy(), n, length)
+    place_t = torch.from_numpy(place).to(words_t.device)
+    return (words_t, index_t, count_t, fin_t, freqs_t, place_t), {"n": n, "out_u16": out_u16}
+
+
+def place_check(name: str, pargs: tuple, pkw: dict, timed: bool = True) -> dict:
+    """The placement kernel against its plain version, through its wrapper
+    and by its launch alone into a 0xAA-filled blob (every byte written);
+    with `timed`, the times of both and the launch alone, and the bound:
+    the words (2 bytes each), the operands and the blob."""
+    from hsrans_tpu_torch.kernels import mt_encode as mte
+
+    words_t, index_t, count_t, fin_t, freqs_t, place_t = pargs
+    n = pkw["n"]
+    got = mte.place_blocks_cuda(*pargs, **pkw)
+    torch.cuda.synchronize()
+    want = mte.place_blocks_plain(*pargs, **pkw)
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"{name}: kernel differs from its plain version (max abs err {err})")
+    out = torch.empty(pkw["out_u16"], dtype=torch.int16, device=words_t.device)
+    launch = lambda: mte.launch_place(*pargs, out, n=n)  # noqa: E731
+    res = {"max_abs_err": err, "every_byte_written": prefilled_equal(launch, out, want, 0)}
+    if timed:
+        words = 2 * int(count_t.sum())
+        res |= {
+            "ms": cuda_ms(lambda: mte.place_blocks_cuda(*pargs, **pkw), 20, queue_ahead=True),
+            "launch_ms": cuda_ms(launch, 20, queue_ahead=True),
+            "ms_host_paced": cuda_ms(lambda: mte.place_blocks_cuda(*pargs, **pkw), 20),
+            "plain_ms": cuda_ms(lambda: mte.place_blocks_plain(*pargs, **pkw), 1),
+            "parts": int(place_t.shape[0]),
+            **bound(words + nbytes(index_t, count_t, fin_t, freqs_t, place_t, got), 0),
+        }
     return res
 
 
@@ -651,7 +760,8 @@ def mt_encode_phases(repo: Path, dev: torch.device, ctx: dict) -> tuple[list[dic
     text64 = text_like(np.random.default_rng(8), 64 * MIB)
 
     # 1. the kernels against their plain versions: the main path (a)'s own
-    #    launch, 8 MiB x-ray classes, uniform 4 KiB blocks and (b)'s launch
+    #    launch, 8 MiB x-ray classes, uniform 4 KiB blocks and (b)'s launch;
+    #    then the reference planner's largest block
     rows = [mt_encode_kernel_vs_plain("x-ray 64 MiB main path (a)", xray64, plan64, 12, 64, "groups", dev)]
     for bits, n in ((12, 64), (15, 64), (12, 32)):
         rule = "groups" if n == 64 else "section"  # n=32 runs through mt_encode_device
@@ -661,6 +771,7 @@ def mt_encode_phases(repo: Path, dev: torch.device, ctx: dict) -> tuple[list[dic
                                           "groups", dev))
     rows.append(mt_encode_kernel_vs_plain("text 64 MiB main path (b)", text64, uniform_rows(text64.size, 4096), 12, 64,
                                           "groups", dev))
+    mt_planner_blocks(dev)
 
     # 2. the main path: (a) 64 MiB x-ray, device_plan 24 KiB, and (b) 64 MiB
     #    enwik8-like text in uniform 4 KiB blocks (mt64_encode_tpu's
@@ -934,6 +1045,136 @@ def mt_window_edges(dev: torch.device) -> dict[str, list[dict]]:
     return rows
 
 
+# the cases that hold the two wire writers at their edges
+# (tests/test_torch_cuda_kernels.py runs them too): the tpx wire writer on
+# random windows and counts, the mt placement at n=32 and 64
+TPX_WIRE_EDGES = ("sections at every even 16-byte phase", "rows with no words and rows of every word",
+                  "one mega of one tile")
+MT_PLACE_EDGES = ("parts at every u16 phase", "one 1 MiB block")
+
+
+def tpx_wire_edge_operands(case: str, dev: torch.device) -> list[tuple[str, tuple, dict, int]]:
+    """(name, wire writer operands, keywords, the u16 its sections start
+    at) of one TPX_WIRE_EDGES case, on random windows, counts, states and
+    freqs (the writer copies what the windows hold, so a word past its
+    step's count must not reach the wire).  Phases: v3 megas of 13 rows × 8
+    steps, 40 × 4 and 5 × 36 (two pieces of steps), the sections from the
+    header's end and 1..7 u16 past it.  No words and every word: rows whose
+    counts are all 0 or all 128 (4,096 words, 2,048 slots at 32 steps).  One
+    mega of one tile: 13 rows × 32 steps, v2."""
+    from hsrans_tpu_torch.kernels import tpx_encode as enc
+
+    rng = np.random.default_rng(len(case))
+    geom, v3 = {
+        "sections at every even 16-byte phase": ([(13, 8, 2), (40, 4, 1), (5, 36, 1)], True),
+        "rows with no words and rows of every word": ([(37, 32, 2), (8, 4, 3)], True),
+        "one mega of one tile": ([(13, 32, 1)], False),
+    }[case]
+    desc, cnt_off, state0, tab0 = [], 0, 0, 0
+    for rows, steps, n_tiles in geom:
+        desc.append((0, rows, steps, n_tiles, 0, tab0, 0, cnt_off, state0))
+        cnt_off, state0, tab0 = cnt_off + n_tiles * rows * steps, state0 + rows, tab0 + n_tiles
+    desc = np.array(desc, np.int64)
+    cnt = rng.integers(0, 129, cnt_off).astype(np.int32)
+    if case == "rows with no words and rows of every word":
+        rows_cnt = cnt[: 2 * 37 * 32].reshape(-1, 32)
+        rows_cnt[::3] = 0
+        rows_cnt[1::3] = 128
+    win = rng.integers(-(1 << 31), 1 << 31, cnt_off * 128).astype(np.int32)
+    states = rng.integers(-(1 << 31), 1 << 31, state0 * 128).astype(np.int32)
+    freqs = rng.integers(-(1 << 15), 1 << 15, (tab0, 256)).astype(np.int16)
+    row_words = np.concatenate([cnt[o : o + t * r * s].reshape(-1, s).sum(axis=1)
+                                for (_, r, s, t, _, _, _, o, _) in desc.tolist()]).astype(np.int64)
+    ops = tuple(torch.from_numpy(a).to(dev) for a in (win, cnt, states, freqs))
+    out = []
+    for shift in range(8) if case.startswith("sections") else (0,):
+        wdesc, row_at, out_u16 = enc.wire_layout(desc, row_words, v3=v3, base=HEAD_U16 + shift)
+        out.append((f"shift {shift}", (*ops, wdesc, row_at), {"v3": v3, "out_u16": out_u16}, HEAD_U16 + shift))
+    return out
+
+
+def place_edge_operands(case: str, n: int, dev: torch.device) -> list[tuple[str, tuple, dict]]:
+    """(name, placement operands, keywords) of one MT_PLACE_EDGES case.
+    Phases: 600 coded blocks of random regions (the scratch ends at an odd
+    u16) and word counts, single-symbol rows between them, random words,
+    states and freqs, so that a part's words and their source in the
+    scratch meet at each of the 64 pairs of u16 phases.  One 1 MiB block:
+    ENCODE_EDGES' case (1 MiB + 3,001 bytes in two blocks) encoded by the
+    kernel, under both rules: a part of 16 chunks and more."""
+    from hsrans_tpu_torch.kernels import mt_encode as mte
+    from hsrans_tpu_torch.ops.planner import BlockPlan
+
+    if case == "one 1 MiB block":
+        out = []
+        for rule in ("groups", "section"):
+            ((_, (data, index, freqs), kw),) = encode_edge_operands(case, n, rule, dev)
+            outs = mte.encode_blocks_cuda(data, index, freqs, **kw)
+            ix = index.cpu().numpy()
+            plan = [BlockPlan(int(a), int(c - a), False, 0, None) for a, c in ix[:, [0, 2]]]
+            nb = len(plan)
+            kinds, ks, bias = np.full(nb, 2, np.int8), np.arange(nb), np.array([1] * (nb - 1) + [2])
+            out.append((rule, *place_operands(plan, kinds, ks, bias, outs[0], index, *outs[1:], freqs, n, int(ix[-1, 2]))))
+        return out
+    rng = np.random.default_rng(n)
+    nb = 600
+    region = rng.integers(1, 3000, nb)
+    region[-1] |= 1  # the scratch ends at an odd u16
+    count = np.minimum(rng.integers(0, 3000, nb), region)
+    count[-1] = region[-1]  # the last block's words end at the scratch's end
+    count[::50] = 0
+    end = np.cumsum(region)
+    index = np.zeros((nb, 5), np.int64)
+    index[:, 4] = end
+    plan, kinds, ks = [], [], []
+    for b in range(nb):
+        if b % 7 == 3:
+            plan.append(BlockPlan(0, 4096, True, b % 256, None))
+            kinds.append(1)
+        plan.append(BlockPlan(0, int(count[b]) * 2 + 1, False, 0, None))
+        kinds.append(2)
+        ks.append(len(plan) - 1)
+    ops = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(-(1 << 15), 1 << 15, int(end[-1])).astype(np.int16), index, count,
+        rng.integers(-(1 << 31), 1 << 31, (nb, n)).astype(np.int32),
+        rng.integers(-(1 << 15), 1 << 15, (nb, 256)).astype(np.int16))]
+    bias = np.where(np.arange(nb) == nb - 1, 2, 1)
+    pargs, pkw = place_operands(plan, np.array(kinds, np.int8), np.array(ks), bias, *ops, n, 123_456_789)
+    dest = pargs[5][:, 0].cpu().numpy()[2:][pargs[5][2:, 2].cpu().numpy() >= 0] + mte.coded_header_u16(n)
+    pairs = {(int(d) % 8, int(e - c) % 8) for d, e, c in zip(dest, end, count)}
+    if len(pairs) != 64:
+        raise AssertionError(f"place edges: {len(pairs)} of the 64 phase pairs")
+    return [("phases", pargs, pkw)]
+
+
+def wire_edges(dev: torch.device) -> dict[str, list[dict]]:
+    """The tpx wire writer and the mt placement against their plain
+    versions on TPX_WIRE_EDGES and MT_PLACE_EDGES, exact, each also
+    launched alone into a 0xAA-filled output: every byte of the sections
+    (the blob) written, none below them."""
+    from hsrans_tpu_torch.kernels import tpx_encode as enc
+
+    rows: dict[str, list[dict]] = {"tpx_concat": [], "mt_place": []}
+    for case in TPX_WIRE_EDGES:
+        for name, wargs, wkw, base in tpx_wire_edge_operands(case, dev):
+            got = enc.write_wire_cuda(*wargs, **wkw)
+            torch.cuda.synchronize()
+            want = enc.write_wire_plain(*wargs, **wkw)
+            err = max_abs_err(got[2 * base :], want[2 * base :])
+            if err:
+                raise AssertionError(f"tpx wire {case}, {name}: kernel differs (max abs err {err})")
+            out = torch.empty(wkw["out_u16"], dtype=torch.int16, device=dev)
+            prefilled_equal(wire_launch(wargs, wkw, out, dev), out, want, base)
+            rows["tpx_concat"].append({"case": case, "sub": name, "max_abs_err": err})
+    for case in MT_PLACE_EDGES:
+        for n in (32, 64):
+            for name, pargs, pkw in place_edge_operands(case, n, dev):
+                res = place_check(f"mt place {case}, {name}, n={n}", pargs, pkw, timed=False)
+                rows["mt_place"].append({"case": case, "sub": name, "n": n, **res})
+    emit("wire_edges", tpx_cases=len(rows["tpx_concat"]), mt_cases=len(rows["mt_place"]),
+         max_abs_err=max(r["max_abs_err"] for r in rows["tpx_concat"] + rows["mt_place"]))
+    return rows
+
+
 def main() -> int:
     global CARD, OPS_PER_S
     if not torch.cuda.is_available():
@@ -984,8 +1225,8 @@ def main() -> int:
     launches = {k: build.LAUNCHES[k] for k in ("tpx_decode", "tpx_encode", "tpx_concat")}
     if back != data.tobytes():
         raise AssertionError("64 MiB: tpx_decode_torch does not return the input")
-    if launches != {"tpx_decode": 1, "tpx_encode": 1, "tpx_concat": 4}:
-        raise AssertionError(f"the main path's launches {launches}: one decode, one encode and a concat a mega expected")
+    if launches != {"tpx_decode": 1, "tpx_encode": 1, "tpx_concat": 1}:
+        raise AssertionError(f"the main path's launches {launches}: one decode, one encode and one wire writer expected")
     t0 = time.perf_counter()
     if blob != tpx_encode_torch(data, 12, device="cpu"):
         raise AssertionError("64 MiB: the card's blob differs from the CPU tier's")
@@ -1057,6 +1298,10 @@ def main() -> int:
     #     plain versions
     edge_rows = mt_window_edges(dev)
 
+    # 11. the tpx wire writer and the mt placement at their edges, against
+    #     the plain versions, every byte written
+    wire_rows = wire_edges(dev)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsrans_tpu"))
     if foreign:
         raise AssertionError(f"the run loaded modules of JAX or of the JAX package: {foreign}")
@@ -1065,8 +1310,7 @@ def main() -> int:
     summary = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     for name, (source, replaces) in KERNELS.items():
-        # each timed at its main path's launch: the 64 MiB B=12 call (tpx;
-        # the concat per launch, one a mega),
+        # each timed at its main path's launch: the 64 MiB B=12 call (tpx),
         # the 64 MiB x-ray n=64 B=12 device_plan blob (mt decode, both
         # routes) and plan (mt encode)
         if name == "mt_decode":
@@ -1078,16 +1322,14 @@ def main() -> int:
         elif name in enc_launches:
             row = {"launches": enc_launches[name], "max_abs_err": max(r[name]["max_abs_err"] for r in enc_rows),
                    **{k: enc_rows[0][name][k] for k in keys}}
-            if name == "mt_encode":
-                row["max_abs_err"] = max(row["max_abs_err"], *(r["max_abs_err"] for r in edge_rows["mt_encode"]))
-                row |= {k: enc_rows[0][name][k] for k in ("launch_ms", "link_us")}
+            edges = edge_rows["mt_encode"] if name == "mt_encode" else wire_rows["mt_place"]
+            row["max_abs_err"] = max([row["max_abs_err"], *(r["max_abs_err"] for r in edges)])
+            row |= {k: enc_rows[0][name][k] for k in ("launch_ms", "link_us") if k in enc_rows[0][name]}
         else:
             row = {"launches": launches[name], "max_abs_err": max(per_bits[b][name]["max_abs_err"] for b in per_bits),
-                   **{k: per_bits[12][name][k] for k in keys}}
-            if name in ("tpx_decode", "tpx_encode"):
-                row |= {k: per_bits[12][name][k] for k in ("launch_ms", "link_us")}
-            if name == "tpx_decode":
-                row["max_abs_err"] = max(row["max_abs_err"], *(r["max_abs_err"] for r in tpx_edge_rows))
+                   **{k: per_bits[12][name][k] for k in (*keys, "launch_ms", "link_us") if k in per_bits[12][name]}}
+            edges = {"tpx_decode": tpx_edge_rows, "tpx_concat": wire_rows["tpx_concat"]}.get(name, [])
+            row["max_abs_err"] = max([row["max_abs_err"], *(r["max_abs_err"] for r in edges)])
         # no single PyTorch call runs a rANS state chain or writes the wire's layout
         summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, **row, "library_ms": None})
     print(json.dumps({"kernels": summary}))

@@ -62,10 +62,27 @@
 // host route of mt64_encode_tpu: valid up to the input's end;
 // mt_encode_device: up to the block's end).
 //
-// Design (placement): one warp per coded block writes the block's whole part
-// of the blob (size, offset, n final states, 256 freqs, then its words) as
-// u16 stores at the part's offset, which the host computes from the counts.
-// Every part is a whole number of u16, so the blob is one u16 array.
+// Design (placement): the launch writes the whole blob, every u16 of it
+// once: its head (input length, blob bytes), and each plan row's part at the
+// u16 offset the host computes from the counts, a coded block's (size,
+// offset, n final states, 256 freqs, then its words) or a single-symbol
+// indicator.  Every part is a whole number of u16, so the blob is one u16
+// array.  The blob is cut into kChunkU16 chunks, one a warp, so the work is
+// the same for every warp whatever the blocks' sizes (the reference
+// planner's reach 2^25 bytes, one warp a block would copy 16 Mi words
+// alone).  A warp finds the part at its chunk's start by a 32-way search
+// over the parts' offsets (three rounds for 16 Ki parts), then takes the
+// parts it overlaps 32 at a time, each lane loading one part's row, so a
+// chunk of many small parts waits for one round of loads, not one a part.
+// A part's states, freqs and words are copies of rows that meet the part's
+// slots at any u16 phase: each 16-byte group of the chunk is built from
+// aligned loads of the source (realigned by a funnel shift where the two
+// phases differ by an odd u16) and written as one aligned 16-byte store;
+// the size and offset fields, indicators and the partial groups at a
+// copy's ends go u16 by u16.  Chunks of 4 KiB timed best over the plans
+// against 8 and 16 KiB (16 KiB won only on the largest blocks), and against
+// a lane building each 16-byte group on its own after finding its part in a
+// shared list (PERF.md).
 
 #include <climits>
 #include <cstdint>
@@ -90,10 +107,17 @@ struct EncIndex {
   long long in_start, num_groups, byte_limit, valid_limit, region_end;
 };
 
-// per-block placement row (int64): kernels/mt_encode.py::PLACE_FIELDS
+// per-part placement row (int64): kernels/mt_encode.py::PLACE_FIELDS.  The
+// part of coded block `block` when block >= 0 (value: its u64 size field;
+// bias: what its u64 offset field subtracts), else 8 literal bytes (value):
+// the blob's two head fields and each single-symbol indicator
 struct PlaceRow {
-  long long dest, size_field, offset_bias;
+  long long dest, value, block, bias;
 };
+
+// u16s of the blob one warp of the placement writes (4 KiB)
+constexpr int kChunkU16 = 2048;
+static_assert(kChunkU16 % 8 == 0, "a chunk is whole 16-byte groups");
 
 // idx2idx(32): lanes 8a + 4b + c -> byte 16b + 4a + c (hsrans_tpu/rans.py);
 // idx2idx(64) is idx2idx(32) on each half, the upper half offset by 32
@@ -266,6 +290,48 @@ mt_encode_kernel(const uint8_t* __restrict__ data,     // [data_len] the input
   if (j == 0) count[b] = ix.region_end - tail;
 }
 
+// out[x] = src[x + delta] for x in [a, b), the source inside [0, src_len):
+// the 16-byte groups of out wholly inside as one aligned store each, built
+// from aligned loads of the source (one 16-byte load where source and
+// destination share their phase, four u32 where they differ by an even
+// number of u16, five u32 and a funnel shift where by an odd one), the
+// partial groups at the two ends u16 by u16.  src and out are 16-byte
+// aligned.
+__device__ __forceinline__ void copy_u16(uint16_t* __restrict__ out, const uint16_t* __restrict__ src, long long a,
+                                         long long b, long long delta, long long src_len, int j) {
+  if (a >= b) return;
+  const int ph = static_cast<int>(delta & 7);
+  long long g0 = (a + 7) >> 3, g1 = b >> 3;  // whole groups [g0, g1)
+  if (ph & 1) {  // a group's fifth u32 holds the u16 after it, which must lie inside src
+    const long long lim = src_len - 9 - delta;
+    g1 = lim < 0 ? g0 : min(g1, (lim >> 3) + 1);
+  }
+  g1 = max(g1, g0);
+  const long long head_end = min(b, g0 << 3);
+  for (long long x = a + j; x < head_end; x += 32) out[x] = src[x + delta];
+  for (long long x = max(g1 << 3, head_end) + j; x < b; x += 32) out[x] = src[x + delta];
+  uint4* out4 = reinterpret_cast<uint4*>(out);
+  const uint32_t* w32 = reinterpret_cast<const uint32_t*>(src);
+  if (ph == 0) {
+#pragma unroll 4
+    for (long long g = g0 + j; g < g1; g += 32) out4[g] = reinterpret_cast<const uint4*>(src)[g + (delta >> 3)];
+  } else if ((ph & 1) == 0) {
+#pragma unroll 4
+    for (long long g = g0 + j; g < g1; g += 32) {
+      const uint32_t* q = w32 + (((g << 3) + delta) >> 1);
+      out4[g] = make_uint4(q[0], q[1], q[2], q[3]);
+    }
+  } else {
+#pragma unroll 4
+    for (long long g = g0 + j; g < g1; g += 32) {
+      const uint32_t* q = w32 + (((g << 3) + delta) >> 1);  // the u32 holding the group's first u16 in its high half
+      const uint32_t q0 = q[0], q1 = q[1], q2 = q[2], q3 = q[3], q4 = q[4];
+      out4[g] = make_uint4(__funnelshift_r(q0, q1, 16), __funnelshift_r(q1, q2, 16), __funnelshift_r(q2, q3, 16),
+                           __funnelshift_r(q3, q4, 16));
+    }
+  }
+}
+
 template <int K>
 __global__ void __launch_bounds__(kWarps * 32)
 mt_place_kernel(const uint16_t* __restrict__ words,    // [words_cap] the encode's scratch
@@ -273,36 +339,78 @@ mt_place_kernel(const uint16_t* __restrict__ words,    // [words_cap] the encode
                 const long long* __restrict__ count,   // [nb]
                 const uint32_t* __restrict__ fin,      // [nb, 32K]
                 const uint16_t* __restrict__ freqs,    // [nb, 256]
-                const PlaceRow* __restrict__ place,    // [nb]
+                int nb,
+                const PlaceRow* __restrict__ place,    // [n_rows] the blob's parts, dest ascending from 0
+                int n_rows,
                 uint16_t* __restrict__ out,            // [out_len] the blob as u16
-                int nb, long long words_cap, long long out_len) {
+                long long words_cap, long long out_len) {
   constexpr int n = 32 * K;
   constexpr int kHeader = 4 + 4 + 2 * n + 256;  // u16s of size, offset, states, freqs
   const int j = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= nb) return;
-  const PlaceRow p = place[b];
-  const long long w = count[b];
-  const long long src = index[b].region_end - w;
-  const unsigned long long offset = 2ull * n + 256 + w - p.offset_bias;
-  for (int i = j; i < kHeader; i += 32) {
-    uint32_t v;
-    if (i < 4) {
-      v = static_cast<uint32_t>(static_cast<unsigned long long>(p.size_field) >> (16 * i));
-    } else if (i < 8) {
-      v = static_cast<uint32_t>(offset >> (16 * (i - 4)));
-    } else if (i < 8 + 2 * n) {
-      v = fin[(size_t)b * n + ((i - 8) >> 1)] >> (16 * ((i - 8) & 1));
-    } else {
-      v = freqs[(size_t)b * 256 + (i - 8 - 2 * n)];
-    }
-    const long long at = p.dest + i;
-    if (at >= 0 && at < out_len) out[at] = static_cast<uint16_t>(v);
+  const long long lo = (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * kChunkU16;
+  if (lo >= out_len) return;  // warp-uniform
+  const long long hi = min(lo + kChunkU16, out_len);
+  // the last part that starts at or below lo, place[first].dest <= lo <
+  // place[top].dest: a 32-way search, each lane testing one row a round
+  int first = 0, top = n_rows;
+  while (top - first > 1) {
+    const int step = (top - first + 31) >> 5;
+    const int at = first + j * step;
+    const unsigned le = __ballot_sync(kFullMask, at < top && place[at].dest <= lo);  // lane 0's row is `first`
+    if (le == 0) break;  // no part starts at or below lo: a layout whose first part is not at 0
+    first += (31 - __clz(le)) * step;
+    top = min(top, first + step);
   }
-  for (long long i = j; i < w; i += 32) {
-    const long long at = p.dest + kHeader + i;
-    const long long from = src + i;
-    if (at >= 0 && at < out_len && from >= 0 && from < words_cap) out[at] = words[from];
+  // the parts from there, 32 at a time: each lane loads one part's row and
+  // its block's count and scratch region; a literal part (the head's two
+  // fields, an indicator) is written by its lane, a coded block's part by
+  // the whole warp, one after the other
+  for (int r0 = first; r0 < n_rows; r0 += 32) {
+    const int r = r0 + j;
+    PlaceRow p = {out_len, 0, -1, 0};
+    long long end = out_len, w = 0, src = 0;
+    if (r < n_rows) {
+      p = place[r];
+      end = r + 1 < n_rows ? place[r + 1].dest : out_len;  // the parts tile the blob
+      if (p.block >= 0 && p.block < nb) {
+        w = count[p.block];
+        src = index[p.block].region_end - w;
+      }
+    }
+    const bool coded = p.block >= 0 && p.block < nb;
+    if (p.dest < hi && !coded) {
+      for (long long x = max(lo, p.dest); x < min(hi, end); ++x) {
+        const long long off = x - p.dest;
+        out[x] = off < 4 ? static_cast<uint16_t>(static_cast<unsigned long long>(p.value) >> (16 * off)) : 0;
+      }
+    }
+    for (unsigned todo = __ballot_sync(kFullMask, p.dest < hi && coded); todo; todo &= todo - 1) {
+      const int k = __ffs(todo) - 1;
+      const long long dest = __shfl_sync(kFullMask, p.dest, k), pend = __shfl_sync(kFullMask, end, k);
+      const long long b = __shfl_sync(kFullMask, p.block, k), pw = __shfl_sync(kFullMask, w, k);
+      const long long psrc = __shfl_sync(kFullMask, src, k);
+      const long long size = __shfl_sync(kFullMask, p.value, k), bias = __shfl_sync(kFullMask, p.bias, k);
+      const long long a = max(lo, dest), e = min(hi, pend);
+      if (j < 8 && dest + j >= a && dest + j < e) {  // the u64 size and offset fields
+        const unsigned long long v = j < 4 ? static_cast<unsigned long long>(size) : 2ull * n + 256 + pw - bias;
+        out[dest + j] = static_cast<uint16_t>(v >> (16 * (j & 3)));
+      }
+      // the block's final states and freqs, copies of its rows
+      copy_u16(out, reinterpret_cast<const uint16_t*>(fin), max(a, dest + 8), min(e, dest + 8 + 2 * n),
+               2LL * n * b - (dest + 8), 2LL * n * nb, j);
+      copy_u16(out, freqs, max(a, dest + 8 + 2 * n), min(e, dest + kHeader), 256LL * b - (dest + 8 + 2 * n),
+               256LL * nb, j);
+      const long long wa = max(a, dest + kHeader);
+      if (psrc >= 0 && psrc + pw <= words_cap) {
+        copy_u16(out, words, wa, e, psrc - (dest + kHeader), words_cap, j);
+      } else {  // a count or region the scratch does not hold: its words read as 0 past it
+        for (long long x = wa + j; x < e; x += 32) {
+          const long long from = x - (dest + kHeader) + psrc;
+          out[x] = from >= 0 && from < words_cap ? words[from] : 0;
+        }
+      }
+    }
+    if (__any_sync(kFullMask, end >= hi)) break;  // the parts after this batch start at or past hi
   }
 }
 
@@ -331,13 +439,16 @@ extern "C" int hsr_mt_encode(const void* data, const void* index, const void* fr
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int hsr_mt_place(const void* words, const void* index, const void* count, const void* fin,
-                            const void* freqs, const void* place, void* out, int nb, int n, long long words_cap,
-                            long long out_len, void* cuda_stream) {
-  if (nb <= 0) return 0;
-  if (n != 32 && n != 64) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int hsr_mt_wire(const void* words, const void* index, const void* count, const void* fin,
+                           const void* freqs, int nb, const void* place, int n_rows, void* out, int n,
+                           long long words_cap, long long out_len, void* cuda_stream) {
+  if (n_rows <= 0 || out_len <= 0) return 0;
+  const bool aligned = (reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(words) |
+                        reinterpret_cast<uintptr_t>(fin) | reinterpret_cast<uintptr_t>(freqs)) % 16 == 0;
+  if ((n != 32 && n != 64) || !aligned) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
-  const int blocks = (nb + kWarps - 1) / kWarps;
+  const long long chunks = (out_len + kChunkU16 - 1) / kChunkU16;
+  const int blocks = static_cast<int>((chunks + kWarps - 1) / kWarps);
   const auto* wd = static_cast<const uint16_t*>(words);
   const auto* ix = static_cast<const EncIndex*>(index);
   const auto* ct = static_cast<const long long*>(count);
@@ -346,8 +457,8 @@ extern "C" int hsr_mt_place(const void* words, const void* index, const void* co
   const auto* pl = static_cast<const PlaceRow*>(place);
   auto* o = static_cast<uint16_t*>(out);
   if (n == 64)
-    mt_place_kernel<2><<<blocks, kWarps * 32, 0, cs>>>(wd, ix, ct, fs, fq, pl, o, nb, words_cap, out_len);
+    mt_place_kernel<2><<<blocks, kWarps * 32, 0, cs>>>(wd, ix, ct, fs, fq, nb, pl, n_rows, o, words_cap, out_len);
   else
-    mt_place_kernel<1><<<blocks, kWarps * 32, 0, cs>>>(wd, ix, ct, fs, fq, pl, o, nb, words_cap, out_len);
+    mt_place_kernel<1><<<blocks, kWarps * 32, 0, cs>>>(wd, ix, ct, fs, fq, nb, pl, n_rows, o, words_cap, out_len);
   return static_cast<int>(cudaGetLastError());
 }

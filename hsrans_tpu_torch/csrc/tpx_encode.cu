@@ -1,10 +1,12 @@
 // tpx encode on Hopper: the rANS state machine over every megablock of the
-// input in one launch, and the per-row stream concatenation, as two kernels.
+// input in one launch, then one launch that writes every megablock's wire
+// section.
 //
 // tpx_encode_kernel replaces hsrans_tpu/kernels/tpx_encode.py::_encode_kernel
-// (launched once a mega by _encode_mega); tpx_concat_kernel replaces
-// ::_concat_kernel (launched by _concat_mega), which the mt encoder reuses as
-// its phase B.
+// (launched once a mega by _encode_mega); tpx_wire_kernel replaces
+// ::_concat_kernel (launched by _concat_mega, which lays each row's words out
+// as a rectangular [T, R, Wcap] slot array) together with the host's
+// hsrans_tpu/ops/tpx.py::_write_mega, which gathers the ragged wire from it.
 //
 // What bounds them: the encode is a serial dependent chain per rANS state
 // (emit test -> shift -> divide by freq -> state update) over every step of
@@ -12,9 +14,9 @@
 // (the Pallas kernel's contract: the emitted words compacted, 0 past the
 // count): 4 bytes a coded byte, 256 MiB at 64 MiB of input, 0.080 ms at
 // 3.35 TB/s.  That write is its floor; the chains in flight and one link's
-// latency set the rest.  The concat is a copy of the emitted words (about 5
-// bytes read and 2 written per word kept), bounded by memory traffic and by
-// the serial walk over each row's steps.
+// latency set the rest.  The wire writer is a copy: 4 bytes read (the window
+// u32) and 2 written per word kept, plus the counts, states and freqs, about
+// 128 MB at 64 MiB of input, 0.038 ms; bound by memory traffic.
 //
 // Design (encode): one warp per tpx row, the same lane mapping as the decode
 // (thread j owns lanes j+32k), walking tiles, step groups and steps backward
@@ -39,13 +41,25 @@
 // 512-byte rows, 16 bytes a lane: stored straight from the lanes, a step's
 // window took eight partial, predicated stores.
 //
-// Design (concat): one warp per (tile, row).  It walks the row's steps in
-// order, keeping the running word offset (the exclusive prefix of the step
-// counts), and stores each word as one u16 at its offset of the row's
-// [2 * w_slots] u16 view — two words per u32 slot, low half first, exactly
-// the wire's slot layout — then zero-fills the rest of the row.  The 16-step
-// segmentation and chunk passes of the TPU kernel were Mosaic workarounds and
-// have no counterpart here.
+// Design (wire): the kernel writes the blob's sections in place, every byte
+// of them once, at the u16 offsets the host lays out from the rows' word
+// totals (kernels/tpx_encode.py::wire_layout): each mega's [rows | steps |]
+// n_tiles | w_slots, its states [R, 128], each tile's freqs and counts, then
+// each (tile, row)'s ceil(words / 2) u32 slots, rows back to back.  Sections
+// start at any even byte offset (a 13-row mega's ends at 2 mod 4), so the
+// blob is written as one u16 array.  One warp per (tile, row), all megas in
+// one launch (find_mega as above).  Lane s loads step s's count, a warp scan
+// gives each step's offset in the row, and the windows are read 8 steps at a
+// time, 16 bytes a lane and only where the lane's four words hold one the
+// step emitted (the padded windows hold about three times the words kept).
+// The low halves go into the warp's stage in shared memory at the row's
+// 16-byte phase, so the row leaves as aligned 16-byte stores with its two
+// partial end chunks written u16 by u16 (store_run); each word stored
+// straight from its lane as one u16 took 1.27x as long (PERF.md).  The row's
+// count, its tile's freqs (row 0's warp), its states (tile 0's warps,
+// through the same stage) and the section's head (the mega's first warp)
+// are written beside it.  The 16-step segmentation and chunk passes of the
+// TPU kernel were Mosaic workarounds and have no counterpart here.
 
 #include "tpx_common.cuh"
 
@@ -220,29 +234,134 @@ tpx_encode_kernel(const uint8_t* __restrict__ data,       // the whole input (4-
   }
 }
 
+// one megablock of the wire writer's launch: kernels/tpx_encode.py::WIRE_FIELDS
+struct WireMega {
+  long long cta0, rows, steps, n_tiles, cnt_off, state0, tab0, row0, sec_off, w_slots;
+};
+
+// a warp stages a row's words kPieceSteps steps at a time: at most 128 words
+// a step, the pad of an odd row and the run's 16-byte phase
+constexpr int kPieceSteps = 32;
+constexpr int kStageU16 = kPieceSteps * kLanes + 16;
+
+// out[at, at + len) = stage[ph, ph + len), ph = at % 8: the run's whole
+// 16-byte chunks one store each, the chunks at its two ends one u16 at a time
+// (their other u16s are a neighbour's); u16s at or past out_len are dropped
+__device__ __forceinline__ void store_run(uint16_t* __restrict__ out, long long at, const uint16_t* stage, int len,
+                                          long long out_len, int j) {
+  const int ph = static_cast<int>(at & 7);
+  uint16_t* base = out + (at - ph);  // 16-byte aligned: out is
+  const int end = ph + static_cast<int>(min(static_cast<long long>(len), out_len - at));
+  for (int c = j; c < (end + 7) >> 3; c += 32) {
+    const int lo = c << 3;
+    if (lo >= ph && lo + 8 <= end) {
+      reinterpret_cast<uint4*>(base)[c] = reinterpret_cast<const uint4*>(stage)[c];
+    } else {
+      for (int i = max(lo, ph); i < min(lo + 8, end); ++i) base[i] = stage[i];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kWarps * 32)
-tpx_concat_kernel(const uint32_t* __restrict__ win,  // [T, S, R, 128] per-step compacted words
-                  const uint32_t* __restrict__ cnt,  // [T, R, S] per-step word counts
-                  uint16_t* __restrict__ out,        // [T, R, 2 * w_slots] (the u32 slots as u16 pairs)
-                  int rows, int steps, int n_tiles, int w_slots) {
+tpx_wire_kernel(const uint32_t* __restrict__ win,      // per mega [T, S, R, 128] per-step compacted words
+                const uint32_t* __restrict__ cnt,      // per mega [T, R, S] per-step word counts
+                const uint32_t* __restrict__ states,   // per mega [R, 128] final states
+                const uint16_t* __restrict__ freqs,    // [sum tiles, 256] the wire freqs
+                const WireMega* __restrict__ desc,     // [n_megas]
+                int n_megas,
+                const long long* __restrict__ row_at,  // [sum T * R] u16 offset in out of each row's first slot
+                uint16_t* __restrict__ out,            // [out_len] the blob as u16, 16-byte aligned
+                long long out_len, int v3) {
+  __shared__ __align__(16) uint16_t stages[kWarps][kStageU16];
+  const int w = threadIdx.x >> 5;
   const int j = threadIdx.x & 31;
-  const long long g = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);  // = t * rows + r
-  if (g >= (long long)n_tiles * rows) return;
+  const WireMega md = desc[tpx::find_mega(desc, n_megas, blockIdx.x)];
+  const long long g = (blockIdx.x - md.cta0) * kWarps + w;  // = t * rows + r
+  if (g >= md.n_tiles * md.rows) return;  // warp-uniform; the kernel syncs only within a warp
+  const int rows = static_cast<int>(md.rows);
+  const int steps = static_cast<int>(md.steps);
   const int t = static_cast<int>(g / rows);
   const int r = static_cast<int>(g % rows);
-  const uint32_t* c = cnt + g * steps;
-  uint16_t* o = out + g * 2 * w_slots;
-  const int cap = 2 * w_slots;
-  int base = 0;  // words of the row placed so far
-  for (int s = 0; s < steps; ++s) {
-    const int n = min(static_cast<int>(c[s]), kLanes);
-    const uint32_t* w = win + (((size_t)t * steps + s) * rows + r) * kLanes;
-    for (int k = j; k < n; k += 32) {
-      if (base + k < cap) o[base + k] = static_cast<uint16_t>(w[k]);
-    }
-    base += n;
+  uint16_t* stage = stages[w];
+  const int head = v3 ? 8 : 4;  // u16s before the states: [rows, steps,] n_tiles, w_slots, each a u32
+  const long long states_at = md.sec_off + head;
+  // tile t's 256 freqs, then its R counts
+  const long long tile_at = states_at + 2LL * kLanes * rows + static_cast<long long>(t) * (256 + rows);
+
+  // the section's head (warp 0), the tile's freqs (the warps of row 0) and
+  // the row's states (those of tile 0)
+  if (g == 0 && j < head) {
+    const int f = (v3 ? 0 : 2) + (j >> 1);
+    const long long v = f == 0 ? md.rows : f == 1 ? md.steps : f == 2 ? md.n_tiles : md.w_slots;
+    out[md.sec_off + j] = static_cast<uint16_t>(static_cast<unsigned long long>(v) >> (16 * (j & 1)));
   }
-  for (int d = base + j; d < cap; d += 32) o[d] = 0;
+  if (r == 0) {
+    for (int i = j; i < 256; i += 32) out[tile_at + i] = freqs[(md.tab0 + t) * 256 + i];
+  }
+  if (t == 0) {
+    const long long at = states_at + 2LL * kLanes * r;
+    const int ph = static_cast<int>(at & 7);
+    const uint4 v = reinterpret_cast<const uint4*>(states + (md.state0 + r) * kLanes)[j];
+    const uint32_t q[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      stage[ph + 8 * j + 2 * i] = static_cast<uint16_t>(q[i]);
+      stage[ph + 8 * j + 2 * i + 1] = static_cast<uint16_t>(q[i] >> 16);
+    }
+    __syncwarp();
+    store_run(out, at, stage, 2 * kLanes, out_len, j);
+    __syncwarp();  // every lane has read the stage before the words take it
+  }
+
+  // the row's words, a piece of up to 32 steps at a time: lane s holds step
+  // s's count, a warp scan gives each step's offset in the row, and the
+  // piece's windows are read 8 steps at a time, 16 bytes a lane where the
+  // lane's four words hold one the step emitted
+  const uint32_t* c_row = cnt + md.cnt_off + g * steps;
+  const uint32_t* w_tile = win + (md.cnt_off + static_cast<long long>(t) * steps * rows) * kLanes;
+  const long long at0 = row_at[md.row0 + g];
+  int done = 0;  // the row's words written so far
+  for (int s0 = 0; s0 < steps; s0 += kPieceSteps) {
+    const int ns = min(kPieceSteps, steps - s0);
+    const int n = j < ns ? min(static_cast<int>(c_row[s0 + j]), kLanes) : 0;
+    int incl = n;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(tpx::kFullMask, incl, d);
+      if (j >= d) incl += v;
+    }
+    const int piece = __shfl_sync(tpx::kFullMask, incl, 31);
+    const int excl = incl - n;
+    const long long at = at0 + done;
+    const int ph = static_cast<int>(at & 7);
+    for (int s = 0; s < ns; s += 8) {
+      uint4 v[8];
+      int m[8], o[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        m[k] = __shfl_sync(tpx::kFullMask, n, s + k);  // 0 past the piece's steps
+        o[k] = __shfl_sync(tpx::kFullMask, excl, s + k);
+        const uint32_t* step = w_tile + (static_cast<long long>(s0 + s + k) * rows + r) * kLanes;
+        v[k] = 4 * j < m[k] ? reinterpret_cast<const uint4*>(step)[j] : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t q[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int x = 4 * j + i;
+          if (x < m[k]) stage[ph + o[k] + x] = static_cast<uint16_t>(q[i]);
+        }
+      }
+    }
+    done += piece;
+    const int pad = s0 + kPieceSteps >= steps && (done & 1);  // an odd row's last slot: its high half 0
+    if (pad && j == 0) stage[ph + piece] = 0;
+    __syncwarp();
+    store_run(out, at, stage, piece + pad, out_len, j);
+    __syncwarp();  // every lane has read the stage before the next piece
+  }
+  if (j == 0) out[tile_at + 256 + r] = static_cast<uint16_t>(done);
 }
 
 }  // namespace
@@ -261,12 +380,14 @@ extern "C" int hsr_tpx_encode(const void* data, const void* desc, int n_megas, i
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int hsr_tpx_concat(const void* win, const void* cnt, void* out, int rows, int steps, int n_tiles,
-                              int w_slots, void* cuda_stream) {
-  const long long warps = (long long)n_tiles * rows;
-  const int blocks = static_cast<int>((warps + kWarps - 1) / kWarps);
-  tpx_concat_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const uint32_t*>(win), static_cast<const uint32_t*>(cnt), static_cast<uint16_t*>(out),
-      rows, steps, n_tiles, w_slots);
+extern "C" int hsr_tpx_wire(const void* win, const void* cnt, const void* states, const void* freqs, const void* desc,
+                            int n_megas, int ctas, const void* row_at, void* out, long long out_len, int v3,
+                            void* cuda_stream) {
+  if (n_megas <= 0 || ctas <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  tpx_wire_kernel<<<ctas, kWarps * 32, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const uint32_t*>(win), static_cast<const uint32_t*>(cnt), static_cast<const uint32_t*>(states),
+      static_cast<const uint16_t*>(freqs), static_cast<const WireMega*>(desc), n_megas,
+      static_cast<const long long*>(row_at), static_cast<uint16_t*>(out), out_len, v3);
   return static_cast<int>(cudaGetLastError());
 }

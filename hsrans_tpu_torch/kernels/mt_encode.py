@@ -9,11 +9,11 @@ makes the plan's histograms and one small index row per coded block; the
 input goes to the card as it is.  One launch encodes every coded block
 (`encode_blocks`), each block's words landing in wire order at the end of
 its own scratch region; the host turns the word counts into the blob's part
-offsets, and one more launch writes each coded block's part, header and
-words, at its offset (`place_blocks`).  The host then writes the blob's
-header and the single-symbol indicators.  Unlike the JAX package, no coded
-block goes to a host encoder (the final block, and sizes off its kernel's
-512-byte grid, included); the bytes are the same.
+offsets, and one more launch writes the whole blob (`place_blocks`): its
+head, each coded block's part, header and words, and each single-symbol
+indicator, at its offset.  Unlike the JAX package, no coded block goes to a
+host encoder (the final block, and sizes off its kernel's 512-byte grid,
+included); the bytes are the same.
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ _SINGLE_BIT = 1 << 63
 _SYM_SHIFT = 54
 # columns of the int64 per-block index; csrc/mt_encode.cu::EncIndex
 INDEX_FIELDS = ("in_start", "num_groups", "byte_limit", "valid_limit", "region_end")
-# columns of the int64 per-block placement rows; csrc/mt_encode.cu::PlaceRow
-PLACE_FIELDS = ("dest", "size_field", "offset_bias")
+# columns of the int64 per-part placement rows; csrc/mt_encode.cu::PlaceRow
+PLACE_FIELDS = ("dest", "value", "block", "bias")
 # the two encoders of the JAX package differ in how a symbol of freq 0 emits
 # (only where a lane reads a byte that its block's freqs do not cover):
 # ops/reference.py::encode_groups emits always, ops/raw_jax.py::encode_section
@@ -186,32 +186,38 @@ def place_blocks_plain(words, index, count, fin, freqs, place, *, n: int, out_u1
 
     words int16 [words_cap], index int64 [nb, 5], count int64 [nb], fin int32
     [nb, n], freqs int16 [nb, 256] (the encode's operands and results),
-    place int64 [nb, 3] (PLACE_FIELDS) -> uint8 [2 * out_u16]: block b's
-    coded part at u16 dest: u64 size_field, u64 offset (2n + 256 + count -
-    offset_bias), the n final states as u32, the freqs as u16, then its
-    words; 0 elsewhere."""
+    place int64 [parts, 4] (PLACE_FIELDS, dest ascending, the parts tiling
+    [0, out_u16)) -> uint8 [2 * out_u16], the blob: a part of block b >= 0
+    at u16 dest is the u64 size field `value`, the u64 offset (2n + 256 +
+    count - bias), the n final states as u32, the freqs as u16, then its
+    words; a part of block -1 is the u64 `value` (the blob's head fields,
+    the single-symbol indicators)."""
     dev = words.device
-    nb = index.shape[0]
     out = torch.zeros(out_u16, dtype=torch.int64, device=dev)
-    if nb:
+    dest, value, block, bias = place.unbind(1)
+    sh = torch.arange(4, device=dev) * 16
+    lit = block < 0
+    out[dest[lit][:, None] + torch.arange(4, device=dev)] = (value[lit][:, None] >> sh) & 0xFFFF
+    coded = ~lit
+    if coded.any():
         hdr = coded_header_u16(n)
-        dest, size_field, bias = place.unbind(1)
-        offset = 2 * n + 256 + count - bias
-        sh = torch.arange(4, device=dev) * 16
-        st = to_u32(fin)
+        b = block[coded]
+        offset = 2 * n + 256 + count[b] - bias[coded]
+        st = to_u32(fin[b])
         fields = torch.cat(
             [
-                (size_field[:, None] >> sh) & 0xFFFF,
+                (value[coded][:, None] >> sh) & 0xFFFF,
                 (offset[:, None] >> sh) & 0xFFFF,
-                torch.stack([st & 0xFFFF, st >> 16], dim=2).reshape(nb, 2 * n),
-                freqs.to(torch.int64) & 0xFFFF,
+                torch.stack([st & 0xFFFF, st >> 16], dim=2).reshape(-1, 2 * n),
+                freqs[b].to(torch.int64) & 0xFFFF,
             ],
             dim=1,
         )
-        out[dest[:, None] + torch.arange(hdr, device=dev)] = fields
-        word_dest = torch.repeat_interleave(dest + hdr, count)
-        word_dest = word_dest + torch.arange(word_dest.numel(), device=dev) - torch.repeat_interleave(torch.cumsum(count, 0) - count, count)
-        out[word_dest] = emitted_words(words, index, count).to(torch.int64) & 0xFFFF
+        out[dest[coded][:, None] + torch.arange(hdr, device=dev)] = fields
+        c = count[b]
+        word_dest = torch.repeat_interleave(dest[coded] + hdr - (torch.cumsum(c, 0) - c), c)
+        word_dest = word_dest + torch.arange(word_dest.numel(), device=dev)
+        out[word_dest] = emitted_words(words, index[b], c).to(torch.int64) & 0xFFFF
     return out.to(torch.int16).view(torch.uint8)
 
 
@@ -224,16 +230,22 @@ def place_blocks_cuda(words, index, count, fin, freqs, place, *, n: int, out_u16
     nb = index.shape[0]
     if n not in (32, 64):
         raise ValueError("place_blocks_cuda: n must be 32 or 64")
-    if count.shape != (nb,) or fin.shape != (nb, n) or freqs.shape != (nb, 256) or place.shape != (nb, len(PLACE_FIELDS)):
+    if count.shape != (nb,) or fin.shape != (nb, n) or freqs.shape != (nb, 256) or place.shape[1:] != (len(PLACE_FIELDS),):
         raise ValueError("place_blocks_cuda: operand shapes do not match the block count")
-    out = torch.zeros(2 * out_u16, dtype=torch.uint8, device=dev)
-    if nb:
-        build.launch(
-            "mt_place", "hsr_mt_place", dev,
-            words.data_ptr(), index.data_ptr(), count.data_ptr(), fin.data_ptr(), freqs.data_ptr(),
-            place.data_ptr(), out.data_ptr(), nb, n, words.numel(), out_u16,
-        )
-    return out
+    out = torch.empty(out_u16, dtype=torch.int16, device=dev)  # the parts tile the blob: the kernel writes every u16
+    if place.shape[0]:
+        launch_place(words, index, count, fin, freqs, place, out, n=n)
+    return out.view(torch.uint8)
+
+
+def launch_place(words, index, count, fin, freqs, place, out, *, n: int) -> None:
+    """One launch of the placement kernel into `out` (int16 [out_u16], on
+    the operands' device); place_blocks_cuda's checks are the caller's."""
+    build.launch(
+        "mt_place", "hsr_mt_wire", words.device,
+        words.data_ptr(), index.data_ptr(), count.data_ptr(), fin.data_ptr(), freqs.data_ptr(), index.shape[0],
+        place.data_ptr(), place.shape[0], out.data_ptr(), n, words.numel(), out.numel(),
+    )
 
 
 def place_blocks(words, index, count, fin, freqs, place, *, n: int, out_u16: int) -> torch.Tensor:
@@ -304,18 +316,31 @@ def plan_operands(arr: np.ndarray, plan: list[BlockPlan], bits: int, n: int, rul
     return kinds, ks, index, freqs, bias
 
 
-def part_layout(plan: list[BlockPlan], kinds: np.ndarray, ks: np.ndarray, bias: np.ndarray, count: np.ndarray, n: int):
+def part_layout(plan: list[BlockPlan], kinds: np.ndarray, ks: np.ndarray, bias: np.ndarray, count: np.ndarray, n: int,
+                length: int) -> tuple[np.ndarray, int]:
     """Where each part of the blob goes, from the coded blocks' word counts:
-    (the placement rows int64 [nb, 3] (PLACE_FIELDS), every plan row's part
-    offset int64 [rows] in u16, the blob's length in u16).  Parts, in u16:
-    an indicator 4, a coded block its header and words, an empty row 0;
-    they follow the blob's two u64 fields."""
+    (the placement rows int64 [parts, 4] (PLACE_FIELDS), dest ascending, the
+    blob's length in u16).  The blob is its head, two u64 (the input's
+    length, the blob's bytes), then each plan row's part, in u16: an
+    indicator 4, a coded block its header and words, an empty row none."""
     part = np.where(kinds == 1, 4, 0).astype(np.int64)
     part[ks] = coded_header_u16(n) + count
     dest = 8 + np.cumsum(part) - part
-    size = np.fromiter((plan[k].size for k in ks), np.int64, len(ks))
-    place = np.stack([dest[ks], size, bias], axis=1).reshape(-1, len(PLACE_FIELDS))
-    return place, dest, 8 + int(part.sum())
+    out_u16 = 8 + int(part.sum())
+    value = np.zeros(len(plan), np.uint64)
+    block = np.full(len(plan), -1, np.int64)
+    row_bias = np.zeros(len(plan), np.int64)
+    value[ks] = np.fromiter((plan[k].size for k in ks), np.uint64, len(ks))
+    block[ks] = np.arange(len(ks))
+    row_bias[ks] = bias
+    singles = np.nonzero(kinds == 1)[0]
+    value[singles] = np.fromiter(
+        (plan[k].size | _SINGLE_BIT | (plan[k].symbol << _SYM_SHIFT) for k in singles), np.uint64, singles.size
+    )
+    used = part > 0
+    head = np.array([[0, length, -1, 0], [4, 2 * out_u16, -1, 0]], np.int64)
+    rows = np.stack([dest[used], value[used].view(np.int64), block[used], row_bias[used]], axis=1)
+    return np.concatenate([head, rows.reshape(-1, len(PLACE_FIELDS))]), out_u16
 
 
 def encode_plan(
@@ -342,21 +367,13 @@ def encode_plan(
     with layer_clock(layers, "kernel_encode", dev):
         words_t, count_t, fin_t = encode_blocks(data_t, index_t, freqs_t, bits=bits, n=n, rule=rule, words_cap=words_cap)
     with layer_clock(layers, "host_layout", dev):
-        place, dest, out_u16 = part_layout(plan, kinds, ks, bias, count_t.cpu().numpy(), n)
+        place, out_u16 = part_layout(plan, kinds, ks, bias, count_t.cpu().numpy(), n, length)
         place_t = torch.from_numpy(place).to(dev)
     with layer_clock(layers, "kernel_place", dev):
         blob_t = place_blocks(words_t, index_t, count_t, fin_t, freqs_t, place_t, n=n, out_u16=out_u16)
     with layer_clock(layers, "d2h", dev):
         blob = blob_t.cpu().numpy()
     with layer_clock(layers, "host_mux", dev):
-        head = np.asarray([length, 2 * out_u16], np.uint64)
-        singles = np.nonzero(kinds == 1)[0]
-        ind = np.fromiter(
-            (plan[k].size | _SINGLE_BIT | (plan[k].symbol << _SYM_SHIFT) for k in singles), np.uint64, singles.size
-        )
-        blob[:16] = head.view(np.uint8)
-        at = 2 * dest[singles][:, None] + np.arange(8)
-        blob[at] = ind.view(np.uint8).reshape(-1, 8)
         return blob.tobytes()
 
 

@@ -4,12 +4,12 @@ CUDA (`csrc/tpx_encode.cu`).
 Phase A (`encode_mega`) runs the rANS state machine backward over every
 megablock of the input in one call (one kernel launch on the card) and
 leaves each step's emitted words compacted in lane order; phase B
-(`concat`, once a mega) lays each (tile, row)'s words out as its u32-slot
-stream.
-Per-tile histograms, the encode tables and the wire mux stay on the host
-(the port's copy of the wire in `..ops.tpx`), and the blobs equal the JAX
-package's `hsrans_tpu.ops.tpx.tpx_encode` and `tpx_encode_adaptive` byte for
-byte.
+(`write_wire`, one launch for every mega) writes each mega's wire section
+into the blob on the card, the rows' ragged slots included, at the offsets
+that `wire_layout` computes on the host from the rows' word totals.
+Per-tile histograms, the encode tables and the 44-byte blob header stay on
+the host, and the blobs equal the JAX package's
+`hsrans_tpu.ops.tpx.tpx_encode` and `tpx_encode_adaptive` byte for byte.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ from ..ops.tpx import (
     L,
     TpxParams,
     _mega_layout,
-    _write_mega,
     make_tile_hist,
     tpx_header,
     tpx_plan_geometry,
@@ -35,6 +34,8 @@ from .tpx_decode import WARPS, ctas_of, desc_on, from_u32, to_u32
 _M32 = 0xFFFFFFFF
 # columns of the int64 per-mega descriptor; csrc/tpx_encode.cu::EncodeMega
 ENCODE_FIELDS = ("cta0", "rows", "steps", "n_tiles", "in_off", "tab0", "vlen", "cnt_off", "state0")
+# columns of the int64 per-mega descriptor of the wire writer; csrc/tpx_encode.cu::WireMega
+WIRE_FIELDS = ("cta0", "rows", "steps", "n_tiles", "cnt_off", "state0", "tab0", "row0", "sec_off", "w_slots")
 
 
 def div_magic(freq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -216,45 +217,123 @@ def mega_views(win, cnt, states, desc: np.ndarray) -> list[tuple[torch.Tensor, t
     return views
 
 
-def concat_plain(win, cnt, w_slots: int) -> torch.Tensor:
-    """Plain PyTorch version of the concat kernel, on any device.
+def wire_layout(desc: np.ndarray, row_words: np.ndarray, *, v3: bool, base: int) -> tuple[np.ndarray, np.ndarray, int]:
+    """Where the wire writer puts each mega's section, from the encode's
+    descriptors (ENCODE_FIELDS) and each (tile, row)'s word total (int64,
+    every mega's rows in order): (the wire descriptors int64 [M, 10]
+    (WIRE_FIELDS), each row's first slot as a u16 offset int64 [sum T * R],
+    the u16 length of the blob).  The sections follow one another from u16
+    `base` on, each [u32 rows | u32 steps (v3) |] u32 n_tiles | u32 w_slots,
+    the states [R, 128] u32, each tile's 256 freqs and R counts (u16), then
+    every row's ceil(words / 2) u32 slots, rows back to back."""
+    _, rows, steps, n_tiles, _, tab0, _, cnt_off, state0 = desc.T
+    tr = n_tiles * rows
+    row0 = np.cumsum(tr) - tr
+    mega = np.repeat(np.arange(len(desc)), tr)
+    slots = 2 * ((row_words + 1) // 2)  # u16s of each row's slots
+    fixed = (8 if v3 else 4) + 2 * L * rows + n_tiles * (256 + rows)
+    size = fixed + np.add.reduceat(slots, row0)
+    sec_off = base + np.cumsum(size) - size
+    excl = np.cumsum(slots) - slots
+    row_at = (sec_off + fixed)[mega] + excl - excl[row0][mega]
+    w_slots = [wire_w_slots(int(m)) for m in np.maximum.reduceat(row_words, row0)]
+    ctas = -(-tr // WARPS)
+    wdesc = np.stack([np.cumsum(ctas) - ctas, rows, steps, n_tiles, cnt_off, state0, tab0, row0, sec_off, w_slots], axis=1)
+    return wdesc.astype(np.int64), row_at.astype(np.int64), base + int(size.sum())
 
-    win int32 [T, S, R, 128], cnt int32 [T, R, S] -> int32 [T, R, w_slots]:
-    each (tile, row)'s words in (step, lane) order, two per u32 slot with
-    the earlier word in the low half, 0 past the last word."""
-    n_tiles, steps, rows, _ = win.shape
+
+def wire_ctas(wdesc: np.ndarray) -> int:
+    """CTAs of the wire writer's launch: a warp a (tile, row) of each mega."""
+    return int((-(-(wdesc[:, 3] * wdesc[:, 1]) // WARPS)).sum())
+
+
+def _check_wire(name: str, win, cnt, states, freqs, wdesc: np.ndarray, row_at: np.ndarray, *, v3: bool,
+                out_u16: int) -> int:
+    """Every mega's operands lie inside the tensors and its section's fields
+    and rows inside the blob; returns the launch's CTAs."""
+    cta0, rows, steps, n_tiles, cnt_off, state0, tab0, row0, sec_off, _ = wdesc.T
+    tr = n_tiles * rows
+    ctas = -(-tr // WARPS)
+    fixed_end = sec_off + (8 if v3 else 4) + 2 * L * rows + n_tiles * (256 + rows)
+    bad = (
+        win.numel() != cnt.numel() * L or freqs.shape[1:] != (256,)
+        or (rows < 1).any() or (n_tiles < 1).any() or (steps < 1).any() or (cta0 != np.cumsum(ctas) - ctas).any()
+        or (cnt_off < 0).any() or (cnt_off + tr * steps > cnt.numel()).any()
+        or (state0 < 0).any() or ((state0 + rows) * L > states.numel()).any()
+        or (tab0 < 0).any() or (tab0 + n_tiles > freqs.shape[0]).any()
+        or (row0 != np.cumsum(tr) - tr).any() or row_at.shape != (int(tr.sum()),)
+        or (sec_off < 0).any() or (fixed_end > out_u16).any()
+        or (row_at < np.repeat(fixed_end, tr)).any() or (row_at > out_u16).any()
+    )
+    if bad:
+        raise ValueError(f"{name}: the wire layout does not fit the operands")
+    return wire_ctas(wdesc)
+
+
+def write_wire_plain(win, cnt, states, freqs, wdesc: np.ndarray, row_at: np.ndarray, *, v3: bool, out_u16: int):
+    """Plain PyTorch version of the wire writer kernel, on any device.
+
+    win, cnt, states int32: the encode's outputs in its one-call layout
+    (`mega_views`); freqs int16 [sum tiles, 256] (the wire's u16 freqs);
+    wdesc int64 [M, 10] and row_at int64 [sum T * R], host arrays
+    (`wire_layout`) -> uint8 [2 * out_u16]: each mega's wire section at u16
+    sec_off, as `hsrans_tpu.ops.tpx._write_mega` writes it after v3's u32
+    rows | u32 steps: each row's words are its steps' first count words of
+    their windows (the low 16 bits), two a slot, the earlier in the low
+    half, a 0 after the last of an odd row.  Bytes below the first section
+    are 0."""
     dev = win.device
-    words = win.permute(0, 2, 1, 3).reshape(n_tiles, rows, steps * L).to(torch.int64) & 0xFFFF
-    keep = (torch.arange(L, device=dev) < cnt.to(torch.int64)[..., None]).reshape(n_tiles, rows, steps * L)
-    k = keep.to(torch.int64)
-    cap = 2 * w_slots
-    dest = torch.cumsum(k, dim=2) - k
-    dest = torch.where(keep & (dest < cap), dest, cap)  # dropped words go to a spare column
-    half = torch.zeros((n_tiles, rows, cap + 1), dtype=torch.int64, device=dev)
-    half.scatter_(2, dest, words)
-    return from_u32(half[..., 0:cap:2] | (half[..., 1:cap:2] << 16))
+    out = torch.zeros(out_u16, dtype=torch.int32, device=dev)
+    head = 8 if v3 else 4
+    halves = torch.tensor([0, 16], device=dev)
+    lane = torch.arange(L, device=dev)
+    for _, rows, steps, n_tiles, cnt_off, state0, tab0, row0, sec_off, w_slots in wdesc.tolist():
+        n = n_tiles * rows * steps
+        fields = torch.tensor([rows, steps, n_tiles, w_slots][4 - head // 2 :], device=dev)
+        out[sec_off : sec_off + head] = ((fields[:, None] >> halves) & 0xFFFF).reshape(-1).to(torch.int32)
+        at = sec_off + head
+        st = to_u32(states[state0 * L : (state0 + rows) * L])
+        out[at : at + 2 * L * rows] = torch.stack([st & 0xFFFF, st >> 16], dim=1).reshape(-1).to(torch.int32)
+        at += 2 * L * rows
+        c = torch.clamp(cnt[cnt_off : cnt_off + n].view(n_tiles, rows, steps), max=L)
+        tot = c.sum(dim=2)  # words of each row
+        tiles = torch.cat([freqs[tab0 : tab0 + n_tiles].to(torch.int32) & 0xFFFF, tot.to(torch.int32) & 0xFFFF], dim=1)
+        out[at : at + tiles.numel()] = tiles.reshape(-1)
+        w = win[cnt_off * L : (cnt_off + n) * L].view(n_tiles, steps, rows, L).permute(0, 2, 1, 3)
+        words = torch.masked_select(w, lane < c[..., None]) & 0xFFFF  # rows back to back, (step, lane) order within
+        tot = tot.reshape(-1).to(torch.int64)
+        start = torch.from_numpy(row_at[row0 : row0 + n_tiles * rows]).to(dev) - (torch.cumsum(tot, 0) - tot)
+        out[torch.arange(words.numel(), device=dev) + torch.repeat_interleave(start, tot)] = words
+    return out.to(torch.int16).view(torch.uint8)
 
 
-def concat_cuda(win, cnt, w_slots: int) -> torch.Tensor:
-    """The CUDA concat kernel (`csrc/tpx_encode.cu`) on CUDA tensors; same
-    contract as concat_plain.  Raises for any other tensor."""
-    dev = build.check_cuda("concat_cuda", win, cnt)
-    n_tiles, steps, rows, lanes = win.shape
-    if lanes != L or cnt.shape != (n_tiles, rows, steps):
-        raise ValueError("concat_cuda: operand shapes do not match")
-    out = torch.empty((n_tiles, rows, w_slots), dtype=torch.int32, device=dev)
-    if out.numel():
-        build.launch(
-            "tpx_concat", "hsr_tpx_concat", dev,
-            win.data_ptr(), cnt.data_ptr(), out.data_ptr(), rows, steps, n_tiles, w_slots,
-        )
-    return out
+def write_wire_cuda(win, cnt, states, freqs, wdesc: np.ndarray, row_at: np.ndarray, *, v3: bool, out_u16: int):
+    """The CUDA wire writer (`csrc/tpx_encode.cu`) on CUDA tensors, every
+    mega in one launch; same contract as write_wire_plain, except that the
+    u16s below the first section are left as they were (unwritten).  Raises
+    for any other tensor."""
+    dev = build.check_cuda("write_wire_cuda", win, cnt, states, freqs, int16=(3,))
+    ctas = _check_wire("write_wire_cuda", win, cnt, states, freqs, wdesc, row_at, v3=v3, out_u16=out_u16)
+    out = torch.empty(out_u16, dtype=torch.int16, device=dev)  # the kernel writes every u16 of the sections
+    if len(wdesc):
+        launch_wire(win, cnt, states, freqs, desc_on(wdesc, dev), desc_on(row_at, dev), out, v3=v3, ctas=ctas)
+    return out.view(torch.uint8)
 
 
-def concat(win, cnt, w_slots: int) -> torch.Tensor:
+def launch_wire(win, cnt, states, freqs, wdesc_t, row_at_t, out, *, v3: bool, ctas: int) -> None:
+    """One launch of the wire writer with its layout on the card into `out`
+    (int16, 16-byte aligned); write_wire_cuda's checks are the caller's."""
+    build.launch(
+        "tpx_concat", "hsr_tpx_wire", win.device,
+        win.data_ptr(), cnt.data_ptr(), states.data_ptr(), freqs.data_ptr(), wdesc_t.data_ptr(), wdesc_t.shape[0], ctas,
+        row_at_t.data_ptr(), out.data_ptr(), out.numel(), int(v3),
+    )
+
+
+def write_wire(win, cnt, states, freqs, wdesc: np.ndarray, row_at: np.ndarray, *, v3: bool, out_u16: int):
     """The kernel for CUDA operands, its plain version for CPU operands."""
-    fn = concat_plain if win.device.type == "cpu" else concat_cuda
-    return fn(win, cnt, w_slots)
+    fn = write_wire_plain if win.device.type == "cpu" else write_wire_cuda
+    return fn(win, cnt, states, freqs, wdesc, row_at, v3=v3, out_u16=out_u16)
 
 
 def _as_array(data: bytes | np.ndarray) -> np.ndarray:
@@ -293,7 +372,7 @@ def mega_operands(
 
 
 def _encode_megas(
-    out: bytearray,
+    head: bytes,
     arr: np.ndarray,
     geoms: list[tuple[int, int, int, int, int]],
     *,
@@ -301,32 +380,32 @@ def _encode_megas(
     v3: bool,
     device: torch.device,
     layers: dict[str, float] | None,
-) -> None:
-    """Encode the megas [(base, rows, steps, n_tiles, valid bytes)] on
-    `device`, one kernel launch for all of them, and append their wire
-    sections (with v3 each after its u32 rows | u32 steps); bytes equal
+) -> bytes:
+    """The blob: `head` (the 44-byte header; the total length at [16:24]
+    filled in here), then the wire sections of the megas [(base, rows,
+    steps, n_tiles, valid bytes)] encoded on `device`, with v3 each after
+    its u32 rows | u32 steps: one kernel launch of the encode and one of the
+    wire writer for all of them.  Bytes equal
     `hsrans_tpu.ops.tpx._encode_mega_into`'s mega by mega."""
     with layer_clock(layers, "host_hist_tables", device):
         desc, freqs, tabs = mega_operands(arr, geoms, bits=bits)
     with layer_clock(layers, "h2d", device):
-        ops = [torch.from_numpy(a).to(device) for a in (arr, tabs["fc"], tabs["m"], tabs["l"])]
+        data, fc, m, l, freqs_t = (torch.from_numpy(a).to(device) for a in (arr, tabs["fc"], tabs["m"], tabs["l"],
+                                                                               freqs.view(np.int16)))
     with layer_clock(layers, "kernel_encode", device):
-        views = mega_views(*encode_mega(ops[0], desc, *ops[1:], bits=bits), desc)
+        win, cnt, states = encode_mega(data, desc, fc, m, l, bits=bits)
+    with layer_clock(layers, "host_layout", device):
+        views = mega_views(win, cnt, states, desc)
+        row_words = torch.cat([torch.clamp(c, max=L).sum(dim=2).reshape(-1) for _, c, _ in views]).cpu().numpy()
+        wdesc, row_at, out_u16 = wire_layout(desc, row_words.astype(np.int64), v3=v3, base=len(head) // 2)
     with layer_clock(layers, "kernel_concat", device):
-        streams = []
-        for win, cnt, _ in views:
-            counts = cnt.sum(dim=2)  # words per (tile, row)
-            streams.append((counts, concat(win, cnt, wire_w_slots(int(counts.max())))))
+        blob_t = write_wire(win, cnt, states, freqs_t, wdesc, row_at, v3=v3, out_u16=out_u16)
     with layer_clock(layers, "d2h", device):
-        host = [
-            (st.cpu().numpy().view(np.uint32), counts.cpu().numpy().astype(np.uint16), stream.cpu().numpy().view(np.uint32))
-            for (_, _, st), (counts, stream) in zip(views, streams)
-        ]
+        blob = blob_t.cpu().numpy()
     with layer_clock(layers, "host_mux", device):
-        for (_, rows, steps, n_tiles, _, tab0, *_), (states, counts, stream) in zip(desc.tolist(), host):
-            if v3:
-                out += int(rows).to_bytes(4, "little") + int(steps).to_bytes(4, "little")
-            _write_mega(out, n_tiles, stream.shape[2], states, freqs[tab0 : tab0 + n_tiles], counts, stream)
+        blob[: len(head)] = np.frombuffer(head, np.uint8)
+        blob[16:24] = np.array([blob.size], "<u8").view(np.uint8)
+        return blob.tobytes()
 
 
 def wire_w_slots(max_words: int) -> int:
@@ -347,19 +426,16 @@ def tpx_encode_torch(
     `ops.tpx.tpx_encode`.
 
     With `layers`, adds the seconds of each layer of this call to it
-    (host_hist_tables, h2d, kernel_encode, kernel_concat, d2h, host_mux),
-    the device synchronized at each boundary."""
+    (host_hist_tables, h2d, kernel_encode, host_layout, kernel_concat, d2h,
+    host_mux), the device synchronized at each boundary."""
     dev = resolve(device)
     arr = _as_array(data)
     length = arr.size
     p = p or TpxParams.auto(length, bits, goal)
     if p.lanes != L or p.steps % 4 or not 10 <= p.bits <= 15:
         raise ValueError("tpx encode requires lanes == 128, steps % 4 == 0 and 10 <= bits <= 15")
-    out = tpx_header(length, p)
     geoms = [(base, p.rows, p.steps, n_tiles, valid) for base, n_tiles, valid in _mega_layout(length, p)]
-    _encode_megas(out, arr, geoms, bits=p.bits, v3=False, device=dev, layers=layers)
-    out[16:24] = len(out).to_bytes(8, "little")
-    return bytes(out)
+    return _encode_megas(bytes(tpx_header(length, p)), arr, geoms, bits=p.bits, v3=False, device=dev, layers=layers)
 
 
 def tpx_encode_adaptive_torch(data: bytes | np.ndarray, bits: int = 12, device: str | torch.device = "cuda") -> bytes:
@@ -372,13 +448,8 @@ def tpx_encode_adaptive_torch(data: bytes | np.ndarray, bits: int = 12, device: 
     arr = _as_array(data)
     length = arr.size
     geoms = tpx_plan_geometry(arr, bits)
-    out = bytearray(MAGIC3)
-    out += length.to_bytes(8, "little")
-    out += b"\0" * 8
     g0 = geoms[0]
-    for v in (bits, g0.rows, L, g0.steps, g0.n_tiles):
-        out += int(v).to_bytes(4, "little")
+    head = MAGIC3 + length.to_bytes(8, "little") + bytes(8)
+    head += b"".join(int(v).to_bytes(4, "little") for v in (bits, g0.rows, L, g0.steps, g0.n_tiles))
     megas = [(g.base, g.rows, g.steps, g.n_tiles, max(0, min(length - g.base, g.span))) for g in geoms]
-    _encode_megas(out, arr, megas, bits=bits, v3=True, device=dev, layers=None)
-    out[16:24] = len(out).to_bytes(8, "little")
-    return bytes(out)
+    return _encode_megas(head, arr, megas, bits=bits, v3=True, device=dev, layers=None)

@@ -48,8 +48,8 @@ _SIGNATURES = {
     "hsr_tpx_decode": [_P, ctypes.c_longlong, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     # data, mega descriptors, megas, CTAs, fc, m, l, win, cnt, states, bits, cuda stream
     "hsr_tpx_encode": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
-    # win, cnt, out, rows, steps, n_tiles, w_slots, cuda stream
-    "hsr_tpx_concat": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # win, cnt, states, freqs, wire descriptors, megas, CTAs, row starts, out, out u16s, v3, cuda stream
+    "hsr_tpx_wire": [_P, _P, _P, _P, _P, _I, _I, _P, _P, ctypes.c_longlong, _I, _P],
     # stream, index, init states, fc table, out, final states, cursors, nb, n, bits, nwords, length, cuda stream
     "hsr_mt_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
     # stream, index, fc table, annotation, nb, bits, nwords, cuda stream
@@ -59,8 +59,8 @@ _SIGNATURES = {
     # data, index, freqs, magic table, words, final states, counts, nb, n, bits, zero_freq_emits, data_len,
     # words_cap, cuda stream
     "hsr_mt_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
-    # words, index, counts, final states, freqs, place rows, out, nb, n, words_cap, out_len, cuda stream
-    "hsr_mt_place": [_P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
+    # words, index, counts, final states, freqs, nb, place rows, rows, out, n, words_cap, out u16s, cuda stream
+    "hsr_mt_wire": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
 }
 
 _lib = None

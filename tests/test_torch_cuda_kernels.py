@@ -41,34 +41,47 @@ TPX_GEOMS = {
 }
 
 
+def _wire_equals_plain(dev, wargs: tuple, wkw: dict, base: int) -> None:
+    """The wire writer == its plain version from u16 `base` on, through its
+    wrapper and by its launch alone into a 0xAA-filled output, which it
+    must write wholly from `base` on and leave alone below."""
+    want = enc.write_wire_plain(*wargs, **wkw)
+    got = enc.write_wire_cuda(*wargs, **wkw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2 * base :], want[2 * base :])
+    out = torch.empty(wkw["out_u16"], dtype=torch.int16, device=dev)
+    assert chip_smoke.prefilled_equal(chip_smoke.wire_launch(wargs, wkw, out, dev), out, want, base)
+
+
 @pytest.mark.parametrize("bits", (10, 12, 13, 15))
 @pytest.mark.parametrize("case", sorted(TPX_GEOMS))
 def test_kernels_equal_plain(cuda, bits, case):
-    """The encode kernel (every mega in one launch), the concat kernel (once
-    a mega) and the decode kernel (every mega in one launch, reading the
-    ragged wire) == their plain versions, and the blob == the authority's
-    where the wire is v2; the last mega is cut short."""
+    """The encode kernel, the wire writer and the decode kernel (each every
+    mega in one launch; the decode reading the ragged wire) == their plain
+    versions, and the blob == the authority's where the wire is v2; the
+    last mega is cut short."""
     spans = [rows * steps * 128 * n for rows, steps, n in TPX_GEOMS[case]]
     data = text_like(np.random.default_rng(bits), sum(spans) - 5000)
     bases = np.cumsum([0, *spans[:-1]]).tolist()
     geoms = [(b, rows, steps, n, min(data.size - b, z)) for b, (rows, steps, n), z in zip(bases, TPX_GEOMS[case], spans)]
-    desc, _, tabs = enc.mega_operands(data, geoms, bits=bits)
+    desc, freqs, tabs = enc.mega_operands(data, geoms, bits=bits)
     ops = (torch.from_numpy(data).to(cuda), desc, *(torch.from_numpy(tabs[k]).to(cuda) for k in ("fc", "m", "l")))
     got = enc.encode_mega_cuda(*ops, bits=bits)
     torch.cuda.synchronize()
     for g, w in zip(got, enc.encode_mega_plain(*ops, bits=bits)):
         assert torch.equal(g, w)
-    for win, cnt, _ in enc.mega_views(*got, desc):
-        w_slots = enc.wire_w_slots(int(cnt.sum(dim=2).max()))
-        assert torch.equal(enc.concat_cuda(win, cnt, w_slots), enc.concat_plain(win, cnt, w_slots))
-
     v3 = case.startswith("v3")
+    row_words = torch.cat([c.sum(dim=2).reshape(-1) for _, c, _ in enc.mega_views(*got, desc)]).cpu().numpy()
+    wdesc, row_at, out_u16 = enc.wire_layout(desc, row_words, v3=v3, base=chip_smoke.HEAD_U16)
+    wargs = (*got, torch.from_numpy(freqs.view(np.int16)).to(cuda), wdesc, row_at)
+    _wire_equals_plain(cuda, wargs, {"v3": v3, "out_u16": out_u16}, chip_smoke.HEAD_U16)
+
     blob = bytearray(b"HSRTPX03" if v3 else b"HSRTPX02")
     blob += data.size.to_bytes(8, "little") + bytes(8)
     for v in (bits, *TPX_GEOMS[case][0][:1], 128, TPX_GEOMS[case][0][1], TPX_GEOMS[case][0][2]):
         blob += v.to_bytes(4, "little")
-    enc._encode_megas(blob, data, geoms, bits=bits, v3=v3, device=cuda, layers=None)
-    blob[16:24] = len(blob).to_bytes(8, "little")
+    blob = enc._encode_megas(bytes(blob), data, geoms, bits=bits, v3=v3, device=cuda, layers=None)
+    assert blob == enc._encode_megas(blob[:44], data, geoms, bits=bits, v3=v3, device=torch.device("cpu"), layers=None)
     if not v3:
         p = TpxParams(bits=bits, rows=geoms[0][1], steps=geoms[0][2], tiles=geoms[0][3])
         assert bytes(blob) == tpx_encode(data, p=p)
@@ -91,6 +104,16 @@ def test_tpx_decode_window_edges(cuda, case, bits):
         got = dec.decode_mega_cuda(*args, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, dec.decode_mega_plain(*args, **kw)), name
+
+
+@pytest.mark.parametrize("case", chip_smoke.TPX_WIRE_EDGES)
+def test_tpx_wire_edges(cuda, case):
+    """The wire writer == its plain version, every byte of the sections
+    written, where it meets its edges: sections at every even 16-byte
+    phase, rows with no words and rows of all 32 x 128 words, one mega of
+    one tile; on random windows and counts."""
+    for name, wargs, wkw, base in chip_smoke.tpx_wire_edge_operands(case, cuda):
+        _wire_equals_plain(cuda, wargs, wkw, base)
 
 
 @pytest.mark.parametrize("bits", (10, 12, 15))
@@ -215,9 +238,9 @@ def test_mt_annotated_main_path_64mib_equals_oracle(cuda, monkeypatch):
 def test_mt_encode_kernels_equal_plain(cuda, bits, n, rule):
     """The mt encode kernel == its plain version (counts, final states, the
     emitted words) and the placement kernel == its plain version (the whole
-    blob) on 61 blocks with sizes off the 64-byte grid, a single-symbol row
-    and an odd tail; 61 blocks leave three idle warps in the last CTA.  B=4
-    codes six symbols."""
+    blob, every byte written by the launch) on 61 blocks with sizes off the
+    64-byte grid, a single-symbol row and an odd tail; 61 blocks leave
+    three idle warps in the last CTA.  B=4 codes six symbols."""
     rng = np.random.default_rng(bits + n)
     size = 61 * 4096 - 3983
     data = text_like(rng, size) if bits > 8 else rng.integers(0, 6, size).astype(np.uint8)
@@ -238,11 +261,8 @@ def test_mt_encode_kernels_equal_plain(cuda, bits, n, rule):
     want = mte.encode_blocks_plain(*ops, **kw)
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     assert torch.equal(mte.emitted_words(got[0], ops[1], got[1]), mte.emitted_words(want[0], ops[1], want[1]))
-    place, _, out_u16 = mte.part_layout(plan, kinds, ks, bias, got[1].cpu().numpy(), n)
-    pargs = (got[0], ops[1], got[1], got[2], ops[2], torch.from_numpy(place).to(cuda))
-    blob = mte.place_blocks_cuda(*pargs, n=n, out_u16=out_u16)
-    torch.cuda.synchronize()
-    assert torch.equal(blob, mte.place_blocks_plain(*pargs, n=n, out_u16=out_u16))
+    pargs, pkw = chip_smoke.place_operands(plan, kinds, ks, bias, got[0], ops[1], *got[1:], ops[2], n, data.size)
+    assert chip_smoke.place_check("mt place", pargs, pkw, timed=False)["every_byte_written"]
     whole = mte.encode_plan(data, plan, bits, n, rule, cuda)
     assert whole == mte.encode_plan(data, plan, bits, n, rule, torch.device("cpu"))
     assert mtd.mt_decode_torch(whole, bits, n, device="cuda") == data.tobytes() == mt_decode_py(whole, bits, n)
@@ -293,3 +313,14 @@ def test_mt_encode_window_edges(cuda, case, n, rule):
         want = mte.encode_blocks_plain(data, index, freqs, **kw)
         assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]), name
         assert torch.equal(mte.emitted_words(got[0], index, got[1]), mte.emitted_words(want[0], index, want[1])), name
+
+
+@pytest.mark.parametrize("n", (32, 64))
+@pytest.mark.parametrize("case", chip_smoke.MT_PLACE_EDGES)
+def test_mt_place_edges(cuda, case, n):
+    """The placement kernel == its plain version, every byte of the blob
+    written by its launch, where it meets its edges: parts whose words and
+    their source in the scratch meet at every pair of u16 phases, the
+    scratch ending at an odd u16, and a block far longer than one chunk."""
+    for name, pargs, pkw in chip_smoke.place_edge_operands(case, n, cuda):
+        assert chip_smoke.place_check(f"{case}, {name}", pargs, pkw, timed=False)["every_byte_written"]

@@ -223,26 +223,60 @@ def test_plain_encoder_equals_encode_groups(n, rule):
 
 
 def test_place_plain_writes_the_coded_parts():
-    """place_blocks_plain lays out size, offset, states, freqs and words at
-    each block's u16 offset, and nothing elsewhere."""
+    """part_layout lays the blob out as its head, then each plan row's part
+    (a coded block's header and words, a single-symbol row's indicator), and
+    place_blocks_plain writes every u16 of it: the head's input length and
+    blob bytes, size, offset, states, freqs and words at each block's u16
+    offset, each indicator's u64."""
     n = 32
-    index = torch.tensor([[0, 1, 32, 32, 32], [32, 1, 64, 64, 64]], dtype=torch.int64)
+    index = torch.tensor([[0, 1, 32, 32, 32], [4128, 1, 4160, 4160, 64]], dtype=torch.int64)
     words = torch.arange(64, dtype=torch.int16)
     count = torch.tensor([2, 3], dtype=torch.int64)
     fin = torch.full((2, n), 0x12345678, dtype=torch.int32)
     freqs = torch.ones((2, 256), dtype=torch.int16)
     hdr = penc.coded_header_u16(n)
-    place = torch.tensor([[8, 32, 1], [8 + hdr + 2, 32, 2]], dtype=torch.int64)
-    out = penc.place_blocks_plain(words, index, count, fin, freqs, place, n=n, out_u16=8 + 2 * hdr + 5)
+    plan = [BlockPlan(0, 32, False, 0, None), BlockPlan(32, 4096, True, 7, None), BlockPlan(4128, 32, False, 0, None)]
+    kinds, ks, bias = np.array([2, 1, 2], np.int8), np.array([0, 2]), np.array([1, 2])
+    place, out_u16 = penc.part_layout(plan, kinds, ks, bias, count.numpy(), n, 4160)
+    ind = np.array([4096 | 1 << 63 | 7 << 54], np.uint64).view(np.int64)[0]
+    assert out_u16 == 8 + 2 * hdr + 5 + 4
+    assert place.tolist() == [[0, 4160, -1, 0], [4, 2 * out_u16, -1, 0], [8, 32, 0, 1], [8 + hdr + 2, ind, -1, 0],
+                              [8 + hdr + 6, 32, 1, 2]]
+    out = penc.place_blocks_plain(words, index, count, fin, freqs, torch.from_numpy(place), n=n, out_u16=out_u16)
     u16 = out.numpy().view(np.uint16)
-    assert not u16[:8].any()
-    for b, (dest, w) in enumerate(((8, 2), (8 + hdr + 2, 3))):
+    assert u16[:4].view(np.uint64)[0] == 4160 and u16[4:8].view(np.uint64)[0] == 2 * out_u16
+    assert u16[8 + hdr + 2 : 8 + hdr + 6].view(np.int64)[0] == ind
+    for b, (dest, w) in enumerate(((8, 2), (8 + hdr + 6, 3))):
         part = u16[dest : dest + hdr + w]
         assert part[:4].view(np.uint64)[0] == 32
         assert part[4:8].view(np.uint64)[0] == 2 * n + 256 + w - (1 + b)
         assert (part[8 : 8 + 2 * n].view(np.uint32) == 0x12345678).all()
         assert (part[8 + 2 * n : hdr] == 1).all()
         assert part[hdr:].tolist() == list(range(32 * (b + 1) - w, 32 * (b + 1)))
+
+
+@pytest.mark.parametrize(
+    "rows",
+    [
+        [(0, 4096, True, 3), (4096, 8192, False, 0), (12288, 9024, False, 0), (21312, 5000, True, 9)],
+        [(0, 8192, False, 0), (8192, 4096, True, 7), (12288, 4096, True, 200), (16384, 9000, False, 0)],
+    ],
+    ids=["single first and last", "singles between"],
+)
+def test_blob_with_single_symbol_rows_equals_pallas_encoder(rows):
+    """The placement writes the head and the single-symbol indicators with
+    the coded parts: the blob equals the Pallas encoder's (interpret mode),
+    the numpy parser finds each indicator where the plan has it, and the
+    numpy decoder returns the input."""
+    rng = np.random.default_rng(len(rows) + rows[0][1])
+    parts = [np.full(z, y, np.uint8) if single else text_like(rng, z) for _, z, single, y in rows]
+    data = np.concatenate(parts)
+    blob = mt_encode_torch(data, 12, plan=[BlockPlan(s, z, r, y, None) for s, z, r, y in rows], device="cpu")
+    assert blob == mt64_encode_tpu(data, 12, interpret=True, plan=[JPlan(s, z, r, y, None) for s, z, r, y in rows])
+    length, _, blocks = jmt.block_index(blob, 64)
+    assert length == data.size and int.from_bytes(blob[8:16], "little") == len(blob)
+    assert [(b.is_single, b.symbol if b.is_single else 0) for b in blocks] == [(r, y if r else 0) for _, _, r, y in rows]
+    assert _decodes(blob, data, 12)
 
 
 def test_bad_arguments_raise():

@@ -128,8 +128,12 @@ def test_wrappers_refuse_cpu_tensors():
                              torch.zeros((1, 4096), dtype=torch.uint8), t, bits=12, out_len=4)
     with pytest.raises(ValueError, match="CUDA"):
         enc.encode_mega_cuda(u8, np.array([[0, 8, 8, 1, 0, 0, 1, 0, 0]], np.int64), t, t, t, bits=12)
+    wdesc, row_at, out_u16 = enc.wire_layout(np.array([[0, 8, 8, 1, 0, 0, 0, 0, 0]], np.int64), np.zeros(8, np.int64),
+                                             v3=False, base=0)
     with pytest.raises(ValueError, match="CUDA"):
-        enc.concat_cuda(torch.zeros((1, 8, 8, 128), dtype=torch.int32), torch.zeros((1, 8, 8), dtype=torch.int32), 128)
+        enc.write_wire_cuda(torch.zeros(8 * 8 * 128, dtype=torch.int32), torch.zeros(64, dtype=torch.int32),
+                            torch.zeros(8 * 128, dtype=torch.int32), torch.zeros((1, 256), dtype=torch.int16), wdesc,
+                            row_at, v3=False, out_u16=out_u16)
     with pytest.raises(ValueError, match="CUDA"):
         mt.decode_blocks_cuda(
             torch.zeros(64, dtype=torch.uint8), torch.zeros((1, 5), dtype=torch.int64),
@@ -149,7 +153,7 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         mte.place_blocks_cuda(
             torch.zeros(64, dtype=torch.int16), index, torch.zeros(1, dtype=torch.int64),
-            torch.zeros((1, 64), dtype=torch.int32), freqs, torch.zeros((1, 3), dtype=torch.int64), n=64, out_u16=400,
+            torch.zeros((1, 64), dtype=torch.int32), freqs, torch.zeros((1, 4), dtype=torch.int64), n=64, out_u16=400,
         )
 
 
@@ -158,13 +162,20 @@ def test_dispatch_takes_plain_version_for_cpu_operands():
     from hsrans_tpu_torch.kernels import mt_encode as mte
     from hsrans_tpu_torch.kernels import tpx_encode as enc
 
+    # one mega of one tile, 2 rows of 4 steps: 3 words in each row's first
+    # step, so each row has 2 slots, its last with a high half of 0
     win = torch.zeros((1, 4, 2, 128), dtype=torch.int32)
     win[0, 0, :, :3] = torch.tensor([1, 2, 3])
     cnt = torch.zeros((1, 2, 4), dtype=torch.int32)
     cnt[0, :, 0] = 3
-    out = enc.concat(win, cnt, 128)
-    assert out.shape == (1, 2, 128)
-    assert out[0, 0, :2].tolist() == [1 | 2 << 16, 3] and not out[0, 0, 2:].any()
+    desc = np.array([[0, 2, 4, 1, 0, 0, 0, 0, 0]], np.int64)
+    wdesc, row_at, out_u16 = enc.wire_layout(desc, np.array([3, 3]), v3=False, base=0)
+    freqs = torch.zeros((1, 256), dtype=torch.int16)
+    out = enc.write_wire(win.reshape(-1), cnt.reshape(-1), torch.zeros(256, dtype=torch.int32), freqs, wdesc, row_at,
+                         v3=False, out_u16=out_u16)
+    assert out.shape == (2 * (4 + 2 * 2 * 128 + 256 + 2 + 2 * 4),)
+    u32 = out.numpy().view(np.uint32)
+    assert u32[:2].tolist() == [1, 128] and u32[-4:].tolist() == [1 | 2 << 16, 3] * 2
     # one block of one group, all 64 lanes on byte 0 of freq 2^8: from the
     # fresh state 2^15 no lane emits, and each ends at 2^15 >> 8 << 8 == 2^15
     index = torch.tensor([[0, 1, 64, 64, 64]], dtype=torch.int64)
@@ -207,7 +218,7 @@ def test_layer_split_leaves_the_result_alone():
     assert blob == tpx_encode_torch(data, device="cpu")
     assert tpx_decode_torch(blob, device="cpu", layers=dec) == data.tobytes()
     assert mt_encode_torch(data, 12, device="cpu", layers=mt) == mt_encode_torch(data, 12, device="cpu")
-    assert set(enc) == {"host_hist_tables", "h2d", "kernel_encode", "kernel_concat", "d2h", "host_mux"}
+    assert set(enc) == {"host_hist_tables", "h2d", "kernel_encode", "host_layout", "kernel_concat", "d2h", "host_mux"}
     assert set(dec) == {"host_parse", "host_tables", "h2d", "kernel", "d2h", "host_assemble"}
     assert set(mt) == {"host_hist_tables", "h2d", "kernel_encode", "host_layout", "kernel_place", "d2h", "host_mux"}
     assert all(v >= 0 for v in (*enc.values(), *dec.values(), *mt.values()))

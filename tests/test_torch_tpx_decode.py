@@ -203,10 +203,7 @@ def test_one_call_v3_mixed_geometry_odd_rows(bits):
     assert tpx_decode(blob) == data.tobytes()
     got, desc, length = _one_call(blob)
     assert len(desc) == 3 and got[:length].tobytes() == data.tobytes()
-    out = bytearray(blob[:44])
-    pe._encode_megas(out, data, geoms, bits=bits, v3=True, device=torch.device("cpu"), layers=None)
-    out[16:24] = len(out).to_bytes(8, "little")
-    assert bytes(out) == blob
+    assert pe._encode_megas(blob[:44], data, geoms, bits=bits, v3=True, device=torch.device("cpu"), layers=None) == blob
 
 
 @pytest.mark.parametrize("bits", (10, 12, 15))

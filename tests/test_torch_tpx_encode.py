@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from hsrans_tpu.kernels import tpx_encode as jx
-from hsrans_tpu.ops.tpx import TpxParams, tpx_decode, tpx_encode, tpx_encode_adaptive
+from hsrans_tpu.ops import tpx as jtpx
+from hsrans_tpu.ops.tpx import MAGIC3, TpxParams, _mega_layout, tpx_decode, tpx_encode, tpx_encode_adaptive
 from hsrans_tpu_torch.kernels import tpx_encode as pt
 from hsrans_tpu_torch.kernels.tpx_decode import tpx_decode_torch
 from tools.gen_inputs import text_like
@@ -57,12 +58,13 @@ def test_encode_equals_pallas_and_authority(name, bits):
 def test_encode_mega_and_concat_plain_equal_pallas_kernels(bits):
     """Phase A: windows, counts and final states of the one-call plain
     version, reading the input as it is, equal the Pallas encode kernel's on
-    the zero-padded mega (counts after _unpack_counts).  Phase B: the concat
-    equals the Pallas concat kernel on the same windows."""
+    the zero-padded mega (counts after _unpack_counts).  Phase B: the plain
+    wire writer's section equals the JAX package's from the same windows:
+    the Pallas concat kernel's rectangular streams, then `_write_mega`."""
     p = small(bits)
     n_tiles, rows, steps = p.tiles, p.rows, p.steps
     data = text_like(np.random.default_rng(bits), p.mega_bytes - 1000)
-    desc, _, tabs = pt.mega_operands(data, [(0, rows, steps, n_tiles, data.size)], bits=bits)
+    desc, freqs, tabs = pt.mega_operands(data, [(0, rows, steps, n_tiles, data.size)], bits=bits)
     n_valid = int(desc[0, pt.ENCODE_FIELDS.index("vlen")])
     packed = np.zeros(p.mega_bytes, np.uint8)
     packed[: data.size] = data
@@ -84,14 +86,93 @@ def test_encode_mega_and_concat_plain_equal_pallas_kernels(bits):
     assert np.array_equal(cnt.numpy(), np.asarray(cnt_j)[:, :, :steps])
     assert np.array_equal(st.numpy().view(np.uint32), np.asarray(st_j))
 
-    w_slots = pt.wire_w_slots(int(cnt.sum(dim=2).max()))
+    counts = cnt.sum(dim=2).numpy()
+    w_slots = pt.wire_w_slots(int(counts.max()))
     wcap = steps * 128 // 2
     stream_j = np.asarray(
         jx._concat_mega(np.array([[wcap // 128]], np.int32), win_j, cnt_j, rows=rows, rc=rows, steps=steps, wcap=wcap, n_tiles=n_tiles, interpret=True)
     )
-    stream = pt.concat_plain(win, cnt, w_slots).numpy()
-    assert np.array_equal(stream, stream_j[:, :, :w_slots])
     assert not stream_j[:, :, w_slots:].any()
+    want = bytearray()
+    jtpx._write_mega(want, n_tiles, w_slots, np.asarray(st_j), freqs, counts, stream_j[:, :, :w_slots])
+    wdesc, row_at, out_u16 = pt.wire_layout(desc, counts.reshape(-1).astype(np.int64), v3=False, base=0)
+    got = pt.write_wire_plain(*outs, torch.from_numpy(freqs.view(np.int16)), wdesc, row_at, v3=False, out_u16=out_u16)
+    assert got.numpy().tobytes() == bytes(want)
+
+
+# (v3, [(rows, steps, n_tiles)] of each mega): v2 with a last mega of fewer
+# tiles, partly past the data; v3 with mixed geometry and a 13-row mega,
+# whose section's length is 2 mod 4, so the section after it starts at an
+# offset of 2 mod 4
+WIRE_CASES = {
+    "v2 multi-mega partial": (False, ((40, 8, 3), (40, 8, 3), (40, 8, 2))),
+    "v3 mixed geometry 13 rows": (True, ((16, 8, 2), (13, 4, 3), (8, 8, 1))),
+}
+
+
+def _pallas_sections(win, cnt, states, desc, freqs, v3: bool) -> bytes:
+    """The megas' wire sections as the JAX package writes them from the
+    same windows: the Pallas concat kernel (interpret mode), then
+    `_write_mega`, with v3 each after its u32 rows | u32 steps."""
+    out = bytearray()
+    for (_, rows, steps, n_tiles, _, tab0, *_), (w, c, st) in zip(desc.tolist(), pt.mega_views(win, cnt, states, desc)):
+        counts = c.sum(dim=2).numpy()
+        w_slots = pt.wire_w_slots(int(counts.max()))
+        wcap = steps * 64
+        cpad = np.zeros((n_tiles, rows, 128), np.int32)
+        cpad[:, :, :steps] = c.numpy()
+        stream = np.asarray(jx._concat_mega(np.array([[wcap // 128]], np.int32), w.numpy(), cpad, rows=rows, rc=rows,
+                                            steps=steps, wcap=wcap, n_tiles=n_tiles, interpret=True))
+        if v3:
+            out += rows.to_bytes(4, "little") + steps.to_bytes(4, "little")
+        jtpx._write_mega(out, n_tiles, w_slots, st.numpy().view(np.uint32), freqs[tab0 : tab0 + n_tiles], counts,
+                         stream[:, :, :w_slots])
+    return bytes(out)
+
+
+@pytest.mark.parametrize("bits", (10, 12, 15))
+@pytest.mark.parametrize("case", sorted(WIRE_CASES))
+def test_wire_writer_equals_pallas_concat_and_write_mega(case, bits):
+    """The plain wire writer, every mega in one call behind the 44-byte
+    header, writes the bytes the JAX package writes from the same encode
+    outputs (the Pallas concat kernel, then `_write_mega`), and the whole
+    blob equals the numpy authority's (`tpx_encode`; for v3,
+    `_encode_mega_into` mega by mega)."""
+    v3, geom = WIRE_CASES[case]
+    spans = [rows * steps * 128 * n for rows, steps, n in geom]
+    data = text_like(np.random.default_rng(bits), sum(spans) - 3000)
+    if v3:
+        bases = np.cumsum([0, *spans[:-1]]).tolist()
+        geoms = [(b, rows, steps, n, min(data.size - b, z)) for b, (rows, steps, n), z in zip(bases, geom, spans)]
+        head = MAGIC3 + data.size.to_bytes(8, "little") + bytes(8)
+        head += b"".join(v.to_bytes(4, "little") for v in (bits, geom[0][0], 128, geom[0][1], geom[0][2]))
+    else:
+        p = TpxParams(bits=bits, rows=geom[0][0], steps=geom[0][1], tiles=geom[0][2])
+        geoms = [(b, p.rows, p.steps, n, valid) for b, n, valid in _mega_layout(data.size, p)]
+        assert [g[3] for g in geoms] == [n for _, _, n in geom]
+        head = bytes(jtpx.tpx_header(data.size, p))
+    desc, freqs, tabs = pt.mega_operands(data, geoms, bits=bits)
+    win, cnt, states = pt.encode_mega_plain(torch.from_numpy(data), desc, *(torch.from_numpy(tabs[k]) for k in ("fc", "m", "l")),
+                                            bits=bits)
+    row_words = torch.cat([c.sum(dim=2).reshape(-1) for _, c, _ in pt.mega_views(win, cnt, states, desc)]).numpy()
+    wdesc, row_at, out_u16 = pt.wire_layout(desc, row_words, v3=v3, base=len(head) // 2)
+    got = pt.write_wire_plain(win, cnt, states, torch.from_numpy(freqs.view(np.int16)), wdesc, row_at, v3=v3,
+                              out_u16=out_u16).numpy()
+    assert not got[: len(head)].any()
+    assert got[len(head) :].tobytes() == _pallas_sections(win, cnt, states, desc, freqs, v3)
+    if v3:
+        assert (2 * wdesc[:, pt.WIRE_FIELDS.index("sec_off")] % 4 == 2).any()
+    blob = pt._encode_megas(head, data, geoms, bits=bits, v3=v3, device=torch.device("cpu"), layers=None)
+    if v3:
+        want = bytearray(head)
+        for base, rows, steps, n_tiles, valid in geoms:
+            want += rows.to_bytes(4, "little") + steps.to_bytes(4, "little")
+            jtpx._encode_mega_into(want, data, base, n_tiles, valid, bits, rows, steps)
+        want[16:24] = len(want).to_bytes(8, "little")
+    else:
+        want = tpx_encode(data, p=p)
+    assert blob == bytes(want)
+    assert tpx_decode_torch(blob, device="cpu") == data.tobytes()
 
 
 def test_copied_div_magic_equals_original():
