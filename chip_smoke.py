@@ -29,6 +29,14 @@ the port's two paths through their public entry points:
     tails, single-symbol runs and block sizes off the 64-byte grid, and
     the reference planner's blocks (up to 2^25 bytes) on a homogeneous
     input;
+  * the histogram model (`models/device_hist.py`): its count and
+    normalise kernels on mt encode (b)'s 16,384 blocks of 4 KiB, the 64 MiB
+    tpx main path's 16 tiles, the reference planner's 2^25-byte block and
+    at their edges (`HIST_EDGES`, which the card tests run too), with one
+    `torch.bincount` over the 64 MiB as the count's yardstick; tpx encode
+    with `device_tables=True` (blobs equal to the host tables' and the CPU
+    tier's, end to end against the host tables in turns); mt encode (b)
+    takes its plan's histograms on the card;
   * the mt decode and encode kernels' shared-memory windows at their edges
     (`DECODE_EDGES`, `ENCODE_EDGES`), and the two wire writers, tpx and
     mt, at theirs (`TPX_WIRE_EDGES`, `MT_PLACE_EDGES`), which the card tests
@@ -57,6 +65,7 @@ the script stands outside a checkout of the repo.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -88,6 +97,9 @@ KERNELS = {
     "mt_encode": ("hsrans_tpu_torch/csrc/mt_encode.cu", "hsrans_tpu/kernels/mt64_encode.py:52"),
     # the mt encoder's phase B: the tpx concat kernel run per segment, then the host's join of the words
     "mt_place": ("hsrans_tpu_torch/csrc/mt_encode.cu", "hsrans_tpu/kernels/tpx_encode.py:260"),
+    # the on-device histogram model, XLA in the JAX package and not Pallas
+    "hist_count": ("hsrans_tpu_torch/csrc/hist.cu", "hsrans_tpu/models/jax_hist.py:31"),
+    "hist_normalize": ("hsrans_tpu_torch/csrc/hist.cu", "hsrans_tpu/models/jax_hist.py:68"),
 }
 # the least time the card could take for a kernel's work: the bytes this
 # run's data needs (each input read once, each output written once: the
@@ -673,13 +685,8 @@ def mt_planner_blocks(dev: torch.device) -> dict:
     time, so the decode holds the encode here."""
     from hsrans_tpu_torch import mt_decode_torch, mt_encode_torch
     from hsrans_tpu_torch.kernels import mt_encode as mte
-    from hsrans_tpu_torch.ops.planner import plan_blocks_mt
 
-    zipf = 1.0 / np.arange(1, 257)
-    data = np.random.default_rng(8).choice(256, size=64 * MIB, p=zipf / zipf.sum()).astype(np.uint8)
-    t0 = time.perf_counter()
-    plan = plan_blocks_mt(data, 12, 64)
-    plan_s = time.perf_counter() - t0
+    data, plan, plan_s = zipf_input()
     kinds, ks, index, freqs, bias = mte.plan_operands(data, plan, 12, 64, "groups")
     data_t = torch.from_numpy(data).to(dev)
     index_t, freqs_t = torch.from_numpy(index).to(dev), torch.from_numpy(freqs.view(np.int16)).to(dev)
@@ -699,6 +706,19 @@ def mt_planner_blocks(dev: torch.device) -> dict:
            "encode_s": enc_s, "encode_MiBps": data.size / MIB / statistics.median(enc_s)}
     emit("mt_encode_planner_blocks", **res)
     return res
+
+
+@functools.cache
+def zipf_input() -> tuple[np.ndarray, list, float]:
+    """64 MiB of independent bytes of one Zipf distribution (seed 8), the
+    reference planner's plan of it (n=64, B=12) and the seconds it took."""
+    from hsrans_tpu_torch.ops.planner import plan_blocks_mt
+
+    zipf = 1.0 / np.arange(1, 257)
+    data = np.random.default_rng(8).choice(256, size=64 * MIB, p=zipf / zipf.sum()).astype(np.uint8)
+    t0 = time.perf_counter()
+    plan = plan_blocks_mt(data, 12, 64)
+    return data, plan, time.perf_counter() - t0
 
 
 def place_operands(plan, kinds, ks, bias, words_t, index_t, count_t, fin_t, freqs_t, n: int, length: int):
@@ -746,7 +766,7 @@ def mt_encode_phases(repo: Path, dev: torch.device, ctx: dict) -> tuple[list[dic
     """mt encode on the card: the kernels against their plain versions, the
     main path (encode on the card, decode on the card), round trips and
     times.  Returns the kernel rows (the main path (a)'s first) and the
-    launches of one round trip of the main path (a)."""
+    launches of one round trip of each main path, {"a": ..., "b": ...}."""
     from hsrans_tpu_torch import mt_decode_torch, mt_encode_torch
     from hsrans_tpu_torch.kernels.mt_encode import uniform_rows
     from hsrans_tpu_torch.ops.planner import BlockPlan
@@ -783,9 +803,12 @@ def mt_encode_phases(repo: Path, dev: torch.device, ctx: dict) -> tuple[list[dic
         blob = mt_encode_torch(data, 12, plan=plan, device="cuda")
         back = mt_decode_torch(blob, 12, 64, device="cuda")
         torch.cuda.synchronize()
-        got = {k: build.LAUNCHES[k] for k in ("mt_encode", "mt_place", "mt_decode")}
-        if got != {"mt_encode": 1, "mt_place": 1, "mt_decode": 1}:
-            raise AssertionError(f"mt encode ({case}): launches {got}, one of each kernel expected")
+        got = {k: build.LAUNCHES[k] for k in ("mt_encode", "mt_place", "mt_decode", "hist_count", "hist_normalize")}
+        # (a)'s plan carries its freqs; (b)'s rows have none, so the card takes their histograms
+        hist = int(case == "b")
+        if got != {"mt_encode": 1, "mt_place": 1, "mt_decode": 1, "hist_count": hist, "hist_normalize": hist}:
+            raise AssertionError(f"mt encode ({case}): launches {got}: one of each mt kernel and {hist} of each "
+                                 "histogram kernel expected")
         if back != data.tobytes():
             raise AssertionError(f"mt encode ({case}): decode on the card does not return the input")
         t0 = time.perf_counter()
@@ -795,8 +818,7 @@ def mt_encode_phases(repo: Path, dev: torch.device, ctx: dict) -> tuple[list[dic
         rows_ = plan if plan is not None else uniform_rows(data.size, 4096)
         emit("mt_encode_main_path", case=case, bytes=data.size, ratio=len(blob) / data.size, blocks=len(rows_),
              coded_blocks=sum(not r.is_single for r in rows_), launches=got, cpu_tier_encode_s=cpu_s)
-        if case == "a":
-            launches = got
+        launches[case] = got
 
     # 3. round trips, each held against the CPU tier and decoded on the card
     odd, runs = ctx["odd"], ctx["runs"]
@@ -822,6 +844,9 @@ def mt_encode_phases(repo: Path, dev: torch.device, ctx: dict) -> tuple[list[dic
         ("single-symbol runs between coded blocks", runs, 12, 64, torch_enc(plans["runs"])),
         ("block sizes off the 64-byte grid", xr2, 12, 64, torch_enc(odd_plan)),
         ("block sizes off the 64-byte grid (mt_encode_device)", xr2, 12, 64, device_enc(64, odd_plan)),
+        # every other row without its freqs: the card's histograms fill those rows in among the given ones
+        ("plan rows with and without freqs", xr2, 12, 64,
+         torch_enc([r if i % 2 else BlockPlan(r.start, r.size, False, 0, None) for i, r in enumerate(odd_plan)])),
     ]
     for name, src, bits, n, encode in trips:
         t0 = time.perf_counter()
@@ -1175,6 +1200,210 @@ def wire_edges(dev: torch.device) -> dict[str, list[dict]]:
     return rows
 
 
+# the cases that hold the two histogram kernels at their edges
+# (tests/test_torch_cuda_kernels.py runs them too), each normalised at B=10,
+# 12 and 15
+HIST_EDGES = ("segment starts at every byte phase mod 16", "empty and one-byte segments", "single-symbol data",
+              "the cases of tests/test_jax_hist.py", "several steal passes", "divisor != size, several charity passes")
+
+
+def hist_edge_operands(case: str, dev: torch.device) -> tuple[torch.Tensor, np.ndarray, np.ndarray, np.ndarray | None]:
+    """One HIST_EDGES case: (the input, uint8 on `dev`; segment starts and
+    ends; the normaliser's divisors, None for the segments' own sizes)."""
+    from tools.gen_inputs import text_like
+
+    rng = np.random.default_rng(40 + HIST_EDGES.index(case))
+    divisors = None
+    if case == HIST_EDGES[0]:
+        # at each phase of a 16-byte load, lengths that leave the aligned
+        # middle empty, one load long, or several chunks long
+        lens = np.array([1, 15, 16, 17, 31, 33, 4096, 100_003, 3 * (64 << 10) + 5], np.int64)
+        data = text_like(rng, lens.size << 18)
+        starts = (np.arange(lens.size, dtype=np.int64)[:, None] * (256 << 10) + np.arange(16)).reshape(-1)
+        ends = starts + np.repeat(lens, 16)
+    elif case == HIST_EDGES[1]:
+        data = text_like(rng, 1 << 16)
+        n = data.size
+        starts = np.array([0, 5, 100, n, 7, 33, 4095, n - 1, 0, 17], np.int64)
+        ends = np.array([0, 5, 50, n, 8, 34, 4096, n, n, 18], np.int64)
+    elif case == HIST_EDGES[2]:
+        data = np.full(3 << 20, 7, np.uint8)
+        starts = np.array([0, 3, 1, 0, 5], np.int64)
+        ends = np.array([1, 4099, 1 + (1 << 15), 3 << 20, 5 + (2 << 20)], np.int64)
+    elif case == HIST_EDGES[3]:
+        parts = [
+            np.zeros(100, np.uint8),
+            np.arange(256, dtype=np.uint8),
+            rng.integers(0, 256, 10_000).astype(np.uint8),
+            np.minimum(rng.geometric(0.07, 50_000) - 1, 255).astype(np.uint8),
+            np.minimum(rng.geometric(0.60, 30_000) - 1, 255).astype(np.uint8),
+            rng.choice([0, 3, 200], 7_777).astype(np.uint8),  # 3 symbols, rebalance heavy
+            rng.integers(0, 2, 65_536).astype(np.uint8),  # binary
+        ]
+        data = np.concatenate(parts)
+        ends = np.cumsum([p.size for p in parts]).astype(np.int64)
+        starts = ends - [p.size for p in parts]
+    elif case == HIST_EDGES[4]:
+        # many symbols of one byte each, each rounded up to 1, and a few
+        # large ones: the sum exceeds 2^B by ~250, the passes start past the
+        # ones and take a few positions each
+        rows = []
+        for ones, big, reps in ((250, 6, 100_000), (128, 128, 3_000), (200, 56, 20_000)):
+            syms = rng.permutation(256)
+            rows.append(rng.permutation(np.concatenate([syms[:ones], np.repeat(syms[ones : ones + big], reps)])))
+        data = np.concatenate(rows).astype(np.uint8)
+        ends = np.cumsum([r.size for r in rows]).astype(np.int64)
+        starts = ends - [r.size for r in rows]
+    else:
+        # divisors off the segments' sizes: twice the size leaves the rounded
+        # sum near 2^(B-1), so the charity passes run many times over
+        data = text_like(rng, 200_000)
+        starts = np.array([0, 50_000, 90_000, 150_000], np.int64)
+        ends = np.array([50_000, 90_000, 150_000, 160_000], np.int64)
+        divisors = np.array([100_000, 30_000, 1 << 16, 12_345], np.int64)
+    return torch.from_numpy(np.ascontiguousarray(data, np.uint8)).to(dev), starts, ends, divisors
+
+
+def hist_check(name: str, data_t: torch.Tensor, starts: np.ndarray, ends: np.ndarray, divisors: np.ndarray | None,
+               bits_list: tuple[int, ...], timed: bool) -> dict:
+    """The count kernel against its plain version on one input's segments,
+    then the normaliser against its plain version on those counts at each
+    depth (divisors: the segments' own unless given), exact.  With `timed`,
+    each through its wrapper, by its launch alone and its plain version,
+    and its bound: the count's bytes (the segments read once, the table
+    and counts) and one operation a byte; the normaliser's operands' bytes
+    and 6 operations a bin, plus for each row whose rounded counts miss 2^B
+    its heap sort (256 x 8 sift steps of 4 operations)."""
+    from hsrans_tpu_torch.models import device_hist as dh
+
+    dev = data_t.device
+    sizes = dh.segment_sizes(starts, ends)
+    got = dh.observe_segments_cuda(data_t, starts, ends)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, dh.observe_segments_plain(data_t, starts, ends))
+    if err:
+        raise AssertionError(f"hist_count {name}: kernel differs from its plain version (max abs err {err})")
+    res = {"case": name, "segments": len(starts), "bytes": int(sizes.sum()), "hist_count": {"max_abs_err": err}}
+    if timed:
+        table, chunks = dh.segment_table(starts, ends)
+        table_t, out = torch.from_numpy(table).to(dev), torch.zeros_like(got)
+        res["hist_count"] |= {
+            "chunks": chunks,
+            "ms": cuda_ms(lambda: dh.observe_segments_cuda(data_t, starts, ends), 20, queue_ahead=True),
+            "launch_ms": cuda_ms(lambda: dh.launch_count(data_t, table_t, out, chunks=chunks), 20, queue_ahead=True),
+            "ms_host_paced": cuda_ms(lambda: dh.observe_segments_cuda(data_t, starts, ends), 20),
+            "plain_ms": cuda_ms(lambda: dh.observe_segments_plain(data_t, starts, ends), 1),
+            **bound(int(sizes.sum()) + nbytes(table_t, got), int(sizes.sum())),
+        }
+    div = dh.segment_divisors(starts, ends) if divisors is None else divisors
+    div_t = torch.from_numpy(np.asarray(div, np.int64)).to(dev)
+    for bits in bits_list:
+        freq = dh.normalize_rows_cuda(got, div_t, bits)
+        torch.cuda.synchronize()
+        err = max_abs_err(freq, dh.normalize_rows_plain(got, div_t, bits))
+        if err:
+            raise AssertionError(f"hist_normalize {name} B={bits}: kernel differs from its plain version (max abs err {err})")
+        fixed = int((dh.round_rows(got, div_t, bits).sum(dim=1) != 1 << bits).sum())
+        row = {"max_abs_err": err, "rows_fixed": fixed}
+        if timed:
+            outs = tuple(torch.empty_like(x) for x in freq)
+            row |= {
+                "ms": cuda_ms(lambda: dh.normalize_rows_cuda(got, div_t, bits), 20, queue_ahead=True),
+                "launch_ms": cuda_ms(lambda: dh.launch_normalize(got, div_t, *outs, bits=bits), 20, queue_ahead=True),
+                "ms_host_paced": cuda_ms(lambda: dh.normalize_rows_cuda(got, div_t, bits), 20),
+                "plain_ms": cuda_ms(lambda: dh.normalize_rows_plain(got, div_t, bits), 1),
+                **bound(nbytes(got, div_t, *freq), 6 * got.numel() + fixed * 256 * 8 * 4),
+            }
+        res[f"hist_normalize_B{bits}"] = row
+    return res
+
+
+def hist_kernels_vs_plain(data: np.ndarray, dev: torch.device) -> tuple[list[dict], list[dict], float]:
+    """Both histogram kernels against their plain versions on the same CUDA
+    tensors: mt encode (b)'s 16,384 blocks of 4 KiB of the 64 MiB text at
+    B=12 (the launch of its main path), the 64 MiB tpx main path's 16 tiles
+    at B=12 and B=15, the reference planner's largest block of the Zipf
+    input (2^25 bytes) at B=12, each timed, and HIST_EDGES at B=10, 12 and
+    15; and one `torch.bincount` over the 64 MiB (library_ms, the count's
+    yardstick; the port never calls it).  Returns the timed rows (mt (b)'s
+    first), the edge rows and that time."""
+    from hsrans_tpu_torch.kernels import tpx_encode as enc
+    from hsrans_tpu_torch.ops.tpx import TpxParams, _mega_layout
+
+    data_t = torch.from_numpy(data).to(dev)
+    p = TpxParams()
+    _, tstarts, tends = enc.mega_segments([(b, p.rows, p.steps, n, v) for b, n, v in _mega_layout(data.size, p)])
+    mstarts = np.arange(0, data.size, 4096, dtype=np.int64)
+    zipf, plan, _ = zipf_input()
+    big = max(plan, key=lambda r: r.size)
+    rows = [
+        hist_check(f"mt encode (b): 64 MiB text, {mstarts.size} blocks of 4 KiB", data_t, mstarts,
+                   np.minimum(mstarts + 4096, data.size), None, (12,), True),
+        hist_check(f"tpx 64 MiB main path: {tstarts.size} tiles", data_t, tstarts, tends, None, (12, 15), True),
+        hist_check(f"the reference planner's largest block of the Zipf input ({big.size} bytes)",
+                   torch.from_numpy(zipf).to(dev), np.array([big.start]), np.array([big.start + big.size]), None, (12,),
+                   True),
+    ]
+    for r in rows:
+        emit("hist_kernels_vs_plain", **r)
+    edges = [hist_check(case, *hist_edge_operands(case, dev), (10, 12, 15), False) for case in HIST_EDGES]
+    emit("hist_edges", cases=edges)
+    library_ms = cuda_ms(lambda: torch.bincount(data_t, minlength=256), 20, queue_ahead=True)
+    emit("hist_library", bytes=data.size, torch_bincount_ms=library_ms)
+    return rows, edges, library_ms
+
+
+def tpx_device_tables(data: np.ndarray, blob: bytes, corpus: np.ndarray, dev: torch.device) -> dict:
+    """tpx encode with `device_tables=True`: the 64 MiB main path (one
+    launch of each histogram kernel, the encode and the wire writer) gives
+    `blob`, the host tables' blob, which the main path held against the CPU
+    tier's; at B=10 and B=15 on 4 MiB and v3 on 2 MiB of corpus.bin the blob
+    equals the host tables' and the CPU tier's with device tables, and
+    decodes on the card.  Then both paths end to end in turns and one pass
+    of each split by layer."""
+    from hsrans_tpu_torch import tpx_decode_torch, tpx_encode_adaptive_torch, tpx_encode_torch
+    from hsrans_tpu_torch.runtime import build
+    from tools.gen_inputs import text_like
+
+    build.reset_launches()
+    got = tpx_encode_torch(data, 12, device="cuda", device_tables=True)
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES[k] for k in ("hist_count", "hist_normalize", "tpx_encode", "tpx_concat")}
+    if launches != dict.fromkeys(launches, 1):
+        raise AssertionError(f"64 MiB device_tables: launches {launches}, one of each expected")
+    if got != blob:
+        raise AssertionError("64 MiB: the blob with device_tables=True differs from the host tables' (the CPU tier's)")
+    cases = (
+        ("B=10 4 MiB", text_like(np.random.default_rng(10), 4 * MIB),
+         lambda d, device, dt: tpx_encode_torch(d, 10, device=device, device_tables=dt)),
+        ("B=15 4 MiB", text_like(np.random.default_rng(15), 4 * MIB),
+         lambda d, device, dt: tpx_encode_torch(d, 15, device=device, device_tables=dt)),
+        ("v3 corpus.bin 2 MiB", corpus[: 2 * MIB],
+         lambda d, device, dt: tpx_encode_adaptive_torch(d, 12, device=device, device_tables=dt)),
+    )
+    for name, src, encode in cases:
+        card = encode(src, "cuda", True)
+        if card != encode(src, "cuda", False) or card != encode(src, "cpu", True):
+            raise AssertionError(f"{name}: the device tables' blob differs from the host tables' or the CPU tier's")
+        if tpx_decode_torch(card, device="cuda") != src.tobytes():
+            raise AssertionError(f"{name}: decode on the card does not return the input")
+    runs = {False: [], True: []}
+    for dt in (False, True, True, False) * 2:
+        runs[dt] += host_s(lambda: tpx_encode_torch(data, 12, device="cuda", device_tables=dt), 1)
+    layers = {"host_tables": {}, "device_tables": {}}
+    for key, dt in (("host_tables", False), ("device_tables", True)):
+        if tpx_encode_torch(data, 12, device="cuda", device_tables=dt, layers=layers[key]) != blob:
+            raise AssertionError("64 MiB: the layer-timed encode differs")
+    res = {
+        "bytes": data.size, "launches": launches, "cases": [c[0] for c in cases],
+        "host_tables_s": runs[False], "device_tables_s": runs[True],
+        "host_tables_MiBps": data.size / MIB / statistics.median(runs[False]),
+        "device_tables_MiBps": data.size / MIB / statistics.median(runs[True]), "layers": layers,
+    }
+    emit("tpx_device_tables", **res)
+    return res
+
+
 def main() -> int:
     global CARD, OPS_PER_S
     if not torch.cuda.is_available():
@@ -1284,6 +1513,12 @@ def main() -> int:
         layers=layers, kernels_B15=per_bits[15],
     )
 
+    # 6b. the histogram kernels against their plain versions (mt encode
+    #     (b)'s blocks, the tpx main path's tiles, the planner's largest
+    #     block, HIST_EDGES), then tpx encode's device_tables=True path
+    hist_rows, hist_edges, bincount_ms = hist_kernels_vs_plain(data, dev)
+    tpx_device_tables(data, blob, corpus, dev)
+
     # 7. mt decode: kernel classes, main path, round trips, malformed, times
     mt_rows, mt_launches, ctx = mt_phases(repo, dev)
 
@@ -1312,15 +1547,24 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         # each timed at its main path's launch: the 64 MiB B=12 call (tpx),
         # the 64 MiB x-ray n=64 B=12 device_plan blob (mt decode, both
-        # routes) and plan (mt encode)
-        if name == "mt_decode":
+        # routes) and plan (mt encode), mt encode (b)'s 16,384 blocks (the
+        # histogram kernels, which only that main path launches)
+        library_ms = None  # no single PyTorch call runs a rANS state chain or writes the wire's layout
+        if name in ("hist_count", "hist_normalize"):
+            key = "hist_count" if name == "hist_count" else "hist_normalize_B12"
+            row = {"launches": enc_launches["b"][name],
+                   "max_abs_err": max(r[key]["max_abs_err"] for r in hist_rows + hist_edges),
+                   **{k: hist_rows[0][key][k] for k in (*keys, "launch_ms")}, "xla_not_pallas": True}
+            # one torch.bincount over the same 64 MiB: the count's yardstick (no PyTorch call normalises)
+            library_ms = bincount_ms if name == "hist_count" else None
+        elif name == "mt_decode":
             row = {"launches": mt_launches, "max_abs_err": max(r["max_abs_err"] for r in mt_rows + edge_rows["mt_decode"]),
                    **{k: mt_rows[0][k] for k in (*keys, "launch_ms", "link_us")}}
         elif name in ann_launches:
             row = {"launches": ann_launches[name], "max_abs_err": max(r[name]["max_abs_err"] for r in ann_rows),
                    **{k: ann_rows[0][name][k] for k in keys}}
-        elif name in enc_launches:
-            row = {"launches": enc_launches[name], "max_abs_err": max(r[name]["max_abs_err"] for r in enc_rows),
+        elif name in enc_launches["a"]:
+            row = {"launches": enc_launches["a"][name], "max_abs_err": max(r[name]["max_abs_err"] for r in enc_rows),
                    **{k: enc_rows[0][name][k] for k in keys}}
             edges = edge_rows["mt_encode"] if name == "mt_encode" else wire_rows["mt_place"]
             row["max_abs_err"] = max([row["max_abs_err"], *(r["max_abs_err"] for r in edges)])
@@ -1330,8 +1574,8 @@ def main() -> int:
                    **{k: per_bits[12][name][k] for k in (*keys, "launch_ms", "link_us") if k in per_bits[12][name]}}
             edges = {"tpx_decode": tpx_edge_rows, "tpx_concat": wire_rows["tpx_concat"]}.get(name, [])
             row["max_abs_err"] = max([row["max_abs_err"], *(r["max_abs_err"] for r in edges)])
-        # no single PyTorch call runs a rANS state chain or writes the wire's layout
-        summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, **row, "library_ms": None})
+        summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, **row,
+                        "library_ms": library_ms})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

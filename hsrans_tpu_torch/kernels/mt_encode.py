@@ -5,8 +5,10 @@ Every coded block is encoded from fresh states, as the JAX package's device
 encoders do: each mt block carries its own state snapshot, so the blob is
 valid wire that the C++ reference and `mt_decode_torch` decode, byte-
 different from the carried-state oracle `ops.mt.mt_encode_py`.  The host
-makes the plan's histograms and one small index row per coded block; the
-input goes to the card as it is.  One launch encodes every coded block
+makes one small index row per coded block and the input goes to the card as
+it is; the histograms of plan rows without freqs are taken there, by the
+two kernels of `models/device_hist.py` (one launch each), and stay there
+(on the CPU the host takes them, `ops/tpx.py::make_tile_hists`).  One launch encodes every coded block
 (`encode_blocks`), each block's words landing in wire order at the end of
 its own scratch region; the host turns the word counts into the blob's part
 offsets, and one more launch writes the whole blob (`place_blocks`): its
@@ -24,6 +26,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..models.device_hist import segment_hists
 from ..ops.mt import _as_array
 from ..ops.planner import BlockPlan
 from ..ops.tpx import make_tile_hists
@@ -71,23 +74,35 @@ def encode_tables(freqs: torch.Tensor, bits: int, rule: str) -> tuple[torch.Tens
     return e, cum, d, m, l
 
 
-def magic_table() -> np.ndarray:
-    """uint32 [MAGIC_D_MAX + 1]: at d the Granlund-Montgomery magic of
-    max(d, 1), m = ceil(2^(31 + l) / d) with l = ceil(log2 d), so that
-    (m * x) >> (31 + l) == x // d for every x < 2^31.  The encode kernel
-    reads a block's m from it by freq, in place of a 64-bit division per
-    symbol and block."""
+def shift_table() -> np.ndarray:
+    """int32 [MAGIC_D_MAX + 1]: at d the shift l = ceil(log2 max(d, 1))."""
     d = np.maximum(np.arange(MAGIC_D_MAX + 1, dtype=np.int64), 1)
     l = np.zeros_like(d)
     for k in range(16):
         l = np.where(d > (1 << k), k + 1, l)
-    return (-(-(np.int64(1) << (31 + l)) // d)).astype(np.uint32)
+    return l.astype(np.int32)
+
+
+def magic_table() -> np.ndarray:
+    """uint32 [MAGIC_D_MAX + 1]: at d the Granlund-Montgomery magic of
+    max(d, 1), m = ceil(2^(31 + l) / d) with l = shift_table()[d], so that
+    (m * x) >> (31 + l) == x // d for every x < 2^31.  The encode kernel
+    reads a block's m from it by freq, in place of a 64-bit division per
+    symbol and block."""
+    d = np.maximum(np.arange(MAGIC_D_MAX + 1, dtype=np.int64), 1)
+    return (-(-(np.int64(1) << (31 + shift_table().astype(np.int64))) // d)).astype(np.uint32)
 
 
 @functools.cache
 def magic_tensor(dev: torch.device) -> torch.Tensor:
     """magic_table() as int32 (u32 bits) on `dev`, made once per device."""
     return torch.from_numpy(magic_table().view(np.int32)).to(dev)
+
+
+@functools.cache
+def shift_tensor(dev: torch.device) -> torch.Tensor:
+    """shift_table() on `dev`, made once per device."""
+    return torch.from_numpy(shift_table()).to(dev)
 
 
 def encode_blocks_plain(data, index, freqs, *, bits: int, n: int, rule: str, words_cap: int):
@@ -262,21 +277,16 @@ def _input_tensor(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
 
-def plan_operands(arr: np.ndarray, plan: list[BlockPlan], bits: int, n: int, rule: str):
-    """Host side of one encode: (kinds int8 [rows]: 0 empty part, 1 single-
-    symbol indicator, 2 coded block; coded rows' plan positions int64 [nb];
-    index int64 [nb, 5]; freqs uint16 [nb, 256]; offset bias int64 [nb]).
-
-    A plan row's freq may be None: the histogram of the block's bytes within
-    the input is taken, as both JAX encoders take it (batched here).  Under
-    the "groups" rule (mt64_encode_tpu) a coded row of size 0 writes nothing
-    and a partial last group's lanes take part up to the input's end; under
-    "section" (mt_encode_device) a size-0 row writes a header of no words and
-    lanes take part up to the block's end.  Raises ValueError for a coded
-    row whose freqs do not sum to 2^B, and, under "groups", for one whose
-    lanes past its end code the byte 0 while its freqs give 0 no slot: the
-    decoder would read another symbol there, so the blob would not decode
-    (mt64_encode_tpu returns that blob; the port refuses it)."""
+def plan_rows(arr: np.ndarray, plan: list[BlockPlan], bits: int, n: int, rule: str):
+    """The host's walk of the plan: (kinds int8 [rows]: 0 empty part, 1
+    single-symbol indicator, 2 coded block; coded rows' plan positions int64
+    [nb]; index int64 [nb, 5]; given bool [nb], the coded rows that carry
+    their freqs; freqs uint16 [nb, 256], theirs and 0 for the others; offset
+    bias int64 [nb]).  Raises ValueError for a row whose given freqs do not
+    sum to 2^B.  Under the "groups" rule (mt64_encode_tpu) a coded row of
+    size 0 writes nothing and a partial last group's lanes take part up to
+    the input's end; under "section" (mt_encode_device) a size-0 row writes
+    a header of no words and lanes take part up to the block's end."""
     length = arr.size
     kinds = np.zeros(len(plan), np.int8)
     coded = []
@@ -295,24 +305,64 @@ def plan_operands(arr: np.ndarray, plan: list[BlockPlan], bits: int, n: int, rul
     given = np.fromiter((plan[k].freq is not None for k in coded), bool, nb)
     if given.any():
         freqs[given] = np.stack([plan[k].freq for k in ks[given]])
-    if not given.all():
-        freqs[~given] = make_tile_hists(arr, start[~given], byte_limit[~given], bits)
-    bad = np.nonzero(freqs.sum(axis=1, dtype=np.int64) != 1 << bits)[0]
+    bad = np.nonzero(given & (freqs.sum(axis=1, dtype=np.int64) != 1 << bits))[0]
     if bad.size:
         raise ValueError(f"plan row {coded[int(bad[0])]}: freqs do not sum to 2^{bits}")
     num_groups = -(-size // n)
     valid_limit = np.full(nb, length, np.int64) if rule == "groups" else byte_limit
-    # the partial last group of a non-final block: under "groups" its lanes
-    # past byte_limit code the byte 0 up to the input's end (ops/mt.py::_lane_groups)
-    zero_lanes = (byte_limit < np.minimum(start + num_groups * n, valid_limit)) & (freqs[:, 0] == 0)
-    if zero_lanes.any():
-        raise ValueError(
-            f"plan row {coded[int(np.argmax(zero_lanes))]}: its last group's lanes past the block's end code "
-            "the byte 0, which its freqs give no slot; the blob would not decode"
-        )
     region_end = np.cumsum(num_groups * n)
     index = np.stack([start, num_groups, byte_limit, valid_limit, region_end], axis=1).reshape(nb, 5)
     bias = np.where(ks == len(plan) - 1, 2, 1).astype(np.int64)  # the final row points at the stream's end
+    return kinds, ks, index, given, freqs, bias
+
+
+def plan_freqs(arr: np.ndarray, data_t: torch.Tensor, ks: np.ndarray, index: np.ndarray, given: np.ndarray,
+               freqs: np.ndarray, bits: int, n: int) -> torch.Tensor:
+    """Every coded block's freqs as int16 [nb, 256] (u16) on data_t's device
+    (data_t: the input there): the given rows' as they are, the others the
+    histogram of the block's bytes within the input, as both JAX encoders
+    take it; on the host (`make_tile_hists`) for a CPU input, by the
+    histogram kernels over data_t for a CUDA one (`models/device_hist.py`:
+    one count launch and one normalise launch), the freqs left on the card.
+    Raises ValueError, under "groups", for a row whose lanes past its end
+    code the byte 0 while its freqs give 0 no slot: the decoder would read
+    another symbol there, so the blob would not decode (mt64_encode_tpu
+    returns that blob; the port refuses it)."""
+    miss = np.nonzero(~given)[0]
+    starts, ends = index[miss, 0], index[miss, 2]
+    if data_t.device.type == "cpu":
+        if miss.size:
+            freqs[miss] = make_tile_hists(arr, starts, ends, bits)
+        freqs_t = torch.from_numpy(freqs.view(np.int16))
+    elif not miss.size:
+        freqs_t = torch.from_numpy(freqs.view(np.int16)).to(data_t.device)
+    else:
+        found, _ = segment_hists(data_t, starts, ends, bits)
+        if miss.size == given.size:
+            freqs_t = found
+        else:
+            freqs_t = torch.from_numpy(freqs.view(np.int16)).to(data_t.device)
+            freqs_t[torch.from_numpy(miss).to(data_t.device)] = found
+    # the partial last group of a non-final block: under "groups" its lanes
+    # past byte_limit code the byte 0 up to the input's end (ops/mt.py::_lane_groups)
+    start, num_groups, byte_limit, valid_limit = index[:, :4].T
+    lanes = np.nonzero(byte_limit < np.minimum(start + num_groups * n, valid_limit))[0]
+    if lanes.size:
+        zero = freqs_t[torch.from_numpy(lanes).to(freqs_t.device), 0].cpu().numpy() == 0
+        if zero.any():
+            raise ValueError(
+                f"plan row {int(ks[lanes[np.argmax(zero)]])}: its last group's lanes past the block's end code "
+                "the byte 0, which its freqs give no slot; the blob would not decode"
+            )
+    return freqs_t
+
+
+def plan_operands(arr: np.ndarray, plan: list[BlockPlan], bits: int, n: int, rule: str):
+    """Host side of one encode: (kinds, coded rows' plan positions, index,
+    freqs uint16 [nb, 256], offset bias) of `plan_rows`, every coded row's
+    freqs filled in on the host (`plan_freqs`, whose checks it makes)."""
+    kinds, ks, index, given, freqs, bias = plan_rows(arr, plan, bits, n, rule)
+    plan_freqs(arr, _input_tensor(arr, torch.device("cpu")), ks, index, given, freqs, bits, n)
     return kinds, ks, index, freqs, bias
 
 
@@ -353,17 +403,22 @@ def encode_plan(
     layers: dict[str, float] | None = None,
 ) -> bytes:
     """The mt blob of `plan` over `arr`, every coded block encoded from fresh
-    states on `dev` (plan_operands says what `rule` changes)."""
+    states on `dev` (plan_rows says what `rule` changes); on the card the
+    histograms of rows without freqs too (`plan_freqs`).  With `layers`, the
+    host's walk of the plan counts as host_index and those histograms as
+    kernel_hist on the card; on the CPU both are host_hist_tables."""
     if n not in (32, 64) or not 1 <= bits <= 15:
         raise ValueError("mt encode needs n in (32, 64) and 1 <= bits <= 15")
     length = arr.size
-    with layer_clock(layers, "host_hist_tables", dev):
-        kinds, ks, index, freqs, bias = plan_operands(arr, plan, bits, n, rule)
+    cuda = dev.type == "cuda"
+    with layer_clock(layers, "host_index" if cuda else "host_hist_tables", dev):
+        kinds, ks, index, given, freqs, bias = plan_rows(arr, plan, bits, n, rule)
     words_cap = int(index[-1, 4]) if len(ks) else 0
     with layer_clock(layers, "h2d", dev):
         data_t = _input_tensor(arr, dev)
         index_t = torch.from_numpy(index).to(dev)
-        freqs_t = torch.from_numpy(freqs.view(np.int16)).to(dev)
+    with layer_clock(layers, "kernel_hist" if cuda else "host_hist_tables", dev):
+        freqs_t = plan_freqs(arr, data_t, ks, index, given, freqs, bits, n)
     with layer_clock(layers, "kernel_encode", dev):
         words_t, count_t, fin_t = encode_blocks(data_t, index_t, freqs_t, bits=bits, n=n, rule=rule, words_cap=words_cap)
     with layer_clock(layers, "host_layout", dev):
@@ -411,8 +466,10 @@ def mt_encode_torch(
     they are, single-symbol rows as RLE indicators.
 
     With `layers`, adds the seconds of each layer of this call to it
-    (host_hist_tables, h2d, kernel_encode, host_layout, kernel_place, d2h,
-    host_mux), the device synchronized at each boundary."""
+    (on the card host_index, h2d, kernel_hist, ...; on the CPU
+    host_hist_tables, h2d, ...; then kernel_encode, host_layout,
+    kernel_place, d2h, host_mux), the device synchronized at each
+    boundary."""
     if plan is None and not _kernel_block_ok(block_size):
         raise ValueError("block_size must be a multiple of 512 (of 8192 above 8 KiB)")
     dev = resolve(device)

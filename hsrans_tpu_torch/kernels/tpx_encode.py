@@ -7,9 +7,14 @@ leaves each step's emitted words compacted in lane order; phase B
 (`write_wire`, one launch for every mega) writes each mega's wire section
 into the blob on the card, the rows' ragged slots included, at the offsets
 that `wire_layout` computes on the host from the rows' word totals.
-Per-tile histograms, the encode tables and the 44-byte blob header stay on
-the host, and the blobs equal the JAX package's
-`hsrans_tpu.ops.tpx.tpx_encode` and `tpx_encode_adaptive` byte for byte.
+The per-tile histograms and encode tables are made on the host, or, with
+`device_tables=True`, on the device (`models/device_hist.py`: one count
+launch and one normalise launch for every tile, then the tables in torch,
+the freqs left on the card for the wire writer), as the JAX package's
+`device_tables` path makes them on the TPU.  The 44-byte blob header stays
+on the host, and the blobs equal the JAX package's
+`hsrans_tpu.ops.tpx.tpx_encode` and `tpx_encode_adaptive` byte for byte
+either way.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.device_hist import segment_hists
 from ..ops.tpx import (
     DECODE_CONSUME_POINT_16,
     MAGIC3,
@@ -29,6 +35,7 @@ from ..ops.tpx import (
 )
 from ..runtime import build
 from ..runtime.device import layer_clock, resolve
+from .mt_encode import magic_tensor, shift_tensor
 from .tpx_decode import WARPS, ctas_of, desc_on, from_u32, to_u32
 
 _M32 = 0xFFFFFFFF
@@ -342,17 +349,12 @@ def _as_array(data: bytes | np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(data, dtype=np.uint8)
 
 
-def mega_operands(
-    arr: np.ndarray, geoms: list[tuple[int, int, int, int, int]], *, bits: int
-) -> tuple[np.ndarray, np.ndarray, dict[str, np.ndarray]]:
-    """Host side of the one-call encode of the megas [(base, rows, steps,
-    n_tiles, valid bytes)]: (desc int64 [M, 9] (ENCODE_FIELDS), wire freqs
-    u16 [sum tiles, 256], make_enc_tables_batch tables [sum tiles, 256]),
-    exactly as the JAX encoder prepares them: each tile's histogram over its
-    contiguous wire range of valid bytes, the 1-symbol histogram for a tile
-    wholly past them.  (`make_tile_hists`, batched for the mt encoder's
-    small blocks, is slower on these 4 MiB tiles: one bincount of int32 keys
-    against one of the tile's bytes each.)"""
+def mega_segments(geoms: list[tuple[int, int, int, int, int]]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The one-call encode's descriptors of the megas [(base, rows, steps,
+    n_tiles, valid bytes)] and each tile's bytes: (desc int64 [M, 9]
+    (ENCODE_FIELDS), starts and ends int64 [sum tiles]): each tile's
+    contiguous wire range of valid bytes, empty for a tile wholly past
+    them."""
     desc, starts, ends = [], [], []
     cta = tab0 = cnt_off = state0 = 0
     for base, rows, steps, n_tiles, valid in geoms:
@@ -366,9 +368,43 @@ def mega_operands(
         tab0 += n_tiles
         cnt_off += n_tiles * rows * steps
         state0 += rows
-    hists = [make_tile_hist(arr[s:e], bits) for s, e in zip(np.concatenate(starts), np.concatenate(ends))]
+    return np.array(desc, np.int64).reshape(-1, len(ENCODE_FIELDS)), np.concatenate(starts), np.concatenate(ends)
+
+
+def mega_operands(
+    arr: np.ndarray, geoms: list[tuple[int, int, int, int, int]], *, bits: int
+) -> tuple[np.ndarray, np.ndarray, dict[str, np.ndarray]]:
+    """Host side of the one-call encode of the megas [(base, rows, steps,
+    n_tiles, valid bytes)]: (desc int64 [M, 9] (ENCODE_FIELDS), wire freqs
+    u16 [sum tiles, 256], make_enc_tables_batch tables [sum tiles, 256]),
+    exactly as the JAX encoder prepares them: each tile's histogram over its
+    contiguous wire range of valid bytes, the 1-symbol histogram for a tile
+    wholly past them.  (`make_tile_hists`, batched for the mt encoder's
+    small blocks, is slower on these 4 MiB tiles: one bincount of int32 keys
+    against one of the tile's bytes each.)"""
+    desc, starts, ends = mega_segments(geoms)
+    hists = [make_tile_hist(arr[s:e], bits) for s, e in zip(starts, ends)]
     freqs = np.stack([h.symbol_count for h in hists])
-    return np.array(desc, np.int64), freqs, make_enc_tables_batch(freqs, np.stack([h.cumul for h in hists]), bits)
+    return desc, freqs, make_enc_tables_batch(freqs, np.stack([h.cumul for h in hists]), bits)
+
+
+def enc_tables_device(freqs: torch.Tensor, cumuls: torch.Tensor, bits: int) -> tuple[torch.Tensor, ...]:
+    """make_enc_tables_batch's (fc, m, l) as int32 [T, 256] tensors on the
+    freqs' device, from freqs and cumuls int16 [T, 256] (u16): m and l
+    gathered by d = max(freq, 1) from the mt encoder's tables of every
+    divisor up to 2^15 (freqs sum to 2^B <= 2^15), so no division runs.  The
+    tables `hsrans_tpu/kernels/tpx_encode.py::_device_tile_tables` makes on
+    the TPU."""
+    dev = freqs.device
+    f = freqs.to(torch.int64) & 0xFFFF
+    cum = cumuls.to(torch.int64) & 0xFFFF
+    d = torch.clamp(f, min=1)
+    l = shift_tensor(dev)[d]
+    if bits <= 12:  # absent symbols' fields zeroed, as make_enc_tables_batch zeroes them
+        fc = f | (torch.where(f > 0, cum, 0) << 13) | (l.to(torch.int64) << 25)
+    else:
+        fc = f | (cum << 16)
+    return from_u32(fc), magic_tensor(dev)[d], l
 
 
 def _encode_megas(
@@ -380,18 +416,28 @@ def _encode_megas(
     v3: bool,
     device: torch.device,
     layers: dict[str, float] | None,
+    device_tables: bool = False,
 ) -> bytes:
     """The blob: `head` (the 44-byte header; the total length at [16:24]
     filled in here), then the wire sections of the megas [(base, rows,
     steps, n_tiles, valid bytes)] encoded on `device`, with v3 each after
     its u32 rows | u32 steps: one kernel launch of the encode and one of the
-    wire writer for all of them.  Bytes equal
+    wire writer for all of them, and with `device_tables` one of each
+    histogram kernel before them.  Bytes equal
     `hsrans_tpu.ops.tpx._encode_mega_into`'s mega by mega."""
-    with layer_clock(layers, "host_hist_tables", device):
-        desc, freqs, tabs = mega_operands(arr, geoms, bits=bits)
-    with layer_clock(layers, "h2d", device):
-        data, fc, m, l, freqs_t = (torch.from_numpy(a).to(device) for a in (arr, tabs["fc"], tabs["m"], tabs["l"],
-                                                                               freqs.view(np.int16)))
+    if device_tables:
+        with layer_clock(layers, "h2d", device):
+            data = torch.from_numpy(arr).to(device)
+        with layer_clock(layers, "kernel_hist", device):
+            desc, starts, ends = mega_segments(geoms)
+            freqs_t, cumuls_t = segment_hists(data, starts, ends, bits)  # the freqs stay on the card for the writer
+            fc, m, l = enc_tables_device(freqs_t, cumuls_t, bits)
+    else:
+        with layer_clock(layers, "host_hist_tables", device):
+            desc, freqs, tabs = mega_operands(arr, geoms, bits=bits)
+        with layer_clock(layers, "h2d", device):
+            data, fc, m, l, freqs_t = (torch.from_numpy(a).to(device) for a in (arr, tabs["fc"], tabs["m"], tabs["l"],
+                                                                                   freqs.view(np.int16)))
     with layer_clock(layers, "kernel_encode", device):
         win, cnt, states = encode_mega(data, desc, fc, m, l, bits=bits)
     with layer_clock(layers, "host_layout", device):
@@ -421,13 +467,19 @@ def tpx_encode_torch(
     goal: str = "balanced",
     device: str | torch.device = "cuda",
     layers: dict[str, float] | None = None,
+    device_tables: bool = False,
 ) -> bytes:
     """Encode to the tpx v2 wire on `device`; equal to the JAX package's
-    `ops.tpx.tpx_encode`.
+    `ops.tpx.tpx_encode`, and to its `kernels.tpx_encode.tpx_encode_tpu`
+    with the same `device_tables`.
 
+    With `device_tables`, the per-tile histograms, their exact
+    normalization to 2^B and the encode tables are made on `device`
+    (`models/device_hist.py`), not on the host; the bytes are the same.
     With `layers`, adds the seconds of each layer of this call to it
-    (host_hist_tables, h2d, kernel_encode, host_layout, kernel_concat, d2h,
-    host_mux), the device synchronized at each boundary."""
+    (host_hist_tables, or with `device_tables` kernel_hist; h2d,
+    kernel_encode, host_layout, kernel_concat, d2h, host_mux), the device
+    synchronized at each boundary."""
     dev = resolve(device)
     arr = _as_array(data)
     length = arr.size
@@ -435,13 +487,22 @@ def tpx_encode_torch(
     if p.lanes != L or p.steps % 4 or not 10 <= p.bits <= 15:
         raise ValueError("tpx encode requires lanes == 128, steps % 4 == 0 and 10 <= bits <= 15")
     geoms = [(base, p.rows, p.steps, n_tiles, valid) for base, n_tiles, valid in _mega_layout(length, p)]
-    return _encode_megas(bytes(tpx_header(length, p)), arr, geoms, bits=p.bits, v3=False, device=dev, layers=layers)
+    return _encode_megas(bytes(tpx_header(length, p)), arr, geoms, bits=p.bits, v3=False, device=dev, layers=layers,
+                         device_tables=device_tables)
 
 
-def tpx_encode_adaptive_torch(data: bytes | np.ndarray, bits: int = 12, device: str | torch.device = "cuda") -> bytes:
+def tpx_encode_adaptive_torch(
+    data: bytes | np.ndarray,
+    bits: int = 12,
+    device: str | torch.device = "cuda",
+    layers: dict[str, float] | None = None,
+    device_tables: bool = False,
+) -> bytes:
     """Encode to the v3 adaptive wire (per-megablock geometry from
     `tpx_plan_geometry`) on `device`; equal to the JAX package's
-    `ops.tpx.tpx_encode_adaptive`."""
+    `ops.tpx.tpx_encode_adaptive`, and to its
+    `kernels.tpx_encode.tpx_encode_adaptive_tpu` with the same
+    `device_tables`.  `layers` and `device_tables` as in tpx_encode_torch."""
     dev = resolve(device)
     if not 10 <= bits <= 15:
         raise ValueError("tpx encode requires 10 <= bits <= 15")
@@ -452,4 +513,4 @@ def tpx_encode_adaptive_torch(data: bytes | np.ndarray, bits: int = 12, device: 
     head = MAGIC3 + length.to_bytes(8, "little") + bytes(8)
     head += b"".join(int(v).to_bytes(4, "little") for v in (bits, g0.rows, L, g0.steps, g0.n_tiles))
     megas = [(g.base, g.rows, g.steps, g.n_tiles, max(0, min(length - g.base, g.span))) for g in geoms]
-    return _encode_megas(head, arr, megas, bits=bits, v3=True, device=dev, layers=None)
+    return _encode_megas(head, arr, megas, bits=bits, v3=True, device=dev, layers=layers, device_tables=device_tables)

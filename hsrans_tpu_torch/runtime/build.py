@@ -37,7 +37,7 @@ NVCC_FLAGS = [
 # kernel name -> successful launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {
     "tpx_decode": 0, "tpx_encode": 0, "tpx_concat": 0, "mt_decode": 0, "mt_annotate": 0, "mt_decode_annotated": 0,
-    "mt_encode": 0, "mt_place": 0,
+    "mt_encode": 0, "mt_place": 0, "hist_count": 0, "hist_normalize": 0,
 }
 
 _P = ctypes.c_void_p
@@ -61,6 +61,10 @@ _SIGNATURES = {
     "hsr_mt_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
     # words, index, counts, final states, freqs, nb, place rows, rows, out, n, words_cap, out u16s, cuda stream
     "hsr_mt_wire": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
+    # data, segment rows, segments, chunks, chunk bytes, counts, cuda stream
+    "hsr_hist_count": [_P, _P, _I, ctypes.c_longlong, ctypes.c_longlong, _P, _P],
+    # counts, divisors, rows, bits, freq, cumul, cuda stream
+    "hsr_hist_normalize": [_P, _P, _I, _I, _P, _P, _P],
 }
 
 _lib = None

@@ -19,6 +19,7 @@ from hsrans_tpu_torch.kernels import mt_encode as mte
 from hsrans_tpu_torch.kernels import tpx_decode as dec
 from hsrans_tpu_torch.kernels import tpx_encode as enc
 from hsrans_tpu_torch.parallel.sharded import device_plan, uniform_plan
+from hsrans_tpu_torch.runtime import build
 from tools.gen_inputs import text_like
 
 pytestmark = pytest.mark.cuda
@@ -324,3 +325,97 @@ def test_mt_place_edges(cuda, case, n):
     scratch ending at an odd u16, and a block far longer than one chunk."""
     for name, pargs, pkw in chip_smoke.place_edge_operands(case, n, cuda):
         assert chip_smoke.place_check(f"{case}, {name}", pargs, pkw, timed=False)["every_byte_written"]
+
+
+@pytest.mark.parametrize("case", chip_smoke.HIST_EDGES)
+def test_hist_kernels_equal_plain_on_edges(cuda, case):
+    """The count and normalise kernels == their plain versions on
+    chip_smoke.py's HIST_EDGES at B=10, 12 and 15 (hist_check raises on any
+    difference)."""
+    res = chip_smoke.hist_check(case, *chip_smoke.hist_edge_operands(case, cuda), (10, 12, 15), False)
+    assert res["hist_count"]["max_abs_err"] == 0
+
+
+@pytest.mark.parametrize("bits", (4, 10, 12, 15))
+def test_hist_kernels_equal_make_tile_hist(cuda, bits):
+    """The card's freqs of ragged segments (any byte phase, empty, one
+    byte, several chunks, out of order) == the JAX package's host
+    `make_tile_hist` of each, and the cumuls its."""
+    from hsrans_tpu.ops.tpx import make_tile_hist
+    from hsrans_tpu_torch.models import device_hist as dh
+
+    rng = np.random.default_rng(bits)
+    data = text_like(rng, 600_000)
+    starts = np.array([0, 3, 4096, 77, 500_000, 100, 9, 131_073, 599_999, 1000], np.int64)
+    ends = np.array([4096, 4099, 8192, 77, 600_000, 50, 10, 400_001, 600_000, 200_000], np.int64)
+    before = dict(build.LAUNCHES)
+    freq, cumul = dh.segment_hists(torch.from_numpy(data).to(cuda), starts, ends, bits)
+    assert _hist_launches(before) == 1
+    for i, (s, e) in enumerate(zip(starts, ends)):
+        want = make_tile_hist(data[s:e], bits)
+        assert np.array_equal(freq[i].cpu().numpy().view(np.uint16), want.symbol_count)
+        assert np.array_equal(cumul[i].cpu().numpy().view(np.uint16), want.cumul)
+
+
+def _hist_launches(before: dict[str, int]) -> int:
+    """Launches of each histogram kernel since `before` (a copy of
+    build.LAUNCHES); raises if the two differ."""
+    count, norm = (build.LAUNCHES[k] - before[k] for k in ("hist_count", "hist_normalize"))
+    assert count == norm
+    return count
+
+
+@pytest.mark.parametrize("bits", (10, 12, 15))
+@pytest.mark.parametrize("case", sorted(TPX_GEOMS))
+def test_tpx_device_tables_equal_authority(cuda, bits, case):
+    """tpx encode with device_tables=True on the card == the numpy
+    authority (v2 or, for mixed geometry, the host tables' v3 megas), one
+    launch of each histogram kernel."""
+    geom = TPX_GEOMS[case]
+    before = dict(build.LAUNCHES)
+    if len(set(geom)) == 1:
+        rows, steps, tiles = geom[0]
+        p = TpxParams(bits=bits, rows=rows, steps=steps, tiles=tiles)
+        data = text_like(np.random.default_rng(bits), 2 * p.mega_bytes + 999)
+        blob = enc.tpx_encode_torch(data, p=p, device="cuda", device_tables=True)
+        assert blob == tpx_encode(data, p=p)
+        assert dec.tpx_decode_torch(blob, device="cuda") == data.tobytes()
+    else:  # v3 megas of mixed geometry: equal to the host tables' on the card (held to the authority above)
+        spans = [r * s * 128 * n for r, s, n in geom]
+        data = text_like(np.random.default_rng(bits), sum(spans) - 5000)
+        bases = np.cumsum([0, *spans[:-1]]).tolist()
+        geoms = [(b, r, s, n, min(data.size - b, z)) for b, (r, s, n), z in zip(bases, geom, spans)]
+        blob = enc._encode_megas(bytes(44), data, geoms, bits=bits, v3=True, device=cuda, layers=None, device_tables=True)
+        assert _hist_launches(before) == 1
+        assert blob == enc._encode_megas(bytes(44), data, geoms, bits=bits, v3=True, device=cuda, layers=None)
+    assert _hist_launches(before) == 1
+
+
+def test_tpx_adaptive_device_tables_equals_authority(cuda):
+    from pathlib import Path
+
+    arr = np.fromfile(Path(__file__).parent / "corpus" / "corpus.bin", np.uint8)[: 1 << 20]
+    blob = enc.tpx_encode_adaptive_torch(arr, 12, device="cuda", device_tables=True)
+    assert blob == tpx_encode_adaptive(arr, 12)
+    assert dec.tpx_decode_torch(blob, device="cuda") == arr.tobytes()
+
+
+@pytest.mark.parametrize("given", ("none", "every other", "all"))
+def test_mt_plan_histograms_on_the_card(cuda, given):
+    """mt encode on the card takes the histograms of plan rows without freqs
+    with one launch of each histogram kernel (none where every row has
+    its freqs), among the given rows; the blob == the CPU tier's == the
+    blob of the same plan with every row's freqs taken on the host."""
+    from hsrans_tpu.ops.tpx import make_tile_hist
+    from hsrans_tpu_torch.ops.planner import BlockPlan
+
+    data = text_like(np.random.default_rng(21), 300_000)
+    cuts = [0, 4096, 10_048, 65_536, 65_600, 200_000, 300_000]  # whole lane groups: text holds no byte 0
+    full = [BlockPlan(s, e - s, False, 0, make_tile_hist(data[s:e], 12).symbol_count) for s, e in zip(cuts, cuts[1:])]
+    keep = {"none": lambda i: False, "every other": lambda i: i % 2 == 1, "all": lambda i: True}[given]
+    plan = [r if keep(i) else BlockPlan(r.start, r.size, False, 0, None) for i, r in enumerate(full)]
+    before = dict(build.LAUNCHES)
+    blob = mte.mt_encode_torch(data, 12, plan=plan, device="cuda")
+    assert _hist_launches(before) == int(given != "all")
+    assert blob == mte.mt_encode_torch(data, 12, plan=plan, device="cpu") == mte.mt_encode_torch(data, 12, plan=full, device="cpu")
+    assert mtd.mt_decode_torch(blob, 12, 64, device="cuda") == data.tobytes()

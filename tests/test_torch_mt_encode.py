@@ -323,3 +323,20 @@ def test_magic_table_divides_exactly(xs):
         x = np.random.default_rng(5).integers(0, 1 << 31, (d.size, 64), dtype=np.uint64)
     q = (table[1:, None] * x) >> (np.uint64(31) + l[:, None])
     assert np.array_equal(q, x // d[:, None])
+
+
+@pytest.mark.parametrize("given", ("none", "every other"))
+def test_plan_rows_without_freqs_give_the_same_bytes(given):
+    """Plan rows without freqs get the histogram of their bytes: the blob
+    == the same plan with every row's freqs taken by the host's
+    make_tile_hist, and == the Pallas encoder's on the plan as given."""
+    from hsrans_tpu.ops.tpx import make_tile_hist
+
+    data = text_like(np.random.default_rng(21), 90_000)
+    cuts = [0, 4096, 10_048, 40_000, 40_064, 90_000]  # whole lane groups: text holds no byte 0
+    full = [BlockPlan(s, e - s, False, 0, make_tile_hist(data[s:e], 12).symbol_count) for s, e in zip(cuts, cuts[1:])]
+    plan = [r if given == "every other" and i % 2 else BlockPlan(r.start, r.size, False, 0, None) for i, r in enumerate(full)]
+    blob = mt_encode_torch(data, 12, plan=plan, device="cpu")
+    assert blob == mt_encode_torch(data, 12, plan=full, device="cpu")
+    assert blob == mt64_encode_tpu(data, 12, plan=_jax_plan(plan), interpret=True)
+    assert _decodes(blob, data, 12)

@@ -59,7 +59,7 @@ def test_no_port_source_imports_jax(package):
     name jax or the JAX package in an import (the `hsrans_tpu_torch`
     package itself is the port)."""
     files = [*PORT.rglob("*.py"), REPO / "chip_smoke.py", REPO / "chip_ab.py"]
-    assert len(files) >= 10
+    assert len(files) >= 10 and PORT / "models" / "device_hist.py" in files
     for f in files:
         for line in f.read_text().splitlines():
             words = line.split()
@@ -88,7 +88,37 @@ def test_every_entry_point_is_bound_and_reports_its_launch():
             body = text[at : text.index("\n}", at)]  # to the end of the launching function
             assert "cudaGetLastError()" in body, (src.name, text[at - 80 : at])
     assert entries == set(build._SIGNATURES)
-    assert {"mt_annotate", "mt_decode_annotated"} <= set(build.LAUNCHES)
+    assert {"hsr_hist_count", "hsr_hist_normalize"} <= entries  # csrc/hist.cu
+    assert {"mt_annotate", "mt_decode_annotated", "hist_count", "hist_normalize"} <= set(build.LAUNCHES)
+
+
+def test_cuda_sources_stand_alone():
+    """The CUDA sources include neither PyTorch's headers nor any file
+    outside the toolkit and csrc/ (a plain C interface, built in seconds)."""
+    import re
+
+    sources = sorted((PORT / "csrc").glob("*.cu*"))
+    assert PORT / "csrc" / "hist.cu" in sources
+    for src in sources:
+        text = src.read_text()
+        for inc in re.findall(r"#include\s+[<\"]([^>\"]+)[>\"]", text):
+            assert not inc.startswith(("torch", "ATen", "c10")), (src.name, inc)
+            assert "/" not in inc or (PORT / "csrc" / inc).exists(), (src.name, inc)
+
+
+def test_cuda_wrappers_never_take_the_plain_version():
+    """No `*_cuda` wrapper or `launch*` entry of the port calls a plain
+    version: on CUDA operands it launches its kernel or raises."""
+    import ast
+
+    for path in PORT.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef) and (fn.name.endswith("_cuda") or fn.name.startswith("launch")):
+                called = {n.func.id if isinstance(n.func, ast.Name) else getattr(n.func, "attr", "")
+                          for n in ast.walk(fn) if isinstance(n, ast.Call)}
+                assert not any(c.endswith("_plain") or c in ("bincount", "make_tile_hists") for c in called), (
+                    path.name, fn.name)
 
 
 def test_cuda_without_a_card_raises():
@@ -107,6 +137,8 @@ def test_cuda_without_a_card_raises():
         mt_encode_torch(b"abc", 12, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mt_encode_device(b"abc", 12, 32, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpx_encode_torch(b"abc", device="cuda", device_tables=True)
     with pytest.raises(ValueError):
         resolve("mps")
     assert resolve("cpu") == torch.device("cpu")
@@ -119,8 +151,13 @@ def test_wrappers_refuse_cpu_tensors():
     from hsrans_tpu_torch.kernels import mt_encode as mte
     from hsrans_tpu_torch.kernels import tpx_decode as dec
     from hsrans_tpu_torch.kernels import tpx_encode as enc
+    from hsrans_tpu_torch.models import device_hist as dh
 
     t = torch.zeros((1, 256), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        dh.observe_segments_cuda(torch.zeros(64, dtype=torch.uint8), np.array([0]), np.array([64]))
+    with pytest.raises(ValueError, match="CUDA"):
+        dh.normalize_rows_cuda(t, torch.ones(1, dtype=torch.int64), 12)
     u8 = torch.zeros(4096, dtype=torch.uint8)
     desc = np.array([[0, 8, 8, 1, 128, 0, 0, 0, 0, 0, 1]], np.int64)
     with pytest.raises(ValueError, match="CUDA"):
@@ -183,6 +220,14 @@ def test_dispatch_takes_plain_version_for_cpu_operands():
     freqs[0, 0] = 256
     words, count, fin = mte.encode_blocks(torch.zeros(64, dtype=torch.uint8), index, freqs, bits=8, n=64, rule="groups", words_cap=64)
     assert count.tolist() == [0] and (fin == 1 << 15).all() and not words.any()
+    # two segments of bytes 1, 1, 2 and none: the count and 1-symbol count; at B=2 the
+    # first normalizes to 3, 1 (scale 4/3 rounds 2.67 to 3 and 1.33 to 1), the second to 4
+    from hsrans_tpu_torch.models import device_hist as dh
+
+    counts = dh.observe_segments(torch.tensor([1, 1, 2], dtype=torch.uint8), np.array([0, 3]), np.array([3, 3]))
+    assert counts[0, 1:3].tolist() == [2, 1] and counts[1, 0] == 1 and counts.sum() == 4
+    freq, cumul = dh.normalize_rows(counts, torch.tensor([3, 1]), 2)
+    assert freq[0, 1:3].tolist() == [3, 1] and freq[1, 0] == 4 and cumul[0, :4].tolist() == [0, 0, 3, 4]
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -221,6 +266,9 @@ def test_layer_split_leaves_the_result_alone():
     assert set(enc) == {"host_hist_tables", "h2d", "kernel_encode", "host_layout", "kernel_concat", "d2h", "host_mux"}
     assert set(dec) == {"host_parse", "host_tables", "h2d", "kernel", "d2h", "host_assemble"}
     assert set(mt) == {"host_hist_tables", "h2d", "kernel_encode", "host_layout", "kernel_place", "d2h", "host_mux"}
+    dt = {}
+    assert tpx_encode_torch(data, device="cpu", layers=dt, device_tables=True) == blob
+    assert set(dt) == {"h2d", "kernel_hist", "kernel_encode", "host_layout", "kernel_concat", "d2h", "host_mux"}
     assert all(v >= 0 for v in (*enc.values(), *dec.values(), *mt.values()))
 
 

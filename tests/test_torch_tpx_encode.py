@@ -219,3 +219,38 @@ def test_encode_rejects_bad_geometry():
         pt.tpx_encode_torch(b"abc", bits=16, device="cpu")
     with pytest.raises(ValueError):
         pt.tpx_encode_adaptive_torch(b"abc", bits=9, device="cpu")
+
+
+@pytest.mark.parametrize("bits", (10, 12, 15))
+def test_device_tables_equals_pallas_device_tables(bits):
+    """`device_tables=True` (the per-tile histograms, their normalization
+    and the encode tables made by models/device_hist.py's plain versions on
+    the CPU) == the JAX package's `tpx_encode_tpu(..., device_tables=True)`
+    (models/jax_hist, Pallas in interpret mode) == the host tables' blob,
+    on tests/test_tpx_encode_kernel.py's geometry."""
+    p = small(bits)
+    data = text_like(np.random.default_rng(17), 2 * p.mega_bytes + 333)
+    got = pt.tpx_encode_torch(data, p=p, device="cpu", device_tables=True)
+    assert got == jx.tpx_encode_tpu(data, p=p, interpret=True, device_tables=True)
+    assert got == pt.tpx_encode_torch(data, p=p, device="cpu") == tpx_encode(data, p=p)
+    assert tpx_decode_torch(got, device="cpu") == data.tobytes()
+
+
+def test_adaptive_device_tables_equals_pallas_device_tables():
+    arr = np.fromfile(CORPUS, np.uint8)[:60_000]
+    got = pt.tpx_encode_adaptive_torch(arr, 12, device="cpu", device_tables=True)
+    assert got == jx.tpx_encode_adaptive_tpu(arr, 12, interpret=True, device_tables=True)
+    assert got == tpx_encode_adaptive(arr, 12)
+
+
+def test_device_tables_layers():
+    """With device_tables the histogram layer is kernel_hist, after the
+    input's h2d, and the blob is the host tables' (v2 and v3)."""
+    data = text_like(np.random.default_rng(3), 70_000)
+    host, dev = {}, {}
+    assert pt.tpx_encode_torch(data, device="cpu", layers=host) == pt.tpx_encode_torch(
+        data, device="cpu", layers=dev, device_tables=True)
+    assert set(dev) == set(host) - {"host_hist_tables"} | {"kernel_hist"}
+    v3 = {}
+    assert pt.tpx_encode_adaptive_torch(data, device="cpu", layers=v3, device_tables=True) == tpx_encode_adaptive(data)
+    assert set(v3) == set(dev)
