@@ -27,15 +27,27 @@ plain version's.  Each case times every tree's launch alone
 spin) in turns, each tree and then back in reverse order, and prints one
 JSON line with the card's name and power limit; `--out` also appends the
 lines to FILE.
+
+    python3 chip_ab.py NAME=DIR [NAME=DIR ...] --e2e REPS [--out FILE]
+
+times the trees' entry points end to end instead: each DIR a whole
+checkout (`git archive`), each tree's own package and kernels in a process
+of its own, in turns (each tree, then back in reverse order): mt encode
+(b) (64 MiB of enwik8-like text, seed 8, uniform 4 KiB blocks, B=12) and
+tpx encode (the same text, B=12), REPS calls each by the host's clock
+after one warm call, and one more call of each split by layer.  The
+trees' blobs must be equal.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import importlib.util
 import json
 import statistics
+import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -115,9 +127,10 @@ def tpx_cases(dev: torch.device) -> list[tuple[int, tuple, tuple, np.ndarray]]:
     for bits in (12, 15):
         p = TpxParams(bits=bits)
         geoms = [(base, p.rows, p.steps, n_tiles, valid) for base, n_tiles, valid in _mega_layout(data.size, p)]
-        desc, freqs, tabs = enc.mega_operands(data, geoms, bits=bits)
-        eops = (torch.from_numpy(data).to(dev), desc, *(torch.from_numpy(tabs[k]).to(dev) for k in ("fc", "m", "l")))
-        cases.append((bits, eops, chip_smoke.tpx_decode_args(tpx_encode_torch(data, bits, device=dev), dev), freqs))
+        data_t = torch.from_numpy(data).to(dev)
+        desc, freqs_t, *tabs = enc.mega_operands(data_t, geoms, bits=bits)
+        cases.append((bits, (data_t, desc, *tabs), chip_smoke.tpx_decode_args(tpx_encode_torch(data, bits, device=dev), dev),
+                      freqs_t.cpu().numpy().view(np.uint16)))
     return cases
 
 
@@ -332,15 +345,62 @@ def run_mt_place(libs: dict, name: str, outs: tuple, index: torch.Tensor, freqs:
           **in_turns({k: (lambda k=k: write(k)) for k in libs}, 1)})
 
 
+def e2e_worker(root: Path, reps: int) -> dict:
+    """One tree's end-to-end times in this process, its package imported
+    from `root` (see the module's doc)."""
+    sys.path.insert(0, str(root))
+    import hsrans_tpu_torch
+    from hsrans_tpu_torch import mt_encode_torch, tpx_encode_torch
+    from tools.gen_inputs import text_like
+
+    if not Path(hsrans_tpu_torch.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"{hsrans_tpu_torch.__file__} is not {root}'s package")
+    data = text_like(np.random.default_rng(8), 64 * MIB)
+    paths = {"mt_encode_b": lambda **kw: mt_encode_torch(data, 12, device="cuda", **kw),
+             "tpx_encode": lambda **kw: tpx_encode_torch(data, 12, device="cuda", **kw)}
+    res = {}
+    for name, fn in paths.items():
+        blob = fn()  # builds the kernels and warms the path
+        secs = chip_smoke.host_s(fn, reps)
+        layers = {}
+        fn(layers=layers)
+        res[name] = {"s": secs, "MiBps": data.size / MIB / statistics.median(secs), "layers": layers,
+                     "blob_sha256": hashlib.sha256(blob).hexdigest()}
+    return res
+
+
+def end_to_end(trees: dict[str, str], reps: int, sink) -> None:
+    """Each tree's e2e_worker in a process of its own, in turns; fails if
+    a tree's blobs differ from the first tree's."""
+    blobs = {}
+    for k in [*trees, *reversed(trees)]:
+        r = subprocess.run([sys.executable, str(REPO / "chip_ab.py"), f"{k}={trees[k]}", "--e2e", str(reps), "--worker"],
+                           capture_output=True, text=True, check=False)
+        if r.returncode:
+            raise RuntimeError(f"{k}: exit {r.returncode}: {r.stderr[-3000:]}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        blobs.setdefault(k, {p: v["blob_sha256"] for p, v in res.items()})
+        sink({"phase": "end_to_end", "tree": k, **res})
+    first = next(iter(blobs.values()))
+    if any(b != first for b in blobs.values()):
+        raise AssertionError(f"the trees' blobs differ: {blobs}")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", metavar="NAME=DIR", help="a name and a directory holding hsrans_tpu_torch/")
     ap.add_argument("--out", type=Path, help="a file to which the JSON lines are appended")
+    ap.add_argument("--e2e", type=int, metavar="REPS", help="time the entry points end to end, REPS calls each")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device", file=sys.stderr)
         return 1
     trees = dict(t.split("=", 1) for t in args.trees)
+    if args.worker:
+        ((root,),) = [trees.values()]
+        print(json.dumps(e2e_worker(Path(root).resolve(), args.e2e)))
+        return 0
     builds = {k: load_tree(k, Path(d).resolve()) for k, d in trees.items()}
     with ThreadPoolExecutor(len(builds)) as pool:  # nvcc runs in subprocesses: the trees build at once
         libs = dict(zip(builds, pool.map(lambda b: b.load(), builds.values())))
@@ -354,6 +414,9 @@ def main(argv: list[str] | None = None) -> int:
             log.write(line + "\n")
 
     try:
+        if args.e2e:
+            end_to_end(trees, args.e2e, sink)
+            return 0
         sink({"phase": "build", "trees": trees, "libraries": {k: str(b.library_path()) for k, b in builds.items()}})
         run_tpx(libs, torch.device("cuda", 0), sink)
         run(libs, torch.device("cuda", 0), sink)

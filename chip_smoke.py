@@ -34,9 +34,8 @@ the port's two paths through their public entry points:
     tpx main path's 16 tiles, the reference planner's 2^25-byte block and
     at their edges (`HIST_EDGES`, which the card tests run too), with one
     `torch.bincount` over the 64 MiB as the count's yardstick; tpx encode
-    with `device_tables=True` (blobs equal to the host tables' and the CPU
-    tier's, end to end against the host tables in turns); mt encode (b)
-    takes its plan's histograms on the card;
+    and mt encode (b) take their histograms on the card, one launch of each
+    kernel a call;
   * the mt decode and encode kernels' shared-memory windows at their edges
     (`DECODE_EDGES`, `ENCODE_EDGES`), and the two wire writers, tpx and
     mt, at theirs (`TPX_WIRE_EDGES`, `MT_PLACE_EDGES`), which the card tests
@@ -213,9 +212,8 @@ def kernels_vs_plain(bits: int, data: np.ndarray, dev: torch.device) -> dict:
 
     p = TpxParams(bits=bits)
     geoms = [(base, p.rows, p.steps, n_tiles, valid) for base, n_tiles, valid in _mega_layout(data.size, p)]
-    desc, freqs, tabs = enc.mega_operands(data, geoms, bits=bits)
     data_t = torch.from_numpy(data).to(dev)
-    ops = [torch.from_numpy(tabs[k]).to(dev) for k in ("fc", "m", "l")]
+    desc, freqs_t, *ops = enc.mega_operands(data_t, geoms, bits=bits)
     res = {}
     links = p.tiles * p.steps  # one lane's chain: every step of every tile of its row
 
@@ -254,7 +252,7 @@ def kernels_vs_plain(bits: int, data: np.ndarray, dev: torch.device) -> dict:
     # the layout, and writes the sections
     row_words = torch.cat([c.sum(dim=2).reshape(-1) for _, c, _ in enc.mega_views(*outs, desc)]).cpu().numpy()
     wdesc, row_at, out_u16 = enc.wire_layout(desc, row_words, v3=False, base=HEAD_U16)
-    wargs, wkw = (*outs, torch.from_numpy(freqs.view(np.int16)).to(dev), wdesc, row_at), {"v3": False, "out_u16": out_u16}
+    wargs, wkw = (*outs, freqs_t, wdesc, row_at), {"v3": False, "out_u16": out_u16}
     wout = torch.empty(out_u16, dtype=torch.int16, device=dev)
     wlaunch = wire_launch(wargs, wkw, wout, dev)
     check(
@@ -1353,57 +1351,6 @@ def hist_kernels_vs_plain(data: np.ndarray, dev: torch.device) -> tuple[list[dic
     return rows, edges, library_ms
 
 
-def tpx_device_tables(data: np.ndarray, blob: bytes, corpus: np.ndarray, dev: torch.device) -> dict:
-    """tpx encode with `device_tables=True`: the 64 MiB main path (one
-    launch of each histogram kernel, the encode and the wire writer) gives
-    `blob`, the host tables' blob, which the main path held against the CPU
-    tier's; at B=10 and B=15 on 4 MiB and v3 on 2 MiB of corpus.bin the blob
-    equals the host tables' and the CPU tier's with device tables, and
-    decodes on the card.  Then both paths end to end in turns and one pass
-    of each split by layer."""
-    from hsrans_tpu_torch import tpx_decode_torch, tpx_encode_adaptive_torch, tpx_encode_torch
-    from hsrans_tpu_torch.runtime import build
-    from tools.gen_inputs import text_like
-
-    build.reset_launches()
-    got = tpx_encode_torch(data, 12, device="cuda", device_tables=True)
-    torch.cuda.synchronize()
-    launches = {k: build.LAUNCHES[k] for k in ("hist_count", "hist_normalize", "tpx_encode", "tpx_concat")}
-    if launches != dict.fromkeys(launches, 1):
-        raise AssertionError(f"64 MiB device_tables: launches {launches}, one of each expected")
-    if got != blob:
-        raise AssertionError("64 MiB: the blob with device_tables=True differs from the host tables' (the CPU tier's)")
-    cases = (
-        ("B=10 4 MiB", text_like(np.random.default_rng(10), 4 * MIB),
-         lambda d, device, dt: tpx_encode_torch(d, 10, device=device, device_tables=dt)),
-        ("B=15 4 MiB", text_like(np.random.default_rng(15), 4 * MIB),
-         lambda d, device, dt: tpx_encode_torch(d, 15, device=device, device_tables=dt)),
-        ("v3 corpus.bin 2 MiB", corpus[: 2 * MIB],
-         lambda d, device, dt: tpx_encode_adaptive_torch(d, 12, device=device, device_tables=dt)),
-    )
-    for name, src, encode in cases:
-        card = encode(src, "cuda", True)
-        if card != encode(src, "cuda", False) or card != encode(src, "cpu", True):
-            raise AssertionError(f"{name}: the device tables' blob differs from the host tables' or the CPU tier's")
-        if tpx_decode_torch(card, device="cuda") != src.tobytes():
-            raise AssertionError(f"{name}: decode on the card does not return the input")
-    runs = {False: [], True: []}
-    for dt in (False, True, True, False) * 2:
-        runs[dt] += host_s(lambda: tpx_encode_torch(data, 12, device="cuda", device_tables=dt), 1)
-    layers = {"host_tables": {}, "device_tables": {}}
-    for key, dt in (("host_tables", False), ("device_tables", True)):
-        if tpx_encode_torch(data, 12, device="cuda", device_tables=dt, layers=layers[key]) != blob:
-            raise AssertionError("64 MiB: the layer-timed encode differs")
-    res = {
-        "bytes": data.size, "launches": launches, "cases": [c[0] for c in cases],
-        "host_tables_s": runs[False], "device_tables_s": runs[True],
-        "host_tables_MiBps": data.size / MIB / statistics.median(runs[False]),
-        "device_tables_MiBps": data.size / MIB / statistics.median(runs[True]), "layers": layers,
-    }
-    emit("tpx_device_tables", **res)
-    return res
-
-
 def main() -> int:
     global CARD, OPS_PER_S
     if not torch.cuda.is_available():
@@ -1451,11 +1398,12 @@ def main() -> int:
     blob = tpx_encode_torch(data, 12, device="cuda")
     back = tpx_decode_torch(blob, device="cuda")
     torch.cuda.synchronize()
-    launches = {k: build.LAUNCHES[k] for k in ("tpx_decode", "tpx_encode", "tpx_concat")}
+    launches = {k: build.LAUNCHES[k] for k in ("tpx_decode", "tpx_encode", "tpx_concat", "hist_count", "hist_normalize")}
     if back != data.tobytes():
         raise AssertionError("64 MiB: tpx_decode_torch does not return the input")
-    if launches != {"tpx_decode": 1, "tpx_encode": 1, "tpx_concat": 1}:
-        raise AssertionError(f"the main path's launches {launches}: one decode, one encode and one wire writer expected")
+    if launches != dict.fromkeys(launches, 1):
+        raise AssertionError(f"the main path's launches {launches}: one decode, one encode, one wire writer and one of "
+                             "each histogram kernel expected")
     t0 = time.perf_counter()
     if blob != tpx_encode_torch(data, 12, device="cpu"):
         raise AssertionError("64 MiB: the card's blob differs from the CPU tier's")
@@ -1515,9 +1463,8 @@ def main() -> int:
 
     # 6b. the histogram kernels against their plain versions (mt encode
     #     (b)'s blocks, the tpx main path's tiles, the planner's largest
-    #     block, HIST_EDGES), then tpx encode's device_tables=True path
+    #     block, HIST_EDGES)
     hist_rows, hist_edges, bincount_ms = hist_kernels_vs_plain(data, dev)
-    tpx_device_tables(data, blob, corpus, dev)
 
     # 7. mt decode: kernel classes, main path, round trips, malformed, times
     mt_rows, mt_launches, ctx = mt_phases(repo, dev)

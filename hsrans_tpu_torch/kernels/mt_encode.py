@@ -7,8 +7,8 @@ valid wire that the C++ reference and `mt_decode_torch` decode, byte-
 different from the carried-state oracle `ops.mt.mt_encode_py`.  The host
 makes one small index row per coded block and the input goes to the card as
 it is; the histograms of plan rows without freqs are taken there, by the
-two kernels of `models/device_hist.py` (one launch each), and stay there
-(on the CPU the host takes them, `ops/tpx.py::make_tile_hists`).  One launch encodes every coded block
+two kernels of `models/device_hist.py` (one launch each), and stay there.
+One launch encodes every coded block
 (`encode_blocks`), each block's words landing in wire order at the end of
 its own scratch region; the host turns the word counts into the blob's part
 offsets, and one more launch writes the whole blob (`place_blocks`): its
@@ -29,7 +29,6 @@ import torch
 from ..models.device_hist import segment_hists
 from ..ops.mt import _as_array
 from ..ops.planner import BlockPlan
-from ..ops.tpx import make_tile_hists
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
 from ..runtime import build
 from ..runtime.device import layer_clock, resolve
@@ -66,10 +65,8 @@ def encode_tables(freqs: torch.Tensor, bits: int, rule: str) -> tuple[torch.Tens
     f = freqs.to(torch.int64) & 0xFFFF
     cum = (torch.cumsum(f, dim=1) - f) & 0xFFFF  # u16 on the wire
     d = torch.clamp(f, min=1)
-    l = torch.zeros_like(d)
-    for k in range(16):
-        l = torch.where(d > (1 << k), k + 1, l)
-    m = (torch.bitwise_left_shift(torch.ones_like(l), 31 + l) + d - 1) // d
+    l = shift_tensor(f.device)[d].to(torch.int64)
+    m = magic_tensor(f.device)[d].to(torch.int64) & _M32
     e = f if rule == "groups" else d
     return e, cum, d, m, l
 
@@ -316,33 +313,26 @@ def plan_rows(arr: np.ndarray, plan: list[BlockPlan], bits: int, n: int, rule: s
     return kinds, ks, index, given, freqs, bias
 
 
-def plan_freqs(arr: np.ndarray, data_t: torch.Tensor, ks: np.ndarray, index: np.ndarray, given: np.ndarray,
-               freqs: np.ndarray, bits: int, n: int) -> torch.Tensor:
+def plan_freqs(data_t: torch.Tensor, ks: np.ndarray, index: np.ndarray, given: np.ndarray, freqs: np.ndarray,
+               bits: int, n: int) -> torch.Tensor:
     """Every coded block's freqs as int16 [nb, 256] (u16) on data_t's device
     (data_t: the input there): the given rows' as they are, the others the
     histogram of the block's bytes within the input, as both JAX encoders
-    take it; on the host (`make_tile_hists`) for a CPU input, by the
-    histogram kernels over data_t for a CUDA one (`models/device_hist.py`:
-    one count launch and one normalise launch), the freqs left on the card.
+    take it, by `models/device_hist.py::segment_hists` over data_t (on the
+    card one count launch and one normalise launch, the freqs left there).
     Raises ValueError, under "groups", for a row whose lanes past its end
     code the byte 0 while its freqs give 0 no slot: the decoder would read
     another symbol there, so the blob would not decode (mt64_encode_tpu
     returns that blob; the port refuses it)."""
+    dev = data_t.device
     miss = np.nonzero(~given)[0]
-    starts, ends = index[miss, 0], index[miss, 2]
-    if data_t.device.type == "cpu":
-        if miss.size:
-            freqs[miss] = make_tile_hists(arr, starts, ends, bits)
-        freqs_t = torch.from_numpy(freqs.view(np.int16))
-    elif not miss.size:
-        freqs_t = torch.from_numpy(freqs.view(np.int16)).to(data_t.device)
+    found = segment_hists(data_t, index[miss, 0], index[miss, 2], bits)[0] if miss.size else None
+    if miss.size and miss.size == given.size:
+        freqs_t = found  # no given freqs to send
     else:
-        found, _ = segment_hists(data_t, starts, ends, bits)
-        if miss.size == given.size:
-            freqs_t = found
-        else:
-            freqs_t = torch.from_numpy(freqs.view(np.int16)).to(data_t.device)
-            freqs_t[torch.from_numpy(miss).to(data_t.device)] = found
+        freqs_t = torch.from_numpy(freqs.view(np.int16)).to(dev)
+        if miss.size:
+            freqs_t[torch.from_numpy(miss).to(dev)] = found
     # the partial last group of a non-final block: under "groups" its lanes
     # past byte_limit code the byte 0 up to the input's end (ops/mt.py::_lane_groups)
     start, num_groups, byte_limit, valid_limit = index[:, :4].T
@@ -360,10 +350,10 @@ def plan_freqs(arr: np.ndarray, data_t: torch.Tensor, ks: np.ndarray, index: np.
 def plan_operands(arr: np.ndarray, plan: list[BlockPlan], bits: int, n: int, rule: str):
     """Host side of one encode: (kinds, coded rows' plan positions, index,
     freqs uint16 [nb, 256], offset bias) of `plan_rows`, every coded row's
-    freqs filled in on the host (`plan_freqs`, whose checks it makes)."""
+    freqs filled in on the CPU (`plan_freqs`, whose checks it makes)."""
     kinds, ks, index, given, freqs, bias = plan_rows(arr, plan, bits, n, rule)
-    plan_freqs(arr, _input_tensor(arr, torch.device("cpu")), ks, index, given, freqs, bits, n)
-    return kinds, ks, index, freqs, bias
+    freqs_t = plan_freqs(_input_tensor(arr, torch.device("cpu")), ks, index, given, freqs, bits, n)
+    return kinds, ks, index, freqs_t.numpy().view(np.uint16), bias
 
 
 def part_layout(plan: list[BlockPlan], kinds: np.ndarray, ks: np.ndarray, bias: np.ndarray, count: np.ndarray, n: int,
@@ -403,22 +393,21 @@ def encode_plan(
     layers: dict[str, float] | None = None,
 ) -> bytes:
     """The mt blob of `plan` over `arr`, every coded block encoded from fresh
-    states on `dev` (plan_rows says what `rule` changes); on the card the
-    histograms of rows without freqs too (`plan_freqs`).  With `layers`, the
+    states on `dev` (plan_rows says what `rule` changes), the histograms of
+    rows without freqs too (`plan_freqs`).  With `layers`, the
     host's walk of the plan counts as host_index and those histograms as
-    kernel_hist on the card; on the CPU both are host_hist_tables."""
+    kernel_hist."""
     if n not in (32, 64) or not 1 <= bits <= 15:
         raise ValueError("mt encode needs n in (32, 64) and 1 <= bits <= 15")
     length = arr.size
-    cuda = dev.type == "cuda"
-    with layer_clock(layers, "host_index" if cuda else "host_hist_tables", dev):
+    with layer_clock(layers, "host_index", dev):
         kinds, ks, index, given, freqs, bias = plan_rows(arr, plan, bits, n, rule)
     words_cap = int(index[-1, 4]) if len(ks) else 0
     with layer_clock(layers, "h2d", dev):
         data_t = _input_tensor(arr, dev)
         index_t = torch.from_numpy(index).to(dev)
-    with layer_clock(layers, "kernel_hist" if cuda else "host_hist_tables", dev):
-        freqs_t = plan_freqs(arr, data_t, ks, index, given, freqs, bits, n)
+    with layer_clock(layers, "kernel_hist", dev):
+        freqs_t = plan_freqs(data_t, ks, index, given, freqs, bits, n)
     with layer_clock(layers, "kernel_encode", dev):
         words_t, count_t, fin_t = encode_blocks(data_t, index_t, freqs_t, bits=bits, n=n, rule=rule, words_cap=words_cap)
     with layer_clock(layers, "host_layout", dev):
@@ -466,8 +455,7 @@ def mt_encode_torch(
     they are, single-symbol rows as RLE indicators.
 
     With `layers`, adds the seconds of each layer of this call to it
-    (on the card host_index, h2d, kernel_hist, ...; on the CPU
-    host_hist_tables, h2d, ...; then kernel_encode, host_layout,
+    (host_index, h2d, kernel_hist, kernel_encode, host_layout,
     kernel_place, d2h, host_mux), the device synchronized at each
     boundary."""
     if plan is None and not _kernel_block_ok(block_size):

@@ -7,14 +7,14 @@ leaves each step's emitted words compacted in lane order; phase B
 (`write_wire`, one launch for every mega) writes each mega's wire section
 into the blob on the card, the rows' ragged slots included, at the offsets
 that `wire_layout` computes on the host from the rows' word totals.
-The per-tile histograms and encode tables are made on the host, or, with
-`device_tables=True`, on the device (`models/device_hist.py`: one count
-launch and one normalise launch for every tile, then the tables in torch,
-the freqs left on the card for the wire writer), as the JAX package's
-`device_tables` path makes them on the TPU.  The 44-byte blob header stays
-on the host, and the blobs equal the JAX package's
-`hsrans_tpu.ops.tpx.tpx_encode` and `tpx_encode_adaptive` byte for byte
-either way.
+The per-tile histograms and encode tables are made on the device
+(`mega_operands`: `models/device_hist.py`'s one count launch and one
+normalise launch for every tile, then the tables in torch, the freqs left
+on the card for the wire writer), as the JAX package's `device_tables`
+path makes them on the TPU; its host path gives the same bytes, so the
+port has no other.  The 44-byte blob header stays on the host, and the
+blobs equal the JAX package's `hsrans_tpu.ops.tpx.tpx_encode` and
+`tpx_encode_adaptive` byte for byte.
 """
 
 from __future__ import annotations
@@ -29,13 +29,12 @@ from ..ops.tpx import (
     L,
     TpxParams,
     _mega_layout,
-    make_tile_hist,
     tpx_header,
     tpx_plan_geometry,
 )
 from ..runtime import build
 from ..runtime.device import layer_clock, resolve
-from .mt_encode import magic_tensor, shift_tensor
+from .mt_encode import _input_tensor, magic_tensor, shift_tensor
 from .tpx_decode import WARPS, ctas_of, desc_on, from_u32, to_u32
 
 _M32 = 0xFFFFFFFF
@@ -43,55 +42,6 @@ _M32 = 0xFFFFFFFF
 ENCODE_FIELDS = ("cta0", "rows", "steps", "n_tiles", "in_off", "tab0", "vlen", "cnt_off", "state0")
 # columns of the int64 per-mega descriptor of the wire writer; csrc/tpx_encode.cu::WireMega
 WIRE_FIELDS = ("cta0", "rows", "steps", "n_tiles", "cnt_off", "state0", "tab0", "row0", "sec_off", "w_slots")
-
-
-def div_magic(freq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Per-symbol (magic, shift) with floor(n/d) == (umul64(m,n)>>31)>>l for
-    all n < 2^31 (Granlund-Montgomery round-up magic, p = 31 + ceil(log2 d);
-    the n<2^31 bound is the rANS32 state invariant, states < EncodeEmitPoint
-    * freq <= 2^31).  freq == 0 entries get the d=1 identity.
-
-    Copy of `hsrans_tpu.kernels.tpx_encode.div_magic`, whose module imports
-    jax; tests hold the two equal."""
-    d = np.maximum(freq.astype(np.int64), 1)
-    l = np.zeros(256, dtype=np.int64)
-    for k in range(16):
-        l = np.where(d > (1 << k), k + 1, l)
-    m = -(-(np.int64(1) << (31 + l)) // d)  # ceil(2^(31+l) / d)
-    assert int(m.max()) < 1 << 32 and int(m.min()) >= 1 << 31
-    return m.astype(np.uint32), l.astype(np.uint32)
-
-
-def make_enc_tables_batch(freqs: np.ndarray, cumuls: np.ndarray, bits: int) -> dict[str, np.ndarray]:
-    """Vectorized symbol-indexed encode tables over a block batch [B, 256].
-
-    fc layout by depth: B<=12 packs freq(13) | cumul<<13 (12) | shift<<25
-    into one u32 (one gather in the kernels); B>=13 uses
-    freq | cumul<<16 plus the separate shift table l.
-
-    Copy of `hsrans_tpu.kernels.tpx_encode.make_enc_tables_batch`, whose
-    module imports jax; tests hold the two equal.
-    """
-    d = np.maximum(freqs.astype(np.int64), 1)
-    l = np.zeros_like(d)
-    for k in range(16):
-        l = np.where(d > (1 << k), k + 1, l)
-    m = -(-(np.int64(1) << (31 + l)) // d)
-    assert int(m.max()) < 1 << 32 and int(m.min()) >= 1 << 31  # q31 invariant
-    if bits <= 12:
-        # absent symbols (freq 0) can carry cumul == 2^bits, which would
-        # overflow the 12-bit field into the shift; they are never gathered
-        # by an unmasked lane, so zero their freq/cumul fields entirely
-        cum_field = np.where(freqs > 0, cumuls.astype(np.uint32), np.uint32(0))
-        frq_field = freqs.astype(np.uint32)
-        fc = frq_field | (cum_field << np.uint32(13)) | (l.astype(np.uint32) << np.uint32(25))
-    else:
-        fc = freqs.astype(np.uint32) | (cumuls.astype(np.uint32) << np.uint32(16))
-    return {
-        "fc": fc.view(np.int32),
-        "m": m.astype(np.uint32).view(np.int32),
-        "l": l.astype(np.int32),
-    }
 
 
 def _check_desc(name: str, desc: np.ndarray, n_data: int, n_tabs: int) -> tuple[int, int]:
@@ -153,7 +103,7 @@ def encode_mega_plain(data, desc, fc, m, l, *, bits: int):
     """Plain PyTorch version of the encode kernel, on any device.
 
     data uint8 [n] (the whole input), desc int64 [M, 9] host array
-    (ENCODE_FIELDS), fc/m/l int32 [sum tiles, 256] (make_enc_tables_batch)
+    (ENCODE_FIELDS), fc/m/l int32 [sum tiles, 256] (enc_tables_device)
     -> (win, cnt, states), int32, each the megas' outputs back to back (see
     `mega_views`): mega m's windows [T, S, R, 128] from cnt_off * 128, each
     step's emitted words in lane order and 0 past its count; its counts
@@ -371,40 +321,41 @@ def mega_segments(geoms: list[tuple[int, int, int, int, int]]) -> tuple[np.ndarr
     return np.array(desc, np.int64).reshape(-1, len(ENCODE_FIELDS)), np.concatenate(starts), np.concatenate(ends)
 
 
-def mega_operands(
-    arr: np.ndarray, geoms: list[tuple[int, int, int, int, int]], *, bits: int
-) -> tuple[np.ndarray, np.ndarray, dict[str, np.ndarray]]:
-    """Host side of the one-call encode of the megas [(base, rows, steps,
-    n_tiles, valid bytes)]: (desc int64 [M, 9] (ENCODE_FIELDS), wire freqs
-    u16 [sum tiles, 256], make_enc_tables_batch tables [sum tiles, 256]),
-    exactly as the JAX encoder prepares them: each tile's histogram over its
-    contiguous wire range of valid bytes, the 1-symbol histogram for a tile
-    wholly past them.  (`make_tile_hists`, batched for the mt encoder's
-    small blocks, is slower on these 4 MiB tiles: one bincount of int32 keys
-    against one of the tile's bytes each.)"""
-    desc, starts, ends = mega_segments(geoms)
-    hists = [make_tile_hist(arr[s:e], bits) for s, e in zip(starts, ends)]
-    freqs = np.stack([h.symbol_count for h in hists])
-    return desc, freqs, make_enc_tables_batch(freqs, np.stack([h.cumul for h in hists]), bits)
-
-
 def enc_tables_device(freqs: torch.Tensor, cumuls: torch.Tensor, bits: int) -> tuple[torch.Tensor, ...]:
-    """make_enc_tables_batch's (fc, m, l) as int32 [T, 256] tensors on the
-    freqs' device, from freqs and cumuls int16 [T, 256] (u16): m and l
-    gathered by d = max(freq, 1) from the mt encoder's tables of every
-    divisor up to 2^15 (freqs sum to 2^B <= 2^15), so no division runs.  The
-    tables `hsrans_tpu/kernels/tpx_encode.py::_device_tile_tables` makes on
-    the TPU."""
+    """The JAX package's `make_enc_tables_batch` (fc, m, l) as int32 [T,
+    256] tensors on the freqs' device, from freqs and cumuls int16 [T, 256]
+    (u16): m and l gathered by d = max(freq, 1) from the mt encoder's tables
+    of every divisor up to 2^15 (freqs sum to 2^B <= 2^15), so no division
+    runs.  fc by depth: B <= 12 packs freq (13 bits) | cumul << 13 (12) |
+    shift << 25 into one u32, an absent symbol's freq and cumul fields
+    zeroed (its cumul can be 2^B, which would spill into the shift); B >= 13
+    packs freq | cumul << 16 beside the separate shift table l.  The tables
+    `hsrans_tpu/kernels/tpx_encode.py::_device_tile_tables` makes on the
+    TPU."""
     dev = freqs.device
     f = freqs.to(torch.int64) & 0xFFFF
     cum = cumuls.to(torch.int64) & 0xFFFF
     d = torch.clamp(f, min=1)
     l = shift_tensor(dev)[d]
-    if bits <= 12:  # absent symbols' fields zeroed, as make_enc_tables_batch zeroes them
+    if bits <= 12:
         fc = f | (torch.where(f > 0, cum, 0) << 13) | (l.to(torch.int64) << 25)
     else:
         fc = f | (cum << 16)
     return from_u32(fc), magic_tensor(dev)[d], l
+
+
+def mega_operands(data: torch.Tensor, geoms: list[tuple[int, int, int, int, int]], *, bits: int):
+    """The one-call encode's operands of the megas [(base, rows, steps,
+    n_tiles, valid bytes)] over the input `data` (uint8 on its device):
+    (desc int64 [M, 9] (ENCODE_FIELDS), the wire freqs int16 [sum tiles,
+    256] (u16) and the encode tables fc, m, l int32 [sum tiles, 256] on
+    data's device), exactly as the JAX encoder prepares them: each tile's
+    histogram over its contiguous wire range of valid bytes, the 1-symbol
+    histogram for a tile wholly past them.  On the card, one launch of
+    each histogram kernel."""
+    desc, starts, ends = mega_segments(geoms)
+    freqs, cumuls = segment_hists(data, starts, ends, bits)
+    return desc, freqs, *enc_tables_device(freqs, cumuls, bits)
 
 
 def _encode_megas(
@@ -416,28 +367,17 @@ def _encode_megas(
     v3: bool,
     device: torch.device,
     layers: dict[str, float] | None,
-    device_tables: bool = False,
 ) -> bytes:
     """The blob: `head` (the 44-byte header; the total length at [16:24]
     filled in here), then the wire sections of the megas [(base, rows,
     steps, n_tiles, valid bytes)] encoded on `device`, with v3 each after
-    its u32 rows | u32 steps: one kernel launch of the encode and one of the
-    wire writer for all of them, and with `device_tables` one of each
-    histogram kernel before them.  Bytes equal
+    its u32 rows | u32 steps: one kernel launch of each histogram kernel,
+    of the encode and of the wire writer for all of them.  Bytes equal
     `hsrans_tpu.ops.tpx._encode_mega_into`'s mega by mega."""
-    if device_tables:
-        with layer_clock(layers, "h2d", device):
-            data = torch.from_numpy(arr).to(device)
-        with layer_clock(layers, "kernel_hist", device):
-            desc, starts, ends = mega_segments(geoms)
-            freqs_t, cumuls_t = segment_hists(data, starts, ends, bits)  # the freqs stay on the card for the writer
-            fc, m, l = enc_tables_device(freqs_t, cumuls_t, bits)
-    else:
-        with layer_clock(layers, "host_hist_tables", device):
-            desc, freqs, tabs = mega_operands(arr, geoms, bits=bits)
-        with layer_clock(layers, "h2d", device):
-            data, fc, m, l, freqs_t = (torch.from_numpy(a).to(device) for a in (arr, tabs["fc"], tabs["m"], tabs["l"],
-                                                                                   freqs.view(np.int16)))
+    with layer_clock(layers, "h2d", device):
+        data = _input_tensor(arr, device)
+    with layer_clock(layers, "kernel_hist", device):
+        desc, freqs_t, fc, m, l = mega_operands(data, geoms, bits=bits)  # the freqs stay on the card for the writer
     with layer_clock(layers, "kernel_encode", device):
         win, cnt, states = encode_mega(data, desc, fc, m, l, bits=bits)
     with layer_clock(layers, "host_layout", device):
@@ -470,16 +410,16 @@ def tpx_encode_torch(
     device_tables: bool = False,
 ) -> bytes:
     """Encode to the tpx v2 wire on `device`; equal to the JAX package's
-    `ops.tpx.tpx_encode`, and to its `kernels.tpx_encode.tpx_encode_tpu`
-    with the same `device_tables`.
+    `ops.tpx.tpx_encode` and `kernels.tpx_encode.tpx_encode_tpu`.
 
-    With `device_tables`, the per-tile histograms, their exact
-    normalization to 2^B and the encode tables are made on `device`
-    (`models/device_hist.py`), not on the host; the bytes are the same.
-    With `layers`, adds the seconds of each layer of this call to it
-    (host_hist_tables, or with `device_tables` kernel_hist; h2d,
-    kernel_encode, host_layout, kernel_concat, d2h, host_mux), the device
-    synchronized at each boundary."""
+    The per-tile histograms, their exact normalization to 2^B and the
+    encode tables are made on `device` (`mega_operands`).
+    `device_tables` keeps the JAX signature and changes nothing: the JAX
+    package's host and device tables give the same bytes, and the port
+    has only the device's.  With `layers`, adds the seconds of each layer
+    of this call to it (h2d, kernel_hist, kernel_encode, host_layout,
+    kernel_concat, d2h, host_mux), the device synchronized at each
+    boundary."""
     dev = resolve(device)
     arr = _as_array(data)
     length = arr.size
@@ -487,8 +427,7 @@ def tpx_encode_torch(
     if p.lanes != L or p.steps % 4 or not 10 <= p.bits <= 15:
         raise ValueError("tpx encode requires lanes == 128, steps % 4 == 0 and 10 <= bits <= 15")
     geoms = [(base, p.rows, p.steps, n_tiles, valid) for base, n_tiles, valid in _mega_layout(length, p)]
-    return _encode_megas(bytes(tpx_header(length, p)), arr, geoms, bits=p.bits, v3=False, device=dev, layers=layers,
-                         device_tables=device_tables)
+    return _encode_megas(bytes(tpx_header(length, p)), arr, geoms, bits=p.bits, v3=False, device=dev, layers=layers)
 
 
 def tpx_encode_adaptive_torch(
@@ -500,9 +439,8 @@ def tpx_encode_adaptive_torch(
 ) -> bytes:
     """Encode to the v3 adaptive wire (per-megablock geometry from
     `tpx_plan_geometry`) on `device`; equal to the JAX package's
-    `ops.tpx.tpx_encode_adaptive`, and to its
-    `kernels.tpx_encode.tpx_encode_adaptive_tpu` with the same
-    `device_tables`.  `layers` and `device_tables` as in tpx_encode_torch."""
+    `ops.tpx.tpx_encode_adaptive` and `kernels.tpx_encode.tpx_encode_adaptive_tpu`.
+    `layers` and `device_tables` as in tpx_encode_torch."""
     dev = resolve(device)
     if not 10 <= bits <= 15:
         raise ValueError("tpx encode requires 10 <= bits <= 15")
@@ -513,4 +451,4 @@ def tpx_encode_adaptive_torch(
     head = MAGIC3 + length.to_bytes(8, "little") + bytes(8)
     head += b"".join(int(v).to_bytes(4, "little") for v in (bits, g0.rows, L, g0.steps, g0.n_tiles))
     megas = [(g.base, g.rows, g.steps, g.n_tiles, max(0, min(length - g.base, g.span))) for g in geoms]
-    return _encode_megas(head, arr, megas, bits=bits, v3=True, device=dev, layers=layers, device_tables=device_tables)
+    return _encode_megas(head, arr, megas, bits=bits, v3=True, device=dev, layers=layers)

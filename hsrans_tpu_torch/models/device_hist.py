@@ -11,10 +11,12 @@ CUDA kernels (`csrc/hist.cu`):
   * `normalize_rows` — each row of counts scaled to 2^B and rebalanced
     exactly as the reference's hist.cpp:16-215 does, heap-sort tie order
     included, one warp a row (`hist_normalize_kernel`); its plain version
-    is a literal port of `models/histogram.py::normalize_hist`.
+    rounds every row at once and hands a row whose sum misses 2^B to
+    `models/histogram.py::normalize_hist`.
 
 On a CUDA tensor they launch their kernel or raise; on a CPU tensor they
-run their plain version.  `observe_device`, `normalize_device` and
+run their plain version.  `segment_hists` is the two in a row, the one
+segment-histogram function of both encoders on every device.  `observe_device`, `normalize_device` and
 `make_hist_device` are the one-histogram forms of the JAX module and go
 through the same two.  `make_dec3_device` and `make_rank_tables_device`
 are searchsorted and cumsum work on one histogram (XLA work in the JAX
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from ..runtime import build
-from .histogram import _heap_sort_indices
+from .histogram import normalize_hist
 
 # bytes of a segment that one CTA of the count kernel reads: 64 tpx tiles of
 # 4 MiB fill the card 16 times over, an mt block of 4 KiB is one CTA
@@ -110,45 +112,6 @@ def observe_segments(data: torch.Tensor, starts: np.ndarray, ends: np.ndarray) -
     return fn(data, starts, ends)
 
 
-def _rebalance(capped: list[int], total: int) -> list[int]:
-    """hist.cpp's steal and charity passes over u16 counts whose sum misses
-    `total`, in heap-sort order (`models/histogram.py:80-111`, line for
-    line; each count wraps as a u16 does)."""
-    order = _heap_sort_indices(np.asarray(capped)).tolist()
-    s = sum(capped)
-
-    def find_min_two(start: int) -> int:
-        for i in range(start, 256):
-            if capped[order[i]] >= 2:
-                return i
-        return start
-
-    min_two = find_min_two(0)
-    while s > total:  # steal
-        done = False
-        for i in range(min_two, 256):
-            capped[order[i]] = (capped[order[i]] - 1) & 0xFFFF
-            s -= 1
-            if s == total:
-                done = True
-                break
-        if done:
-            break
-        min_two = find_min_two(min_two)
-    while s < total:  # charity
-        done = False
-        for i in range(255, min_two - 1, -1):
-            capped[order[i]] = (capped[order[i]] + 1) & 0xFFFF
-            s += 1
-            if s == total:
-                done = True
-                break
-        if done:
-            break
-        min_two = find_min_two(min_two)
-    return capped
-
-
 def _check_rows(name: str, counts: torch.Tensor, divisors: torch.Tensor, bits: int) -> None:
     if counts.ndim != 2 or counts.shape[1] != 256 or divisors.shape != (counts.shape[0],):
         raise ValueError(f"{name}: counts must be [k, 256] and divisors [k]")
@@ -178,12 +141,15 @@ def normalize_rows_plain(counts: torch.Tensor, divisors: torch.Tensor, bits: int
     divisor, bits)`: the float32 scale 2^B / divisor, each count times it
     plus 0.5 (two roundings) truncated to a u16, a present symbol at least
     1, then the reference's steal or charity passes where the sum misses
-    2^B, and cumul the row's exclusive prefix sum mod 2^16."""
+    2^B, and cumul the row's exclusive prefix sum mod 2^16.  The rounding
+    runs over all rows at once; a row whose sum misses 2^B is handed whole
+    to `normalize_hist`."""
     _check_rows("normalize_rows_plain", counts, divisors, bits)
-    total = 1 << bits
     capped = round_rows(counts, divisors, bits)
-    for r in torch.nonzero(capped.sum(dim=1) != total).flatten().tolist():
-        capped[r] = torch.tensor(_rebalance(capped[r].tolist(), total), dtype=torch.int64)
+    for r in torch.nonzero(capped.sum(dim=1) != 1 << bits).flatten().tolist():
+        row = counts[r].cpu().numpy().view(np.uint32)
+        fixed = normalize_hist(row, int(divisors[r]), bits).symbol_count
+        capped[r] = torch.from_numpy(fixed.astype(np.int64)).to(capped.device)
     cumul = (torch.cumsum(capped, dim=1) - capped) & 0xFFFF
     return _as_u16(capped), _as_u16(cumul)
 

@@ -6,8 +6,7 @@ wire format is documented there), so that the port loads no module of the
 JAX package.  Only what the port's encoders and decoder use is here; the
 numpy encoders and decoder stay in the original, which the tests hold the
 port against.  `tests/test_torch_host_tier.py` holds each function here
-equal to its original, and `make_tile_hists` (the port's own batched form
-of `make_tile_hist`) equal to `make_tile_hist` tile by tile.
+equal to its original.
 """
 
 from __future__ import annotations
@@ -15,7 +14,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from ..models.histogram import Hist, normalize_hist, observe_hist
 
@@ -30,7 +28,6 @@ S = 32  # lane-group steps per tile
 T = 4  # tiles per megablock (mega covers R*T*S*L = 16 MiB)
 
 DECODE_CONSUME_POINT_16 = 1 << 15  # rANS32 16-bit renorm lower bound
-HIST_CHUNK = 16 << 20  # bytes of tiles per bincount of make_tile_hists (its int32 keys: 64 MiB)
 
 
 def make_tile_hist(tile_bytes: np.ndarray, bits: int) -> Hist:
@@ -41,34 +38,6 @@ def make_tile_hist(tile_bytes: np.ndarray, bits: int) -> Hist:
         counts[0] = 1
         return normalize_hist(counts, 1, bits)
     return normalize_hist(observe_hist(tile_bytes), tile_bytes.size, bits)
-
-
-def make_tile_hists(data: np.ndarray, starts: np.ndarray, ends: np.ndarray, bits: int) -> np.ndarray:
-    """`make_tile_hist(data[s:e], bits).symbol_count` of every (s, e), as
-    uint16 [k, 256], batched: one bincount over (tile, byte) per HIST_CHUNK
-    bytes of tiles, the float32 scale-and-round of `normalize_hist` over all
-    tiles at once, and its exact fix-up only for the tiles whose rounded
-    counts miss 2^B (none where every tile holds 2^B bytes)."""
-    k = starts.size
-    sizes = np.maximum(ends - starts, 0)
-    counts = np.zeros((k, 256), np.uint32)
-    csum = np.cumsum(sizes)
-    lo = 0
-    while lo < k:
-        hi = max(lo + 1, int(np.searchsorted(csum, csum[lo] - sizes[lo] + HIST_CHUNK, side="right")))
-        keys = np.repeat(np.arange(hi - lo, dtype=np.int32) << 8, sizes[lo:hi])  # tile << 8 | byte
-        keys += np.concatenate([data[s : s + z] for s, z in zip(starts[lo:hi], sizes[lo:hi])])
-        counts[lo:hi] = torch.bincount(torch.from_numpy(keys), minlength=(hi - lo) << 8).view(-1, 256).numpy()
-        lo = hi
-    empty = sizes == 0
-    counts[empty, 0] = 1  # make_tile_hist's 1-symbol histogram of an empty tile
-    divisor = np.where(empty, 1, sizes)
-    mul = np.float32(1 << bits) / divisor.astype(np.float32)
-    capped = (counts.astype(np.float32) * mul[:, None] + np.float32(0.5)).astype(np.uint16)
-    capped[(capped == 0) & (counts != 0)] = 1
-    for r in np.nonzero(capped.sum(axis=1, dtype=np.int64) != 1 << bits)[0]:
-        capped[r] = normalize_hist(counts[r], int(divisor[r]), bits).symbol_count
-    return capped
 
 
 @dataclass

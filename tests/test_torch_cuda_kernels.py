@@ -65,8 +65,9 @@ def test_kernels_equal_plain(cuda, bits, case):
     data = text_like(np.random.default_rng(bits), sum(spans) - 5000)
     bases = np.cumsum([0, *spans[:-1]]).tolist()
     geoms = [(b, rows, steps, n, min(data.size - b, z)) for b, (rows, steps, n), z in zip(bases, TPX_GEOMS[case], spans)]
-    desc, freqs, tabs = enc.mega_operands(data, geoms, bits=bits)
-    ops = (torch.from_numpy(data).to(cuda), desc, *(torch.from_numpy(tabs[k]).to(cuda) for k in ("fc", "m", "l")))
+    data_t = torch.from_numpy(data).to(cuda)
+    desc, freqs_t, *tabs = enc.mega_operands(data_t, geoms, bits=bits)
+    ops = (data_t, desc, *tabs)
     got = enc.encode_mega_cuda(*ops, bits=bits)
     torch.cuda.synchronize()
     for g, w in zip(got, enc.encode_mega_plain(*ops, bits=bits)):
@@ -74,7 +75,7 @@ def test_kernels_equal_plain(cuda, bits, case):
     v3 = case.startswith("v3")
     row_words = torch.cat([c.sum(dim=2).reshape(-1) for _, c, _ in enc.mega_views(*got, desc)]).cpu().numpy()
     wdesc, row_at, out_u16 = enc.wire_layout(desc, row_words, v3=v3, base=chip_smoke.HEAD_U16)
-    wargs = (*got, torch.from_numpy(freqs.view(np.int16)).to(cuda), wdesc, row_at)
+    wargs = (*got, freqs_t, wdesc, row_at)
     _wire_equals_plain(cuda, wargs, {"v3": v3, "out_u16": out_u16}, chip_smoke.HEAD_U16)
 
     blob = bytearray(b"HSRTPX03" if v3 else b"HSRTPX02")
@@ -368,9 +369,10 @@ def _hist_launches(before: dict[str, int]) -> int:
 @pytest.mark.parametrize("bits", (10, 12, 15))
 @pytest.mark.parametrize("case", sorted(TPX_GEOMS))
 def test_tpx_device_tables_equal_authority(cuda, bits, case):
-    """tpx encode with device_tables=True on the card == the numpy
-    authority (v2 or, for mixed geometry, the host tables' v3 megas), one
-    launch of each histogram kernel."""
+    """tpx encode on the card (`device_tables` either way) == the numpy
+    authority (v2) or, for mixed geometry, the CPU tier's v3 megas, which
+    the CPU tests hold to the authority; one launch of each histogram
+    kernel a call."""
     geom = TPX_GEOMS[case]
     before = dict(build.LAUNCHES)
     if len(set(geom)) == 1:
@@ -378,17 +380,20 @@ def test_tpx_device_tables_equal_authority(cuda, bits, case):
         p = TpxParams(bits=bits, rows=rows, steps=steps, tiles=tiles)
         data = text_like(np.random.default_rng(bits), 2 * p.mega_bytes + 999)
         blob = enc.tpx_encode_torch(data, p=p, device="cuda", device_tables=True)
-        assert blob == tpx_encode(data, p=p)
+        assert _hist_launches(before) == 1
+        assert blob == tpx_encode(data, p=p) == enc.tpx_encode_torch(data, p=p, device="cuda")
         assert dec.tpx_decode_torch(blob, device="cuda") == data.tobytes()
-    else:  # v3 megas of mixed geometry: equal to the host tables' on the card (held to the authority above)
+        assert _hist_launches(before) == 2
+    else:  # v3 megas of mixed geometry
         spans = [r * s * 128 * n for r, s, n in geom]
         data = text_like(np.random.default_rng(bits), sum(spans) - 5000)
         bases = np.cumsum([0, *spans[:-1]]).tolist()
         geoms = [(b, r, s, n, min(data.size - b, z)) for b, (r, s, n), z in zip(bases, geom, spans)]
-        blob = enc._encode_megas(bytes(44), data, geoms, bits=bits, v3=True, device=cuda, layers=None, device_tables=True)
+        blob = enc._encode_megas(bytes(44), data, geoms, bits=bits, v3=True, device=cuda, layers=None)
         assert _hist_launches(before) == 1
-        assert blob == enc._encode_megas(bytes(44), data, geoms, bits=bits, v3=True, device=cuda, layers=None)
-    assert _hist_launches(before) == 1
+        assert blob == enc._encode_megas(bytes(44), data, geoms, bits=bits, v3=True, device=torch.device("cpu"),
+                                         layers=None)
+        assert _hist_launches(before) == 1
 
 
 def test_tpx_adaptive_device_tables_equals_authority(cuda):

@@ -18,7 +18,6 @@ from hsrans_tpu.models.tables import make_dec3
 from hsrans_tpu.ops.tpx import make_rank_tables, make_tile_hist
 from hsrans_tpu_torch.kernels import tpx_encode as pt
 from hsrans_tpu_torch.models import device_hist as dh
-from hsrans_tpu_torch.ops.tpx import make_tile_hists
 from tools.gen_inputs import skewed, text_like
 
 CPU = torch.device("cpu")
@@ -98,15 +97,14 @@ def test_decode_tables_equal_host(name, bits):
 def test_segments_equal_make_tile_hists(bits):
     """observe_segments + normalize_rows over ragged segments (any start,
     empty, an end below its start, one byte, one past several count
-    chunks) == the port's batched `make_tile_hists` and the JAX package's
-    `make_tile_hist` segment by segment, cumuls included."""
+    chunks) == the JAX package's `make_tile_hist` segment by segment,
+    cumuls included."""
     rng = np.random.default_rng(bits)
     data = np.concatenate([text_like(rng, 150_000), skewed(rng, 60_000)])
     starts = np.array([0, 3, 4096, 77, 200_000, 100, 9, 1, 209_999, 1000], np.int64)
     ends = np.array([4096, 4099, 8192, 77, 210_000, 50, 10, 2 * dh.COUNT_CHUNK + 7, 210_000, 150_000], np.int64)
     freq, cumul = dh.segment_hists(torch.from_numpy(data), starts, ends, bits)
     assert freq.dtype == cumul.dtype == torch.int16 and freq.shape == (starts.size, 256)
-    assert np.array_equal(_u16(freq), make_tile_hists(data, starts, ends, bits))
     for i, (s, e) in enumerate(zip(starts, ends)):
         want = make_tile_hist(data[s:e], bits)
         assert np.array_equal(_u16(freq[i]), want.symbol_count) and np.array_equal(_u16(cumul[i]), want.cumul)
@@ -154,8 +152,8 @@ def test_hist_edges_plain_equal_authority(case, bits):
 @pytest.mark.parametrize("bits", (10, 12, 13, 15))
 def test_enc_tables_device_equal_batch(bits):
     """The tpx encoder's tables made from freqs and cumuls on the device
-    (`enc_tables_device`: m and l gathered by freq) == make_enc_tables_batch
-    of the JAX package and of the port, freqs of every divisor of
+    (`enc_tables_device`: m and l gathered by freq) == the JAX package's
+    make_enc_tables_batch, freqs of every divisor of
     tests/test_tpx_encode_kernel.py and an absent symbol among them."""
     rng = np.random.default_rng(bits)
     hists = [make_hist(text_like(rng, 30_000), bits), make_hist(np.arange(256, dtype=np.uint8).repeat(7), bits)]
@@ -165,9 +163,9 @@ def test_enc_tables_device_equal_batch(bits):
     freqs = np.stack([h.symbol_count for h in hists] + [odd])
     cumuls = np.stack([h.cumul for h in hists] + [(np.cumsum(odd) - odd).astype(np.uint16)])
     got = pt.enc_tables_device(torch.from_numpy(freqs.view(np.int16)), torch.from_numpy(cumuls.view(np.int16)), bits)
-    for want in (jx.make_enc_tables_batch(freqs, cumuls, bits), pt.make_enc_tables_batch(freqs, cumuls, bits)):
-        for k, t in zip(("fc", "m", "l"), got):
-            assert t.dtype == torch.int32 and np.array_equal(t.numpy(), want[k]), k
+    want = jx.make_enc_tables_batch(freqs, cumuls, bits)
+    for k, t in zip(("fc", "m", "l"), got):
+        assert t.dtype == torch.int32 and np.array_equal(t.numpy(), want[k]), k
 
 
 def test_rows_and_segments_are_checked():

@@ -8,6 +8,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from hsrans_tpu.models import histogram as jh
 from hsrans_tpu.models import tables as jtab
@@ -39,22 +40,25 @@ def test_tile_hist_equals_original(kind, bits):
 
 
 @pytest.mark.parametrize("bits", (10, 12, 15))
-def test_batched_tile_hists_equal_make_tile_hist(bits, monkeypatch):
-    """make_tile_hists == make_tile_hist (the port's and the original) tile
-    by tile: uniform 4 KiB tiles (no fix-up at B=12), odd sizes (the steal
-    and gift passes), empty tiles, tiles past the input's end, and tiles
-    out of order, over several bincount chunks."""
-    monkeypatch.setattr(pt, "HIST_CHUNK", 20_000)
+def test_batched_tile_hists_equal_make_tile_hist(bits):
+    """The encoders' batched tile histograms (`models/device_hist.py::
+    segment_hists` on the CPU) == make_tile_hist (the port's and the
+    original) tile by tile: uniform 4 KiB tiles (no fix-up at B=12), odd
+    sizes (the steal and gift passes), empty tiles, tiles past the input's
+    end, and tiles out of order."""
+    from hsrans_tpu_torch.models.device_hist import segment_hists
+
     rng = np.random.default_rng(bits)
     data = np.concatenate([text_like(rng, 40_000), skewed(rng, 30_000), np.full(5000, 7, np.uint8)])
     starts = np.concatenate([np.arange(0, 40_960, 4096), [40_960, 41_000, 41_000, 50_017, 75_000, 74_990, 100]])
     ends = np.concatenate([starts[:10] + 4096, [41_000, 41_000, 50_017, 74_990, 75_000, 75_000, 33]])
     ends = np.minimum(ends, data.size)
-    got = pt.make_tile_hists(data, starts, ends, bits)
-    assert got.dtype == np.uint16 and got.shape == (starts.size, 256)
-    for row, s, e in zip(got, starts, ends):
+    freq, cumul = segment_hists(torch.from_numpy(data), starts, ends, bits)
+    got = freq.numpy().view(np.uint16)
+    assert got.shape == (starts.size, 256)
+    for row, cum, s, e in zip(got, cumul.numpy().view(np.uint16), starts, ends):
         want = pt.make_tile_hist(data[s:e], bits)
-        assert np.array_equal(row, want.symbol_count)
+        assert np.array_equal(row, want.symbol_count) and np.array_equal(cum, want.cumul)
         assert np.array_equal(row, jt.make_tile_hist(data[s:e], bits).symbol_count)
 
 

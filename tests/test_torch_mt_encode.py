@@ -296,10 +296,10 @@ def test_bad_arguments_raise():
 
 
 def test_magic_table_equals_div_magic():
-    """The encode kernel's magic table holds `kernels/tpx_encode.py::
-    div_magic`'s m for every divisor d in 1..2^15; d = 0 (a symbol of freq
-    0, coded as d = 1) holds d = 1's."""
-    from hsrans_tpu_torch.kernels.tpx_encode import div_magic
+    """The encode kernel's magic table holds the JAX package's
+    `kernels/tpx_encode.py::div_magic` m for every divisor d in 1..2^15;
+    d = 0 (a symbol of freq 0, coded as d = 1) holds d = 1's."""
+    from hsrans_tpu.kernels.tpx_encode import div_magic
 
     table = penc.magic_table()
     assert table.shape == (penc.MAGIC_D_MAX + 1,) and table.dtype == np.uint32

@@ -117,7 +117,7 @@ def test_cuda_wrappers_never_take_the_plain_version():
             if isinstance(fn, ast.FunctionDef) and (fn.name.endswith("_cuda") or fn.name.startswith("launch")):
                 called = {n.func.id if isinstance(n.func, ast.Name) else getattr(n.func, "attr", "")
                           for n in ast.walk(fn) if isinstance(n, ast.Call)}
-                assert not any(c.endswith("_plain") or c in ("bincount", "make_tile_hists") for c in called), (
+                assert not any(c.endswith("_plain") or c in ("bincount", "make_tile_hist") for c in called), (
                     path.name, fn.name)
 
 
@@ -263,12 +263,13 @@ def test_layer_split_leaves_the_result_alone():
     assert blob == tpx_encode_torch(data, device="cpu")
     assert tpx_decode_torch(blob, device="cpu", layers=dec) == data.tobytes()
     assert mt_encode_torch(data, 12, device="cpu", layers=mt) == mt_encode_torch(data, 12, device="cpu")
-    assert set(enc) == {"host_hist_tables", "h2d", "kernel_encode", "host_layout", "kernel_concat", "d2h", "host_mux"}
+    assert set(enc) == {"h2d", "kernel_hist", "kernel_encode", "host_layout", "kernel_concat", "d2h", "host_mux"}
     assert set(dec) == {"host_parse", "host_tables", "h2d", "kernel", "d2h", "host_assemble"}
-    assert set(mt) == {"host_hist_tables", "h2d", "kernel_encode", "host_layout", "kernel_place", "d2h", "host_mux"}
+    assert set(mt) == {"host_index", "h2d", "kernel_hist", "kernel_encode", "host_layout", "kernel_place", "d2h",
+                       "host_mux"}
     dt = {}
     assert tpx_encode_torch(data, device="cpu", layers=dt, device_tables=True) == blob
-    assert set(dt) == {"h2d", "kernel_hist", "kernel_encode", "host_layout", "kernel_concat", "d2h", "host_mux"}
+    assert set(dt) == set(enc)
     assert all(v >= 0 for v in (*enc.values(), *dec.values(), *mt.values()))
 
 

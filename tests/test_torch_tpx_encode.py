@@ -44,6 +44,13 @@ def _case(name: str, bits: int) -> tuple[np.ndarray, TpxParams]:
     return text_like(np.random.default_rng(33), p.mega_bytes), p
 
 
+def _operands(data: np.ndarray, geoms: list, bits: int) -> tuple[np.ndarray, np.ndarray, dict[str, np.ndarray]]:
+    """`mega_operands` on the CPU, as numpy: (desc, wire freqs uint16 [T,
+    256], the encode tables {fc, m, l} int32 [T, 256])."""
+    desc, freqs, *tabs = pt.mega_operands(torch.from_numpy(data), geoms, bits=bits)
+    return desc, freqs.numpy().view(np.uint16), dict(zip(("fc", "m", "l"), (t.numpy() for t in tabs)))
+
+
 @pytest.mark.parametrize("bits", (10, 12, 15))
 @pytest.mark.parametrize("name", ("partial-tile", "one-mega-exact", "multi-mega", "empty", "rle-heavy", "rows-136"))
 def test_encode_equals_pallas_and_authority(name, bits):
@@ -64,7 +71,7 @@ def test_encode_mega_and_concat_plain_equal_pallas_kernels(bits):
     p = small(bits)
     n_tiles, rows, steps = p.tiles, p.rows, p.steps
     data = text_like(np.random.default_rng(bits), p.mega_bytes - 1000)
-    desc, freqs, tabs = pt.mega_operands(data, [(0, rows, steps, n_tiles, data.size)], bits=bits)
+    desc, freqs, tabs = _operands(data, [(0, rows, steps, n_tiles, data.size)], bits)
     n_valid = int(desc[0, pt.ENCODE_FIELDS.index("vlen")])
     packed = np.zeros(p.mega_bytes, np.uint8)
     packed[: data.size] = data
@@ -151,7 +158,7 @@ def test_wire_writer_equals_pallas_concat_and_write_mega(case, bits):
         geoms = [(b, p.rows, p.steps, n, valid) for b, n, valid in _mega_layout(data.size, p)]
         assert [g[3] for g in geoms] == [n for _, _, n in geom]
         head = bytes(jtpx.tpx_header(data.size, p))
-    desc, freqs, tabs = pt.mega_operands(data, geoms, bits=bits)
+    desc, freqs, tabs = _operands(data, geoms, bits)
     win, cnt, states = pt.encode_mega_plain(torch.from_numpy(data), desc, *(torch.from_numpy(tabs[k]) for k in ("fc", "m", "l")),
                                             bits=bits)
     row_words = torch.cat([c.sum(dim=2).reshape(-1) for _, c, _ in pt.mega_views(win, cnt, states, desc)]).numpy()
@@ -176,12 +183,18 @@ def test_wire_writer_equals_pallas_concat_and_write_mega(case, bits):
 
 
 def test_copied_div_magic_equals_original():
+    """The port's form of `div_magic`, the mt encoder's magic and shift
+    tables read at each freq (`enc_tables_device` gathers m and l so), ==
+    the JAX package's `div_magic`, and the magic is exact for those
+    divisors over u31 states."""
+    from hsrans_tpu_torch.kernels.mt_encode import magic_table, shift_table
+
     freq = np.zeros(256, dtype=np.uint16)
     freq[: len(DIVISORS)] = DIVISORS
-    for a, b in zip(pt.div_magic(freq), jx.div_magic(freq)):
-        assert np.array_equal(a, b)
-    # and the magic is exact for those divisors over u31 states
-    m, l = pt.div_magic(freq)
+    d = np.maximum(freq, 1)
+    m, l = magic_table()[d], shift_table()[d]
+    jm, jl = jx.div_magic(freq)
+    assert np.array_equal(m, jm) and np.array_equal(l.astype(np.uint32), jl)
     ns = np.concatenate([np.random.default_rng(0).integers(0, 1 << 31, 20_000), [0, 1, (1 << 31) - 1, 1 << 15, 1 << 16, 1 << 30]])
     for i, d in enumerate(DIVISORS):
         q = (ns.astype(object) * int(m[i])) >> (31 + int(l[i]))
@@ -190,17 +203,26 @@ def test_copied_div_magic_equals_original():
 
 @pytest.mark.parametrize("bits", (10, 12, 13, 15))
 def test_copied_enc_tables_equal_original(bits):
-    from hsrans_tpu.models.histogram import make_hist
+    """`mega_operands` (the tiles' histograms and tables, on the CPU) ==
+    the JAX package's host path: `make_tile_hist` of each tile, then
+    `make_enc_tables_batch`, on two megas, the second a run of one byte
+    whose last tile lies wholly past the input (the 1-symbol histogram)."""
+    from hsrans_tpu.ops.tpx import make_tile_hist
 
+    p = small(bits)
+    tile = p.rows * p.steps * 128
     rng = np.random.default_rng(bits)
-    hists = [make_hist(text_like(rng, 30_000), bits), make_hist(np.arange(256, dtype=np.uint8).repeat(7), bits)]
-    freqs = np.stack([h.symbol_count for h in hists] + [np.zeros(256, np.uint16)])
-    freqs[2, : len(DIVISORS)] = [min(d, 1 << bits) for d in DIVISORS]
-    cumuls = np.stack([h.cumul for h in hists] + [np.zeros(256, np.uint16)])
-    a, b = pt.make_enc_tables_batch(freqs, cumuls, bits), jx.make_enc_tables_batch(freqs, cumuls, bits)
-    assert a.keys() == b.keys()
-    for k in a:
-        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    data = np.concatenate([text_like(rng, p.mega_bytes), np.full(tile // 2, 9, np.uint8)])
+    geoms = [(0, p.rows, p.steps, 2, p.mega_bytes), (p.mega_bytes, p.rows, p.steps, 2, tile // 2)]
+    desc, freqs, tabs = _operands(data, geoms, bits)
+    _, starts, ends = pt.mega_segments(geoms)
+    assert (ends <= starts).any()
+    hists = [make_tile_hist(data[s:e], bits) for s, e in zip(starts, ends)]
+    want = jx.make_enc_tables_batch(np.stack([h.symbol_count for h in hists]), np.stack([h.cumul for h in hists]), bits)
+    assert np.array_equal(freqs, np.stack([h.symbol_count for h in hists]))
+    assert tabs.keys() == want.keys()
+    for k in tabs:
+        assert tabs[k].dtype == want[k].dtype and np.array_equal(tabs[k], want[k]), k
 
 
 def test_adaptive_encode_equals_authority():
@@ -223,16 +245,17 @@ def test_encode_rejects_bad_geometry():
 
 @pytest.mark.parametrize("bits", (10, 12, 15))
 def test_device_tables_equals_pallas_device_tables(bits):
-    """`device_tables=True` (the per-tile histograms, their normalization
-    and the encode tables made by models/device_hist.py's plain versions on
-    the CPU) == the JAX package's `tpx_encode_tpu(..., device_tables=True)`
-    (models/jax_hist, Pallas in interpret mode) == the host tables' blob,
-    on tests/test_tpx_encode_kernel.py's geometry."""
+    """The port's blob (the per-tile histograms, their normalization and
+    the encode tables made by models/device_hist.py's plain versions on the
+    CPU) == the JAX package's `tpx_encode_tpu(..., device_tables=True)`
+    (models/jax_hist, Pallas in interpret mode) == the numpy authority's,
+    with `device_tables` either way, on tests/test_tpx_encode_kernel.py's
+    geometry."""
     p = small(bits)
     data = text_like(np.random.default_rng(17), 2 * p.mega_bytes + 333)
     got = pt.tpx_encode_torch(data, p=p, device="cpu", device_tables=True)
     assert got == jx.tpx_encode_tpu(data, p=p, interpret=True, device_tables=True)
-    assert got == pt.tpx_encode_torch(data, p=p, device="cpu") == tpx_encode(data, p=p)
+    assert got == pt.tpx_encode_torch(data, p=p, device="cpu", device_tables=False) == tpx_encode(data, p=p)
     assert tpx_decode_torch(got, device="cpu") == data.tobytes()
 
 
@@ -244,13 +267,15 @@ def test_adaptive_device_tables_equals_pallas_device_tables():
 
 
 def test_device_tables_layers():
-    """With device_tables the histogram layer is kernel_hist, after the
-    input's h2d, and the blob is the host tables' (v2 and v3)."""
+    """The histogram layer is kernel_hist, after the input's h2d, with
+    `device_tables` either way, and the blob is the authority's (v2 and
+    v3)."""
     data = text_like(np.random.default_rng(3), 70_000)
     host, dev = {}, {}
     assert pt.tpx_encode_torch(data, device="cpu", layers=host) == pt.tpx_encode_torch(
-        data, device="cpu", layers=dev, device_tables=True)
-    assert set(dev) == set(host) - {"host_hist_tables"} | {"kernel_hist"}
+        data, device="cpu", layers=dev, device_tables=True) == tpx_encode(data)
+    assert list(dev) == list(host) == ["h2d", "kernel_hist", "kernel_encode", "host_layout", "kernel_concat", "d2h",
+                                       "host_mux"]
     v3 = {}
     assert pt.tpx_encode_adaptive_torch(data, device="cpu", layers=v3, device_tables=True) == tpx_encode_adaptive(data)
     assert set(v3) == set(dev)
