@@ -15,6 +15,9 @@ x-ray `device_plan` blob and plan (a), the 8 MiB x-ray classes of
 text at B=12 and B=15, four megas in one launch); the decode blobs are
 encoded on the card.  A tree whose tpx kernels take another argument list
 (one launch a mega, before the one-launch design) runs the mt cases only.
+The two histogram kernels are timed on mt encode (b)'s 16,384 blocks, the
+tpx main path's 16 tiles (B=12 and B=15) and a 2^25-byte Zipf block; a
+tree from before the count's warp path takes its own segment table.
 The two wire writers are timed on this checkout's encode outputs: a tree
 with the one-launch writers (`hsr_tpx_wire`, `hsr_mt_wire`) writes every
 mega's section, or the whole mt blob, in one launch; a tree from before
@@ -33,10 +36,12 @@ lines to FILE.
 times the trees' entry points end to end instead: each DIR a whole
 checkout (`git archive`), each tree's own package and kernels in a process
 of its own, in turns (each tree, then back in reverse order): mt encode
+(a) (64 MiB of x-ray, its `device_plan` of 24 KiB blocks, B=12), mt encode
 (b) (64 MiB of enwik8-like text, seed 8, uniform 4 KiB blocks, B=12) and
 tpx encode (the same text, B=12), REPS calls each by the host's clock
-after one warm call, and one more call of each split by layer.  The
-trees' blobs must be equal.
+after one warm call, and one more call of each split by layer; then the
+tree's histogram wrappers on the histogram kernels' cases, by CUDA events.
+The trees' blobs, freqs and cumuls must be equal.
 """
 
 from __future__ import annotations
@@ -345,27 +350,140 @@ def run_mt_place(libs: dict, name: str, outs: tuple, index: torch.Tensor, freqs:
           **in_turns({k: (lambda k=k: write(k)) for k in libs}, 1)})
 
 
+def hist_cases(dev: torch.device) -> list[tuple[str, torch.Tensor, np.ndarray, np.ndarray, tuple[int, ...]]]:
+    """(name, input on the card, segment starts and ends, depths) of the
+    histogram kernels' cases: mt encode (b)'s 16,384 blocks of 4 KiB of the
+    64 MiB text, the tpx main path's 16 tiles of it (B=12 and B=15), and
+    `chip_smoke.zipf_input`'s first 2^25 bytes as one segment (the reference
+    planner's block size on that input, without its plan)."""
+    from hsrans_tpu_torch.kernels import tpx_encode as enc
+    from hsrans_tpu_torch.ops.tpx import TpxParams, _mega_layout
+    from tools.gen_inputs import text_like
+
+    text = text_like(np.random.default_rng(8), 64 * MIB)
+    p = TpxParams()
+    _, tstarts, tends = enc.mega_segments([(b, p.rows, p.steps, n, v) for b, n, v in _mega_layout(text.size, p)])
+    mstarts = np.arange(0, text.size, 4096, dtype=np.int64)
+    zipf = 1.0 / np.arange(1, 257)
+    block = np.random.default_rng(8).choice(256, size=64 * MIB, p=zipf / zipf.sum()).astype(np.uint8)[: 1 << 25]
+    text_t = torch.from_numpy(text).to(dev)
+    return [("mt encode (b): 16,384 blocks of 4 KiB", text_t, mstarts, mstarts + 4096, (12,)),
+            ("tpx main path: 16 tiles", text_t, tstarts, tends, (12, 15)),
+            ("a 2^25-byte Zipf block", torch.from_numpy(block).to(dev), np.array([0]), np.array([block.size]), (12,))]
+
+
+def run_hist(libs: dict, dev: torch.device, sink) -> None:
+    """The two histogram kernels of each tree that has them, launch alone,
+    on hist_cases' operands: a tree from before the count's warp path
+    takes rows (start, end, first chunk) of 64 KiB chunks and counts zeroed
+    where a segment has several; every tree's counts, freqs and cumuls must
+    equal this checkout's plain versions."""
+    from hsrans_tpu_torch.models import device_hist as dh
+
+    libs = {k: lib for k, lib in libs.items() if hasattr(lib, "hsr_hist_count")}
+    cs = torch.cuda.current_stream(dev).cuda_stream
+    for name, data, starts, ends, bits_list in hist_cases(dev):
+        k = len(starts)
+        want = dh.observe_segments_plain(data, starts, ends)
+        table, n_short, chunks = dh.segment_table(starts, ends)
+        old_chunks = np.maximum(-(-dh.segment_sizes(starts, ends) // dh.COUNT_CHUNK), 1)
+        old = np.stack([starts, np.maximum(ends, starts), np.cumsum(old_chunks) - old_chunks], axis=1)
+        table_t, old_t = torch.from_numpy(table).to(dev), torch.from_numpy(np.ascontiguousarray(old)).to(dev)
+        counts = {t: torch.zeros((k, 256), dtype=torch.int32, device=dev) for t in libs}
+
+        def count(t: str) -> None:
+            fn = libs[t].hsr_hist_count
+            if len(fn.argtypes) == 7:
+                rc = fn(data.data_ptr(), old_t.data_ptr(), k, int(old_chunks.sum()), dh.COUNT_CHUNK, counts[t].data_ptr(), cs)
+            else:
+                rc = fn(data.data_ptr(), table_t.data_ptr(), n_short, k - n_short, chunks, dh.COUNT_CHUNK,
+                        counts[t].data_ptr(), cs)
+            if rc:
+                raise RuntimeError(f"{t} hist count: CUDA error {rc}")
+
+        for t in libs:
+            count(t)
+        torch.cuda.synchronize()
+        for t in libs:
+            if not torch.equal(counts[t], want):
+                raise AssertionError(f"{t} hist count, {name}: differs from the plain version")
+        sink({"kernel": "hist_count", "case": name, "segments": k, "warp_segments": n_short, "chunks": chunks,
+              **in_turns({t: (lambda t=t: count(t)) for t in libs}, 1)})
+        div_t = torch.from_numpy(dh.segment_divisors(starts, ends)).to(dev)
+        for bits in bits_list:
+            outs = {t: (torch.empty_like(want, dtype=torch.int16), torch.empty_like(want, dtype=torch.int16)) for t in libs}
+
+            def normalize(t: str) -> None:
+                rc = libs[t].hsr_hist_normalize(want.data_ptr(), div_t.data_ptr(), k, bits, *(o.data_ptr() for o in outs[t]),
+                                                cs)
+                if rc:
+                    raise RuntimeError(f"{t} hist normalize: CUDA error {rc}")
+
+            for t in libs:
+                normalize(t)
+            torch.cuda.synchronize()
+            ref = dh.normalize_rows_plain(want, div_t, bits)
+            for t in libs:
+                if chip_smoke.max_abs_err(outs[t], ref):
+                    raise AssertionError(f"{t} hist normalize, {name}, B={bits}: differs from the plain version")
+            fixed = int((dh.round_rows(want, div_t, bits).sum(dim=1) != 1 << bits).sum())
+            sink({"kernel": "hist_normalize", "case": name, "bits": bits, "rows": k, "rows_fixed": fixed,
+                  **in_turns({t: (lambda t=t: normalize(t)) for t in libs}, 1)})
+
+
+def hist_wrappers(dev: torch.device) -> dict:
+    """This process's tree's histogram wrappers on hist_cases' operands, by
+    CUDA events over 20 calls, queued ahead (`ms`: a burst of calls in
+    flight, each with its own pinned table) and host-paced (each call after
+    the last has finished, as the encoders call them): the count alone
+    (`observe_segments_cuda`), the normaliser alone (`normalize_rows_cuda`,
+    which checks its divisors on the card) and `segment_hists` (both, as
+    the encoders call them), with a digest of the freqs and cumuls."""
+    from hsrans_tpu_torch.models import device_hist as dh
+
+    def timed(fn) -> dict:
+        return {"ms": chip_smoke.cuda_ms(fn, 20, queue_ahead=True), "host_paced_ms": chip_smoke.cuda_ms(fn, 20)}
+
+    out = {}
+    for name, data, starts, ends, bits_list in hist_cases(dev):
+        counts = dh.observe_segments_cuda(data, starts, ends)
+        div_t = torch.from_numpy(dh.segment_divisors(starts, ends)).to(dev)
+        row = {"count": timed(lambda: dh.observe_segments_cuda(data, starts, ends))}
+        for bits in bits_list:
+            row[f"normalize_B{bits}"] = timed(lambda: dh.normalize_rows_cuda(counts, div_t, bits))
+            row[f"segment_hists_B{bits}"] = timed(lambda: dh.segment_hists(data, starts, ends, bits))
+            freq, cumul = dh.segment_hists(data, starts, ends, bits)
+            row[f"B{bits}_sha256"] = hashlib.sha256(torch.cat([freq, cumul]).cpu().numpy().tobytes()).hexdigest()
+        out[name] = row
+    return out
+
+
 def e2e_worker(root: Path, reps: int) -> dict:
     """One tree's end-to-end times in this process, its package imported
     from `root` (see the module's doc)."""
     sys.path.insert(0, str(root))
     import hsrans_tpu_torch
     from hsrans_tpu_torch import mt_encode_torch, tpx_encode_torch
+    from hsrans_tpu_torch.parallel.sharded import device_plan
     from tools.gen_inputs import text_like
 
     if not Path(hsrans_tpu_torch.__file__).resolve().is_relative_to(root):
         raise AssertionError(f"{hsrans_tpu_torch.__file__} is not {root}'s package")
     data = text_like(np.random.default_rng(8), 64 * MIB)
-    paths = {"mt_encode_b": lambda **kw: mt_encode_torch(data, 12, device="cuda", **kw),
-             "tpx_encode": lambda **kw: tpx_encode_torch(data, 12, device="cuda", **kw)}
+    xray = np.tile(np.fromfile(REPO / "tests" / "corpus" / "xray.bin", np.uint8), 8)
+    plan = device_plan(xray, 12, 64, MT_CAPS[12])
+    paths = {"mt_encode_a": (xray.size, lambda **kw: mt_encode_torch(xray, 12, plan=plan, device="cuda", **kw)),
+             "mt_encode_b": (data.size, lambda **kw: mt_encode_torch(data, 12, device="cuda", **kw)),
+             "tpx_encode": (data.size, lambda **kw: tpx_encode_torch(data, 12, device="cuda", **kw))}
     res = {}
-    for name, fn in paths.items():
+    for name, (size, fn) in paths.items():
         blob = fn()  # builds the kernels and warms the path
         secs = chip_smoke.host_s(fn, reps)
         layers = {}
         fn(layers=layers)
-        res[name] = {"s": secs, "MiBps": data.size / MIB / statistics.median(secs), "layers": layers,
+        res[name] = {"s": secs, "MiBps": size / MIB / statistics.median(secs), "layers": layers,
                      "blob_sha256": hashlib.sha256(blob).hexdigest()}
+    res["hist_wrappers"] = hist_wrappers(torch.device("cuda", 0))
     return res
 
 
@@ -379,7 +497,8 @@ def end_to_end(trees: dict[str, str], reps: int, sink) -> None:
         if r.returncode:
             raise RuntimeError(f"{k}: exit {r.returncode}: {r.stderr[-3000:]}")
         res = json.loads(r.stdout.strip().splitlines()[-1])
-        blobs.setdefault(k, {p: v["blob_sha256"] for p, v in res.items()})
+        blobs.setdefault(k, {p: v["blob_sha256"] for p, v in res.items() if p != "hist_wrappers"}
+                         | {(c, b): v[b] for c, v in res["hist_wrappers"].items() for b in v if b.endswith("sha256")})
         sink({"phase": "end_to_end", "tree": k, **res})
     first = next(iter(blobs.values()))
     if any(b != first for b in blobs.values()):
@@ -420,6 +539,7 @@ def main(argv: list[str] | None = None) -> int:
         sink({"phase": "build", "trees": trees, "libraries": {k: str(b.library_path()) for k, b in builds.items()}})
         run_tpx(libs, torch.device("cuda", 0), sink)
         run(libs, torch.device("cuda", 0), sink)
+        run_hist(libs, torch.device("cuda", 0), sink)
     finally:
         if log:
             log.close()

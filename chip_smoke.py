@@ -32,10 +32,11 @@ the port's two paths through their public entry points:
   * the histogram model (`models/device_hist.py`): its count and
     normalise kernels on mt encode (b)'s 16,384 blocks of 4 KiB, the 64 MiB
     tpx main path's 16 tiles, the reference planner's 2^25-byte block and
-    at their edges (`HIST_EDGES`, which the card tests run too), with one
-    `torch.bincount` over the 64 MiB as the count's yardstick; tpx encode
-    and mt encode (b) take their histograms on the card, one launch of each
-    kernel a call;
+    at their edges (`HIST_EDGES`, which the card tests run too), with the
+    segmented `torch.bincount` of the same segments as the count's
+    yardstick; tpx encode and mt encode (b) take their histograms on the
+    card, one launch of each kernel a call, with no wait on the card, and
+    their `kernel_hist` layer is split into its steps;
   * the mt decode and encode kernels' shared-memory windows at their edges
     (`DECODE_EDGES`, `ENCODE_EDGES`), and the two wire writers, tpx and
     mt, at theirs (`TPX_WIRE_EDGES`, `MT_PLACE_EDGES`), which the card tests
@@ -1202,7 +1203,8 @@ def wire_edges(dev: torch.device) -> dict[str, list[dict]]:
 # (tests/test_torch_cuda_kernels.py runs them too), each normalised at B=10,
 # 12 and 15
 HIST_EDGES = ("segment starts at every byte phase mod 16", "empty and one-byte segments", "single-symbol data",
-              "the cases of tests/test_jax_hist.py", "several steal passes", "divisor != size, several charity passes")
+              "the cases of tests/test_jax_hist.py", "several steal passes", "divisor != size, several charity passes",
+              "short and long segments mixed, at the warp threshold and one either side, every byte phase")
 
 
 def hist_edge_operands(case: str, dev: torch.device) -> tuple[torch.Tensor, np.ndarray, np.ndarray, np.ndarray | None]:
@@ -1252,14 +1254,39 @@ def hist_edge_operands(case: str, dev: torch.device) -> tuple[torch.Tensor, np.n
         data = np.concatenate(rows).astype(np.uint8)
         ends = np.cumsum([r.size for r in rows]).astype(np.int64)
         starts = ends - [r.size for r in rows]
-    else:
+    elif case == HIST_EDGES[5]:
         # divisors off the segments' sizes: twice the size leaves the rounded
         # sum near 2^(B-1), so the charity passes run many times over
         data = text_like(rng, 200_000)
         starts = np.array([0, 50_000, 90_000, 150_000], np.int64)
         ends = np.array([50_000, 90_000, 150_000, 160_000], np.int64)
         divisors = np.array([100_000, 30_000, 1 << 16, 12_345], np.int64)
+    else:
+        # one launch of both count paths, the segments in no order: a warp
+        # each up to COUNT_WARP_MAX bytes, 64 KiB chunks of a CTA above; each
+        # size at every byte phase
+        from hsrans_tpu_torch.models.device_hist import COUNT_CHUNK, COUNT_WARP_MAX
+
+        t = COUNT_WARP_MAX
+        lens = [t - 1, t, t + 1, 0, 1, 4096, COUNT_CHUNK, COUNT_CHUNK + 1, 3 * COUNT_CHUNK + 5]
+        sizes, phase = rng.permutation(np.array([(n, p) for n in lens for p in range(16)], np.int64)).T
+        slot = (sizes + 31) // 16 * 16
+        starts = np.cumsum(slot) - slot + phase
+        ends = starts + sizes
+        data = text_like(rng, int(slot.sum()))
     return torch.from_numpy(np.ascontiguousarray(data, np.uint8)).to(dev), starts, ends, divisors
+
+
+def segmented_bincount(data_t: torch.Tensor, starts: np.ndarray, ends: np.ndarray):
+    """One PyTorch call that computes the count kernel's segmented function
+    (a segment with no bytes aside): `torch.bincount(segment * 256 + byte,
+    minlength=k * 256)`, its keys built here, outside any timed window."""
+    sizes = torch.from_numpy(np.maximum(ends - starts, 0)).to(data_t.device)
+    first = torch.from_numpy(np.asarray(starts, np.int64)).to(data_t.device)
+    seg = torch.repeat_interleave(torch.arange(len(starts), device=data_t.device), sizes)
+    pos = torch.arange(seg.numel(), device=data_t.device) - torch.repeat_interleave(torch.cumsum(sizes, 0) - sizes, sizes)
+    keys = seg * 256 + data_t[first[seg] + pos].to(torch.int64)
+    return lambda: torch.bincount(keys, minlength=len(starts) * 256)
 
 
 def hist_check(name: str, data_t: torch.Tensor, starts: np.ndarray, ends: np.ndarray, divisors: np.ndarray | None,
@@ -1268,10 +1295,11 @@ def hist_check(name: str, data_t: torch.Tensor, starts: np.ndarray, ends: np.nda
     then the normaliser against its plain version on those counts at each
     depth (divisors: the segments' own unless given), exact.  With `timed`,
     each through its wrapper, by its launch alone and its plain version,
-    and its bound: the count's bytes (the segments read once, the table
-    and counts) and one operation a byte; the normaliser's operands' bytes
-    and 6 operations a bin, plus for each row whose rounded counts miss 2^B
-    its heap sort (256 x 8 sift steps of 4 operations)."""
+    the count's segmented `torch.bincount` (library_ms), and the bounds:
+    the count's bytes (the segments read once, the table and counts) and
+    one operation a byte; the normaliser's operands' bytes and 6 operations
+    a bin, plus for each row whose rounded counts miss 2^B its heap sort
+    (256 x 8 sift steps of 4 operations)."""
     from hsrans_tpu_torch.models import device_hist as dh
 
     dev = data_t.device
@@ -1281,18 +1309,27 @@ def hist_check(name: str, data_t: torch.Tensor, starts: np.ndarray, ends: np.nda
     err = max_abs_err(got, dh.observe_segments_plain(data_t, starts, ends))
     if err:
         raise AssertionError(f"hist_count {name}: kernel differs from its plain version (max abs err {err})")
-    res = {"case": name, "segments": len(starts), "bytes": int(sizes.sum()), "hist_count": {"max_abs_err": err}}
+    table, n_short, chunks = dh.segment_table(starts, ends)
+    res = {"case": name, "segments": len(starts), "bytes": int(sizes.sum()),
+           "hist_count": {"max_abs_err": err, "warp_segments": n_short, "chunks": chunks}}
     if timed:
-        table, chunks = dh.segment_table(starts, ends)
-        table_t, out = torch.from_numpy(table).to(dev), torch.zeros_like(got)
+        table_t, out = torch.from_numpy(table).to(dev), torch.empty_like(got)
+        library = segmented_bincount(data_t, starts, ends)
+        full = torch.from_numpy(sizes > 0).to(dev)
+        if not torch.equal(library().view(-1, 256).to(torch.int32)[full], got[full]):
+            raise AssertionError(f"hist_count {name}: the segmented torch.bincount differs from the kernel")
         res["hist_count"] |= {
-            "chunks": chunks,
             "ms": cuda_ms(lambda: dh.observe_segments_cuda(data_t, starts, ends), 20, queue_ahead=True),
-            "launch_ms": cuda_ms(lambda: dh.launch_count(data_t, table_t, out, chunks=chunks), 20, queue_ahead=True),
+            "launch_ms": cuda_ms(lambda: dh.launch_count(data_t, table_t, out, n_short=n_short, chunks=chunks), 20,
+                                 queue_ahead=True),
             "ms_host_paced": cuda_ms(lambda: dh.observe_segments_cuda(data_t, starts, ends), 20),
             "plain_ms": cuda_ms(lambda: dh.observe_segments_plain(data_t, starts, ends), 1),
+            "library_ms": cuda_ms(library, 5, queue_ahead=True),
             **bound(int(sizes.sum()) + nbytes(table_t, got), int(sizes.sum())),
         }
+        del library
+        if not torch.equal(out, got):
+            raise AssertionError(f"hist_count {name}: the timed launches differ from the kernel's first")
     div = dh.segment_divisors(starts, ends) if divisors is None else divisors
     div_t = torch.from_numpy(np.asarray(div, np.int64)).to(dev)
     for bits in bits_list:
@@ -1316,15 +1353,52 @@ def hist_check(name: str, data_t: torch.Tensor, starts: np.ndarray, ends: np.nda
     return res
 
 
+def hist_split(data_t: torch.Tensor, starts: np.ndarray, ends: np.ndarray, tables: bool, reps: int = 5) -> dict:
+    """The `kernel_hist` layer of one path split into its steps, the median
+    of `reps` passes after a warm one: segment_hists's own (checks, table,
+    h2d, count, normalize) and, for tpx, the encode tables in torch
+    (`enc_tables_device`), each with the card synchronized at its ends; and
+    the whole call unsplit (`segment_hists` and the tables), which must
+    make no wait on the card (torch's sync debug mode raises on one)."""
+    from hsrans_tpu_torch.kernels.tpx_encode import enc_tables_device
+    from hsrans_tpu_torch.models import device_hist as dh
+    from hsrans_tpu_torch.runtime.device import layer_clock
+
+    passes = []
+    for _ in range(reps + 1):
+        split: dict[str, float] = {}
+        freq, cumul = dh.segment_hists(data_t, starts, ends, 12, split=split)
+        if tables:
+            with layer_clock(split, "enc_tables", data_t.device):
+                enc_tables_device(freq, cumul, 12)
+        passes.append(split)
+
+    def whole():
+        freq, cumul = dh.segment_hists(data_t, starts, ends, 12)
+        if tables:
+            enc_tables_device(freq, cumul, 12)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        whole()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return {**{k: statistics.median(p[k] for p in passes[1:]) for k in passes[0]},
+            "whole_s": statistics.median(host_s(whole, reps + 1)[1:]), "no_wait_on_the_card": True}
+
+
 def hist_kernels_vs_plain(data: np.ndarray, dev: torch.device) -> tuple[list[dict], list[dict], float]:
     """Both histogram kernels against their plain versions on the same CUDA
     tensors: mt encode (b)'s 16,384 blocks of 4 KiB of the 64 MiB text at
     B=12 (the launch of its main path), the 64 MiB tpx main path's 16 tiles
     at B=12 and B=15, the reference planner's largest block of the Zipf
     input (2^25 bytes) at B=12, each timed, and HIST_EDGES at B=10, 12 and
-    15; and one `torch.bincount` over the 64 MiB (library_ms, the count's
-    yardstick; the port never calls it).  Returns the timed rows (mt (b)'s
-    first), the edge rows and that time."""
+    15; the `kernel_hist` layer of tpx encode and of mt encode (b) split
+    into its steps; and one `torch.bincount` over the whole 64 MiB (the
+    parent's library_ms, one histogram; the port never calls it).  Returns
+    the timed rows (mt (b)'s, then the tiles'), the edge rows and that
+    time."""
     from hsrans_tpu_torch.kernels import tpx_encode as enc
     from hsrans_tpu_torch.ops.tpx import TpxParams, _mega_layout
 
@@ -1332,11 +1406,12 @@ def hist_kernels_vs_plain(data: np.ndarray, dev: torch.device) -> tuple[list[dic
     p = TpxParams()
     _, tstarts, tends = enc.mega_segments([(b, p.rows, p.steps, n, v) for b, n, v in _mega_layout(data.size, p)])
     mstarts = np.arange(0, data.size, 4096, dtype=np.int64)
+    mends = np.minimum(mstarts + 4096, data.size)
     zipf, plan, _ = zipf_input()
     big = max(plan, key=lambda r: r.size)
     rows = [
-        hist_check(f"mt encode (b): 64 MiB text, {mstarts.size} blocks of 4 KiB", data_t, mstarts,
-                   np.minimum(mstarts + 4096, data.size), None, (12,), True),
+        hist_check(f"mt encode (b): 64 MiB text, {mstarts.size} blocks of 4 KiB", data_t, mstarts, mends, None, (12,),
+                   True),
         hist_check(f"tpx 64 MiB main path: {tstarts.size} tiles", data_t, tstarts, tends, None, (12, 15), True),
         hist_check(f"the reference planner's largest block of the Zipf input ({big.size} bytes)",
                    torch.from_numpy(zipf).to(dev), np.array([big.start]), np.array([big.start + big.size]), None, (12,),
@@ -1346,6 +1421,8 @@ def hist_kernels_vs_plain(data: np.ndarray, dev: torch.device) -> tuple[list[dic
         emit("hist_kernels_vs_plain", **r)
     edges = [hist_check(case, *hist_edge_operands(case, dev), (10, 12, 15), False) for case in HIST_EDGES]
     emit("hist_edges", cases=edges)
+    emit("hist_layer_split", tpx_encode=hist_split(data_t, tstarts, tends, True),
+         mt_encode_b=hist_split(data_t, mstarts, mends, False))
     library_ms = cuda_ms(lambda: torch.bincount(data_t, minlength=256), 20, queue_ahead=True)
     emit("hist_library", bytes=data.size, torch_bincount_ms=library_ms)
     return rows, edges, library_ms
@@ -1494,16 +1571,26 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         # each timed at its main path's launch: the 64 MiB B=12 call (tpx),
         # the 64 MiB x-ray n=64 B=12 device_plan blob (mt decode, both
-        # routes) and plan (mt encode), mt encode (b)'s 16,384 blocks (the
-        # histogram kernels, which only that main path launches)
+        # routes) and plan (mt encode); the histogram kernels as below
         library_ms = None  # no single PyTorch call runs a rANS state chain or writes the wire's layout
         if name in ("hist_count", "hist_normalize"):
+            # the count at mt encode (b)'s 16,384 blocks, the normaliser at the
+            # tpx main path's tiles (B=12, which sort); each beside the other
+            # path's figures.  The count's library_ms: the segmented
+            # torch.bincount; no PyTorch call normalises
             key = "hist_count" if name == "hist_count" else "hist_normalize_B12"
-            row = {"launches": enc_launches["b"][name],
+            main, other = (0, 1) if name == "hist_count" else (1, 0)
+            paths = {0: ("mt_encode_b", enc_launches["b"][name]), 1: ("tpx_encode", launches[name])}
+            fields = (*keys, "launch_ms", "ms_host_paced")
+            row = {"launches": paths[main][1], "path": paths[main][0],
                    "max_abs_err": max(r[key]["max_abs_err"] for r in hist_rows + hist_edges),
-                   **{k: hist_rows[0][key][k] for k in (*keys, "launch_ms")}, "xla_not_pallas": True}
-            # one torch.bincount over the same 64 MiB: the count's yardstick (no PyTorch call normalises)
-            library_ms = bincount_ms if name == "hist_count" else None
+                   **{k: hist_rows[main][key][k] for k in fields},
+                   paths[other][0]: {"launches": paths[other][1], **{k: hist_rows[other][key][k] for k in fields},
+                                     **({"library_ms": hist_rows[other][key]["library_ms"]} if main == 0 else {})},
+                   "xla_not_pallas": True}
+            if name == "hist_count":
+                library_ms = hist_rows[0][key]["library_ms"]
+                row["library_whole_input_ms"] = bincount_ms  # one torch.bincount of the 64 MiB, one histogram
         elif name == "mt_decode":
             row = {"launches": mt_launches, "max_abs_err": max(r["max_abs_err"] for r in mt_rows + edge_rows["mt_decode"]),
                    **{k: mt_rows[0][k] for k in (*keys, "launch_ms", "link_us")}}

@@ -333,15 +333,13 @@ def enc_tables_device(freqs: torch.Tensor, cumuls: torch.Tensor, bits: int) -> t
     `hsrans_tpu/kernels/tpx_encode.py::_device_tile_tables` makes on the
     TPU."""
     dev = freqs.device
-    f = freqs.to(torch.int64) & 0xFFFF
-    cum = cumuls.to(torch.int64) & 0xFFFF
+    f = freqs.to(torch.int32) & 0xFFFF
+    cum = cumuls.to(torch.int32) & 0xFFFF
     d = torch.clamp(f, min=1)
     l = shift_tensor(dev)[d]
-    if bits <= 12:
-        fc = f | (torch.where(f > 0, cum, 0) << 13) | (l.to(torch.int64) << 25)
-    else:
-        fc = f | (cum << 16)
-    return from_u32(fc), magic_tensor(dev)[d], l
+    # every fc fits 31 bits (B <= 12: shift <= 12 at bit 25; else cumul < 2^15), so int32 holds it as it is
+    fc = f | (torch.where(f > 0, cum, 0) << 13) | (l << 25) if bits <= 12 else f | (cum << 16)
+    return fc, magic_tensor(dev)[d], l
 
 
 def mega_operands(data: torch.Tensor, geoms: list[tuple[int, int, int, int, int]], *, bits: int):

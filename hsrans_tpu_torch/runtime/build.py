@@ -61,8 +61,8 @@ _SIGNATURES = {
     "hsr_mt_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
     # words, index, counts, final states, freqs, nb, place rows, rows, out, n, words_cap, out u16s, cuda stream
     "hsr_mt_wire": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, ctypes.c_longlong, ctypes.c_longlong, _P],
-    # data, segment rows, segments, chunks, chunk bytes, counts, cuda stream
-    "hsr_hist_count": [_P, _P, _I, ctypes.c_longlong, ctypes.c_longlong, _P, _P],
+    # data, segment rows, short segments, long segments, chunks, chunk bytes, counts, cuda stream
+    "hsr_hist_count": [_P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P, _P],
     # counts, divisors, rows, bits, freq, cumul, cuda stream
     "hsr_hist_normalize": [_P, _P, _I, _I, _P, _P, _P],
 }

@@ -358,6 +358,28 @@ def test_hist_kernels_equal_make_tile_hist(cuda, bits):
         assert np.array_equal(cumul[i].cpu().numpy().view(np.uint16), want.cumul)
 
 
+def test_segment_hists_makes_no_wait_on_the_card(cuda):
+    """segment_hists on the card (mt encode (b)'s 4 KiB blocks and long
+    segments in one call) checks on the host and sends its table and
+    divisors in one copy: torch's sync debug mode raises on any wait for
+    the card between its entry and its return."""
+    from hsrans_tpu_torch.models import device_hist as dh
+
+    data = text_like(np.random.default_rng(5), 1 << 22)
+    starts = np.concatenate([np.arange(0, 1 << 21, 4096), [1 << 21, 3 << 20]]).astype(np.int64)
+    ends = np.concatenate([starts[:-2] + 4096, [3 << 20, 1 << 22]]).astype(np.int64)
+    data_t = torch.from_numpy(data).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        freq, cumul = dh.segment_hists(data_t, starts, ends, 12)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = dh.normalize_rows_plain(dh.observe_segments_plain(data_t, starts, ends),
+                                   torch.from_numpy(dh.segment_divisors(starts, ends)).to(cuda), 12)
+    assert torch.equal(freq, want[0]) and torch.equal(cumul, want[1])
+
+
 def _hist_launches(before: dict[str, int]) -> int:
     """Launches of each histogram kernel since `before` (a copy of
     build.LAUNCHES); raises if the two differ."""
