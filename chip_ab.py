@@ -2,15 +2,16 @@
 """Launch A/B of the mt and tpx kernels of several source trees, side by
 side in one process on the same operands.
 
-    python3 chip_ab.py NAME=DIR [NAME=DIR ...] [--out FILE]
+    python3 chip_ab.py NAME=DIR [NAME=DIR ...] [--mt-decode] [--out FILE]
 
 Each DIR holds a copy of the port's package (`DIR/hsrans_tpu_torch/`): this
 checkout (`.`), a parent commit unpacked by `git archive`, or a copy whose
 kernel sources were edited to try another constant.  Each tree's own
 `runtime/build.py` builds that tree's kernel library (all trees at once)
 and binds it.  The operands are made by this checkout's Python: the 64 MiB
-x-ray `device_plan` blob and plan (a), the 8 MiB x-ray classes of
-`chip_smoke.py`'s kernel phases, 64 MiB of enwik8-like text in uniform
+x-ray `device_plan` blob and plan (a), the 8 MiB x-ray blobs of
+`chip_smoke.py`'s kernel phases (the decode: B=10..15 x n=32/64 and a
+uniform 16 KiB plan; the encode: its classes), 64 MiB of enwik8-like text in uniform
 4 KiB blocks (plan (b)), and the tpx main path's call (the same 64 MiB of
 text at B=12 and B=15, four megas in one launch); the decode blobs are
 encoded on the card.  A tree whose tpx kernels take another argument list
@@ -24,12 +25,15 @@ mega's section, or the whole mt blob, in one launch; a tree from before
 them runs its concat once a mega (the rectangular streams, which the host
 then gathered into the wire) and its placement of the coded parts (the
 host then wrote the head and the indicators), and is held against this
-checkout's wire by that host step.  Every tree's outputs must equal the
-plain version's.  Each case times every tree's launch alone
+checkout's wire by that host step.  On each decode case the annotated
+route follows the rank kernel: each tree's annotate, then its annotated
+decode of its own annotation, timed with the rank kernel in the same turns
+(the route over the rank kernel, per tree).  Every tree's outputs must
+equal the plain version's.  Each case times every tree's launch alone
 (`chip_smoke.launch_times`: CUDA events over 20 launches queued behind a
 spin) in turns, each tree and then back in reverse order, and prints one
 JSON line with the card's name and power limit; `--out` also appends the
-lines to FILE.
+lines to FILE.  `--mt-decode` runs the decode cases alone.
 
     python3 chip_ab.py NAME=DIR [NAME=DIR ...] --e2e REPS [--out FILE]
 
@@ -83,8 +87,10 @@ def decode_cases(dev: torch.device) -> list[tuple[str, int, int, tuple, int]]:
     xray = np.fromfile(REPO / "tests" / "corpus" / "xray.bin", np.uint8)
     main = np.tile(xray, 8)
     specs = [("x-ray 64 MiB main path", main, 12, 64, device_plan(main, 12, 64, MT_CAPS[12]))]
-    specs += [(f"x-ray n={n} B={b} device_plan {MT_CAPS[b] >> 10} KiB", xray, b, n, device_plan(xray, b, n, MT_CAPS[b]))
-              for b, n in ((12, 64), (15, 64), (12, 32), (14, 32))]
+    # chip_smoke.mt_annotated_phases' 8 MiB blobs: B=10..15 x n=32/64 (B=11 with B=10's cap)
+    caps = {b: MT_CAPS.get(b, 16 << 10) for b in range(10, 16)}
+    specs += [(f"x-ray n={n} B={b} device_plan {caps[b] >> 10} KiB", xray, b, n, device_plan(xray, b, n, caps[b]))
+              for b in caps for n in (32, 64)]
     specs.append(("x-ray n=64 B=12 uniform 16 KiB", xray, 12, 64, uniform_plan(xray, 12, 64, 16 << 10)))
     cases = []
     for name, src, bits, n, plan in specs:
@@ -246,16 +252,19 @@ def run_tpx_wire(libs: dict, outs: tuple, desc: np.ndarray, freqs: np.ndarray, b
           **in_turns({k: (lambda k=k: write(k)) for k in libs}, 1)})
 
 
-def run(libs: dict, dev: torch.device, sink) -> None:
+def checked(name: str, rc: int) -> None:
+    if rc:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def run_mt_decode(libs: dict, dev: torch.device, sink) -> None:
+    """The mt decode kernels of each tree on decode_cases: the rank kernel,
+    then the annotated route (each tree's annotate, then its annotated
+    decode of its own annotation) timed with the rank kernel in the same
+    turns."""
     from hsrans_tpu_torch.kernels import mt_decode as mtd
-    from hsrans_tpu_torch.kernels import mt_encode as mte
 
     cs = torch.cuda.current_stream(dev).cuda_stream
-
-    def checked(name: str, rc: int) -> None:
-        if rc:
-            raise RuntimeError(f"{name}: CUDA error {rc}")
-
     for name, bits, n, ops, length in decode_cases(dev):
         stream, index, states, fc = ops
         nb = index.shape[0]
@@ -275,9 +284,50 @@ def run(libs: dict, dev: torch.device, sink) -> None:
         for k in libs:
             if chip_smoke.max_abs_err(outs[k], want):
                 raise AssertionError(f"{k} mt decode, {name}: differs from the plain version")
+        max_groups = int(index[:, 4].max())
         sink({"kernel": "mt_decode", "case": name, "bits": bits, "n": n, "blocks": nb,
-              **in_turns({k: (lambda k=k: decode(k)) for k in libs}, int(index[:, 4].max()))})
+              **in_turns({k: (lambda k=k: decode(k)) for k in libs}, max_groups)})
 
+        nwords = stream.numel() // 2
+        anns = {k: torch.empty(nwords, dtype=torch.int32, device=dev) for k in libs}
+
+        def annotate(k: str) -> None:
+            checked(k, libs[k].hsr_mt_annotate(stream.data_ptr(), index.data_ptr(), fc.data_ptr(), anns[k].data_ptr(),
+                                               nb, bits, nwords, cs))
+
+        def decode_annotated(k: str) -> None:
+            out, fin, cursor = outs[k]
+            checked(k, libs[k].hsr_mt_decode_annotated(anns[k].data_ptr(), index.data_ptr(), states.data_ptr(),
+                                                       fc.data_ptr(), out.data_ptr(), fin.data_ptr(), cursor.data_ptr(),
+                                                       nb, n, bits, nwords, length, cs))
+
+        for k in libs:
+            outs[k][0].zero_()
+            annotate(k)
+            decode_annotated(k)
+        torch.cuda.synchronize()
+        want_ann = mtd.annotate_plain(stream, index, fc, bits=bits)
+        want_dec = mtd.decode_blocks_annotated_plain(want_ann, index, states, fc, bits=bits, n=n, length=length)
+        for k in libs:
+            if chip_smoke.max_abs_err(anns[k], want_ann) or chip_smoke.max_abs_err(outs[k], want_dec):
+                raise AssertionError(f"{k} mt annotated route, {name}: differs from the plain version")
+        fns = {}
+        for k in libs:
+            fns[f"{k} rank"] = lambda k=k: decode(k)
+            fns[f"{k} annotate"] = lambda k=k: annotate(k)
+            fns[f"{k} annotated"] = lambda k=k: decode_annotated(k)
+        timed = in_turns(fns, max_groups)
+        ms = timed["launch_ms"]
+        sink({"kernel": "mt_annotated_route", "case": name, "bits": bits, "n": n, "blocks": nb, **timed,
+              "annotated_over_rank": {k: ms[f"{k} annotated"] / ms[f"{k} rank"] for k in libs},
+              "route_over_rank": {k: (ms[f"{k} annotate"] + ms[f"{k} annotated"]) / ms[f"{k} rank"] for k in libs}})
+
+
+def run(libs: dict, dev: torch.device, sink) -> None:
+    from hsrans_tpu_torch.kernels import mt_encode as mte
+
+    cs = torch.cuda.current_stream(dev).cuda_stream
+    run_mt_decode(libs, dev, sink)
     magic = mte.magic_tensor(dev)
     for name, bits, n, rule, (data, index, freqs), layout in encode_cases(dev):
         nb, cap = index.shape[0], int(index[-1, 4])
@@ -510,6 +560,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("trees", nargs="+", metavar="NAME=DIR", help="a name and a directory holding hsrans_tpu_torch/")
     ap.add_argument("--out", type=Path, help="a file to which the JSON lines are appended")
     ap.add_argument("--e2e", type=int, metavar="REPS", help="time the entry points end to end, REPS calls each")
+    ap.add_argument("--mt-decode", action="store_true", help="time the mt decode kernels only (both routes)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -537,6 +588,9 @@ def main(argv: list[str] | None = None) -> int:
             end_to_end(trees, args.e2e, sink)
             return 0
         sink({"phase": "build", "trees": trees, "libraries": {k: str(b.library_path()) for k, b in builds.items()}})
+        if args.mt_decode:
+            run_mt_decode(libs, torch.device("cuda", 0), sink)
+            return 0
         run_tpx(libs, torch.device("cuda", 0), sink)
         run(libs, torch.device("cuda", 0), sink)
         run_hist(libs, torch.device("cuda", 0), sink)

@@ -22,7 +22,8 @@ the port's two paths through their public entry points:
   * mt annotated: the same decode through the annotated-stream route
     (`kernels/mt_decode.py::_PAIR_V2`: an annotate launch, then the
     annotated decode), its two kernels timed against the rank route's on
-    the same operands at B=10..15, n=32 and 64;
+    the same operands at B=10..15, n=32 and 64, through the wrappers and
+    by the launches alone;
   * mt encode: the same 64 MiB of x-ray and 64 MiB of enwik8-like text in
     uniform 4 KiB blocks encoded on the card and decoded on the card, other
     depths, n=32 (`mt_encode_device`), the reference planner's blocks, odd
@@ -38,18 +39,19 @@ the port's two paths through their public entry points:
     card, one launch of each kernel a call, with no wait on the card, and
     their `kernel_hist` layer is split into its steps;
   * the mt decode and encode kernels' shared-memory windows at their edges
-    (`DECODE_EDGES`, `ENCODE_EDGES`), and the two wire writers, tpx and
+    (`DECODE_EDGES`, `ENCODE_EDGES`; the annotated route's two kernels on
+    `DECODE_EDGES` too), and the two wire writers, tpx and
     mt, at theirs (`TPX_WIRE_EDGES`, `MT_PLACE_EDGES`), which the card tests
     run too;
 
 and times the kernels and the paths with CUDA events and the host clock.
 The tpx and mt decode and encode kernels and the two wire writers are
-timed twice: through their wrappers (`ms`, which allocate their outputs)
-and by their launch alone on outputs allocated once (`launch_ms`; for the
-chains also `link_us`, that over the chain's links: a tpx row's 4 tiles x
-32 steps, an mt block's groups).  The wire writers' launches alone also
-write into outputs filled with 0xAA first, to show that they write every
-byte.
+timed twice (the annotated decode too): through their wrappers (`ms`,
+which allocate their outputs) and by their launch alone on outputs
+allocated once (`launch_ms`; for the chains also `link_us`, that over the
+chain's links: a tpx row's 4 tiles x 32 steps, an mt block's groups).  The
+wire writers' launches alone also write into outputs filled with 0xAA
+first, to show that they write every byte.
 Every blob the card writes must equal the port's CPU tier (the kernels'
 plain versions, which the CPU tests hold byte-equal to the JAX package) and
 decode back to its input.
@@ -477,7 +479,10 @@ def mt_annotated_kernels(name: str, blob: bytes, bits: int, n: int, dev: torch.d
     the annotated decode against the rank kernel) on the same CUDA tensors
     of one blob; times them and the rank kernel on those operands in turns
     (rank, annotate, annotated decode, then back), each by CUDA events over
-    20 launches queued ahead."""
+    20 launches queued ahead: through the wrappers (`ab`), and by the
+    decodes' launches alone on outputs allocated once (`ab.launch`; the
+    annotate wrapper allocates its output uninitialised, so it is its launch
+    alone)."""
     from hsrans_tpu_torch.kernels import mt_decode as mtd
 
     length, stream, blocks, w_counts = mtd.index_blocks(blob, n)
@@ -494,15 +499,25 @@ def mt_annotated_kernels(name: str, blob: bytes, bits: int, n: int, dev: torch.d
     if err_ann or err_dec or err_rank:
         raise AssertionError(f"mt annotated {name}: a kernel differs (annotate {err_ann}, decode {err_dec}, "
                              f"against the rank kernel {err_rank})")
+    outs = tuple(torch.empty_like(t) for t in got)
     fns = {
         "rank": lambda: mtd.decode_blocks_cuda(words, index, states, fc, **kw),
         "mt_annotate": lambda: mtd.annotate_cuda(words, index, fc, bits=bits),
         "mt_decode_annotated": lambda: mtd.decode_blocks_annotated_cuda(ann, index, states, fc, **kw),
     }
+    launches = {
+        "rank": lambda: mtd.launch_decode(words, index, states, fc, *outs, bits=bits, n=n),
+        "mt_annotate": fns["mt_annotate"],
+        "mt_decode_annotated": lambda: mtd.launch_decode_annotated(ann, index, states, fc, *outs, bits=bits, n=n),
+    }
     turns: dict[str, list[float]] = {k: [] for k in fns}
+    launch_turns: dict[str, list[float]] = {k: [] for k in fns}
     for k in [*fns, *reversed(fns)]:
         turns[k].append(cuda_ms(fns[k], 20, queue_ahead=True))
+        launch_turns[k].append(cuda_ms(launches[k], 20, queue_ahead=True))
     ms = {k: statistics.mean(v) for k, v in turns.items()}
+    lms = {k: statistics.mean(v) for k, v in launch_turns.items()}
+    max_groups = int(ops[0][:, 4].max())
     nwords = ann.numel()
     coded_words = int((torch.clamp(index[:, 1], max=nwords) - torch.clamp(index[:, 0], 0, nwords)).clamp(min=0).sum())
     plains = {
@@ -514,17 +529,22 @@ def mt_annotated_kernels(name: str, blob: bytes, bits: int, n: int, dev: torch.d
         "mt_annotate": bound(2 * coded_words + 4 * nwords + nbytes(index, fc), ANNOTATE_OPS_PER_WORD * coded_words),
         "mt_decode_annotated": bound(nbytes(ann, index, states, fc, *got), OPS_PER_SYMBOL["decode"] * length),
     }
-    res = {"case": name, "bits": bits, "n": n, "blocks": int(ops[0].shape[0]), "max_groups": int(ops[0][:, 4].max()),
+    res = {"case": name, "bits": bits, "n": n, "blocks": int(ops[0].shape[0]), "max_groups": max_groups,
            "coded_words": coded_words}
     errs = {"mt_annotate": err_ann, "mt_decode_annotated": err_dec}
     for k in plains:
-        res[k] = {"max_abs_err": errs[k], "ms": ms[k], "ms_host_paced": cuda_ms(fns[k], 20),
+        res[k] = {"max_abs_err": errs[k], "ms": ms[k], "launch_ms": lms[k], "ms_host_paced": cuda_ms(fns[k], 20),
                   "plain_ms": cuda_ms(plains[k], 1), **bounds[k]}
-    both = ms["mt_annotate"] + ms["mt_decode_annotated"]
+    res["mt_decode_annotated"]["link_us"] = lms["mt_decode_annotated"] * 1e3 / max(max_groups, 1)
+    both, both_launch = ms["mt_annotate"] + ms["mt_decode_annotated"], lms["mt_annotate"] + lms["mt_decode_annotated"]
     res["ab"] = {"rank_ms": ms["rank"], "rank_ms_turns": turns["rank"], "annotate_ms": ms["mt_annotate"],
                  "annotated_decode_ms": ms["mt_decode_annotated"], "annotated_route_ms": both,
                  "annotated_route_over_rank": both / ms["rank"],
-                 "annotated_decode_over_rank": ms["mt_decode_annotated"] / ms["rank"]}
+                 "annotated_decode_over_rank": ms["mt_decode_annotated"] / ms["rank"],
+                 "launch": {"rank_ms": lms["rank"], "annotate_ms": lms["mt_annotate"],
+                            "annotated_decode_ms": lms["mt_decode_annotated"], "turns": launch_turns,
+                            "annotated_route_over_rank": both_launch / lms["rank"],
+                            "annotated_decode_over_rank": lms["mt_decode_annotated"] / lms["rank"]}}
     emit("mt_annotated_kernels", **res)
     return res
 
@@ -1035,13 +1055,14 @@ def encode_edge_operands(case: str, n: int, rule: str, dev: torch.device) -> lis
 
 
 def mt_window_edges(dev: torch.device) -> dict[str, list[dict]]:
-    """The mt decode and encode kernels against their plain versions on the
-    DECODE_EDGES and ENCODE_EDGES cases, exact (decode: bytes, final states,
-    cursors; encode: counts, final states, emitted words)."""
+    """The mt decode and encode kernels, and the annotated route's two
+    kernels, against their plain versions on the DECODE_EDGES and
+    ENCODE_EDGES cases, exact (decode: bytes, final states, cursors;
+    annotate: every word; encode: counts, final states, emitted words)."""
     from hsrans_tpu_torch.kernels import mt_decode as mtd
     from hsrans_tpu_torch.kernels import mt_encode as mte
 
-    rows: dict[str, list[dict]] = {"mt_decode": [], "mt_encode": []}
+    rows: dict[str, list[dict]] = {"mt_decode": [], "mt_decode_annotated": [], "mt_encode": []}
     for case in DECODE_EDGES:
         for bits in (10, 12, 15):
             for n in (32, 64):
@@ -1052,6 +1073,17 @@ def mt_window_edges(dev: torch.device) -> dict[str, list[dict]]:
                     if err:
                         raise AssertionError(f"mt decode {case}, {name}, B={bits} n={n}: kernel differs (max abs err {err})")
                     rows["mt_decode"].append({"case": case, "sub": name, "bits": bits, "n": n, "max_abs_err": err})
+                    words, index, states, fc = args
+                    ann = mtd.annotate_cuda(words, index, fc, bits=bits)
+                    got = mtd.decode_blocks_annotated_cuda(ann, index, states, fc, **kw)
+                    torch.cuda.synchronize()
+                    err = max(max_abs_err(ann, mtd.annotate_plain(words, index, fc, bits=bits)),
+                              max_abs_err(got, mtd.decode_blocks_annotated_plain(ann, index, states, fc, **kw)))
+                    if err:
+                        raise AssertionError(f"mt annotated {case}, {name}, B={bits} n={n}: a kernel differs "
+                                             f"(max abs err {err})")
+                    rows["mt_decode_annotated"].append({"case": case, "sub": name, "bits": bits, "n": n,
+                                                        "max_abs_err": err})
     for case in ENCODE_EDGES:
         for n in (32, 64):
             for rule in ("groups", "section"):
@@ -1064,8 +1096,8 @@ def mt_window_edges(dev: torch.device) -> dict[str, list[dict]]:
                     if err:
                         raise AssertionError(f"mt encode {case}, {name}, n={n} {rule}: kernel differs (max abs err {err})")
                     rows["mt_encode"].append({"case": case, "sub": name, "n": n, "rule": rule, "max_abs_err": err})
-    emit("mt_window_edges", decode_cases=len(rows["mt_decode"]), encode_cases=len(rows["mt_encode"]),
-         max_abs_err=max(r["max_abs_err"] for r in rows["mt_decode"] + rows["mt_encode"]))
+    emit("mt_window_edges", decode_cases=len(rows["mt_decode"]), annotated_cases=len(rows["mt_decode_annotated"]),
+         encode_cases=len(rows["mt_encode"]), max_abs_err=max(r["max_abs_err"] for v in rows.values() for r in v))
     return rows
 
 
@@ -1595,8 +1627,10 @@ def main() -> int:
             row = {"launches": mt_launches, "max_abs_err": max(r["max_abs_err"] for r in mt_rows + edge_rows["mt_decode"]),
                    **{k: mt_rows[0][k] for k in (*keys, "launch_ms", "link_us")}}
         elif name in ann_launches:
-            row = {"launches": ann_launches[name], "max_abs_err": max(r[name]["max_abs_err"] for r in ann_rows),
-                   **{k: ann_rows[0][name][k] for k in keys}}
+            edges = edge_rows["mt_decode_annotated"]  # annotate and decode held together on each
+            row = {"launches": ann_launches[name],
+                   "max_abs_err": max([*(r[name]["max_abs_err"] for r in ann_rows), *(r["max_abs_err"] for r in edges)]),
+                   **{k: ann_rows[0][name][k] for k in (*keys, "launch_ms", "link_us") if k in ann_rows[0][name]}}
         elif name in enc_launches["a"]:
             row = {"launches": enc_launches["a"][name], "max_abs_err": max(r[name]["max_abs_err"] for r in enc_rows),
                    **{k: enc_rows[0][name][k] for k in keys}}

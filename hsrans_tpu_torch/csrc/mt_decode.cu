@@ -1,9 +1,9 @@
 // mt decode on Hopper: every coded block of an mt_rANS32xN 16w blob in one
 // launch, by one of two routes.
 //
-// The rank route, mt_decode_kernel, replaces four Pallas TPU kernels of
-// hsrans_tpu/kernels/, which differ only in how they pack 32- or 64-lane
-// blocks into 128-lane TPU rows:
+// The rank route, mt_decode_kernel<K, kFlat, uint16_t>, replaces four Pallas
+// TPU kernels of hsrans_tpu/kernels/, which differ only in how they pack 32-
+// or 64-lane blocks into 128-lane TPU rows:
 //   mt64_decode.py::_mt64_kernel           (one block per row)
 //   mt64_decode.py::_mt64_pair_kernel      (two n=64 blocks per row, B<=12)
 //   mt64_decode.py::_mt64_pair_kernel_hb   (pairs at B=13..15)
@@ -13,17 +13,17 @@
 // The annotated-stream route replaces the two Pallas kernels of the JAX
 // package's `_PAIR_V2` route (mt64_decode.py::_decode_pairs_v2):
 //   mt64_decode.py::_annotate_pairs        -> mt_annotate_kernel
-//   mt64_decode.py::_mt64_pair_kernel_v2   -> mt_decode_annotated_kernel
+//   mt64_decode.py::_mt64_pair_kernel_v2   -> mt_decode_kernel<K, kFlat, uint32_t>
 // At B <= 15 a lane that has just renormalised, st = (st << 16) | word, has
 // next slot exactly word & mask, since (st << 16) & mask == 0.  So a fully
 // parallel pass stamps every word of a block with rank(word & mask) in its
 // bits 16..23 (ann = word | rank << 16), and the serial decode takes a
-// consumed lane's next rank from the word it reads: the two shared-memory
-// rank lookups leave that lane's link.  A lane that does not consume still
-// looks its rank up, but from its new state alone, off the ballot and the
-// load.  A read past a block's words gives word 0 and rank 0, which is
-// rank_of(0): slot 0 belongs to the first present symbol.  The route holds
-// for n = 32 and 64 and any B <= 15, and gives the rank route's bytes.
+// consumed lane's next rank from the word it reads: the rank lookup leaves
+// that lane's link.  A lane that does not consume still looks its rank up,
+// but from its new state alone, off the ballot and the read.  A read past a
+// block's words gives word 0 and rank 0, the rank of slot 0: slot 0 belongs
+// to the first present symbol.  The route holds for n = 32 and 64 and any
+// B <= 15, and gives the rank route's bytes.
 //
 // What bounds the decodes: each block's n states form one serial chain per
 // lane (table lookup -> state update -> ballot -> renorm read) of
@@ -36,42 +36,46 @@
 // With the words in shared memory the link is the warp's own instructions,
 // issued in order, with dependent shared loads and popcounts among them, so
 // at one warp per scheduler a link is the chain's latency and at the 64 MiB
-// main blob's ~5 warps per scheduler it is nearly their issue.  The annotate pass is bound by bytes: it reads 2 B and
-// writes 4 B a word.
+// main blob's ~5 warps per scheduler it nears their instruction
+// throughput.  The annotated link is one dependent shared load shorter
+// where a lane consumes.  The annotate pass is bound by bytes: it reads
+// 2 B and writes 4 B a word.
 //
-// Design: one warp per coded block in the decodes.  With n=64 thread j holds
-// lanes j and j+32 (two independent chains per thread), with n=32 lane j.
-// The warp builds its block's decode table in shared memory from the block's
-// freq | cumul << 16 row: the bucketed rank table of hsrans_tpu/ops/tpx.py::
-// make_rank_tables (per 32-slot bucket the rank of its first slot's symbol
-// and a bitmask of the symbol starts inside it; a flat slot -> symbol table
-// takes 33 KiB at B=15).  The rank route packs it so that each lookup is one
-// 8-byte shared load, bucket then rank entry (symbol | freq << 8, cumul;
-// 10.3 KiB a warp at B=15), and at B <= 12 it also spreads the bucket table
-// into a flat slot -> rank byte map (4 KiB a warp at B=12), which takes the
-// bucket load and a popcount off the link.  The renorm words of a group go
-// to the lanes in ascending lane order over all n lanes: a ballot over lanes
-// 0..31, then one over lanes 32..63 offset by the first's popcount.  The
-// rank route reads them from a window of the block's words in shared memory
-// (window.cuh: two halves of kWindowHalf words, 2 KiB a warp) that the warp
-// refills by cp.async far ahead of the chain: when its cursor leaves a half
-// it copies the half after the next into that slot, and it waits for a half
-// only when the next group could read into it, ~kWindowHalf - 2n words of
-// reading after the copy began.  Every lane reads (a consuming lane keeps
-// the word), so the warp never splits to reconverge, and each lane knows
-// from the start the groups whose byte it writes, so no 64-bit arithmetic
-// or per-group bound is left on the lanes.  The window zero-fills every
-// byte outside the block's [0, min(word_end, nwords)), so a read past a
-// block's words reads 0 and a corrupt blob cannot read out of bounds.  The
-// annotated route reads its annotation from device memory, clamped the
-// same way.  Lane j's symbol of group g goes to byte out_start + g*n +
-// idx2idx[j] when that byte is below the block's out_limit (its end, or the
-// blob's length for the last block).  The final states and the words
-// consumed come back, for the host's partial tail group.  The annotate pass
-// runs one CTA per coded block: its first warp builds the same table, then
-// all its threads stride over the block's words, a few loads in flight
-// each; it also zeroes the words between blocks, so every word of the
-// annotation is written.
+// Design: one warp per coded block in the decodes, both routes in one
+// kernel body: the word type (u16 words, or the u32 annotation) and the
+// source of a consumed lane's next rank are all that differ.  With n=64
+// thread j holds lanes j and j+32 (two independent chains per thread), with
+// n=32 lane j.  The warp builds its block's decode table in shared memory
+// from the block's freq | cumul << 16 row, packed so that each lookup is one
+// 8-byte shared load: per 32-slot bucket the rank of the symbol that owns
+// its first slot and a bitmask of the symbol starts inside it
+// (hsrans_tpu/ops/tpx.py::make_rank_tables), per rank {symbol | freq << 8,
+// cumul} (10.3 KiB a warp at B=15; a flat slot -> symbol table would take
+// 33 KiB).  At B <= kFlatMaxBits it also spreads the bucket table into a
+// flat slot -> rank byte map (4 KiB a warp at B=12), which takes the bucket
+// load and a popcount off the rank route's link.  The renorm words of a
+// group go to the lanes in ascending lane order over all n lanes: a ballot
+// over lanes 0..31, then one over lanes 32..63 offset by the first's
+// popcount.  Both routes read them from a window of the block's words in
+// shared memory (window.cuh: two halves of 1 KiB, kWindowHalf u16 words or
+// kAnnWindowHalf u32 annotated words, 2 KiB a warp) that the warp refills
+// by cp.async far ahead of the chain: when its cursor leaves a half it
+// copies the half after the next into that slot, and it waits for a half
+// only when the next group could read into it, ~half - 2n words of reading
+// after the copy began.  Every lane reads (a consuming lane keeps the word
+// and, annotated, its rank), so the warp never splits to reconverge, and
+// each lane knows from the start the groups whose byte it writes, so no
+// 64-bit arithmetic or per-group bound is left on the lanes.  The window
+// zero-fills every byte outside the block's [0, min(word_end, nwords)), so
+// a read past a block's words reads word 0 (and rank 0) and a corrupt blob
+// cannot read out of bounds.  Lane j's symbol of group g goes to byte
+// out_start + g*n + idx2idx[j] when that byte is below the block's
+// out_limit (its end, or the blob's length for the last block).  The final
+// states and the words consumed come back, for the host's partial tail
+// group.  The annotate pass runs one CTA per coded block: its first warp
+// builds the packed table, then all its threads stride over the block's
+// words, a few loads in flight each; it also zeroes the words between
+// blocks, so every word of the annotation is written.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,15 +85,20 @@
 namespace {
 
 constexpr int kWarps = 4;  // blocks (one warp each) per CTA of the decodes
-// words in each half of the rank route's stream window (a power of two, at
-// least 256 and above 2n: a group reads at most n words); 1024 costs the
+// u16 words in each half of the rank route's stream window (a power of two,
+// at least 256 and above 2n: a group reads at most n words); 1024 costs the
 // 64 MiB main blob a CTA an SM (PERF.md)
 constexpr int kWindowHalf = 512;
-// the rank kernel looks a slot's rank up in a flat slot -> rank byte map at
-// B up to this (2^B bytes a warp; faster than the bucket table at B=12,
+// u32 words in each half of the annotated route's window: the rank route's
+// 1 KiB a half, so that both keep the main blob in one wave (PERF.md)
+constexpr int kAnnWindowHalf = 256;
+// the decodes look a slot's rank up in a flat slot -> rank byte map at B up
+// to this (2^B bytes a warp; faster than the bucket table at B=12,
 // PERF.md), in the bucket table above it
 constexpr int kFlatMaxBits = 12;
 static_assert((kWindowHalf & (kWindowHalf - 1)) == 0 && kWindowHalf >= 256, "window half: a power of two >= 256");
+static_assert((kAnnWindowHalf & (kAnnWindowHalf - 1)) == 0 && kAnnWindowHalf >= 128,
+              "annotated window half: a power of two >= 128");
 constexpr int kAnnThreads = 256;  // threads of an annotate CTA (one coded block)
 constexpr int kAnnUnroll = 4;     // words in flight per annotate thread
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
@@ -108,26 +117,6 @@ __device__ __forceinline__ int idx2idx32(int j) {
 
 // 32-slot buckets of a 2^bits-slot table (at least one)
 __host__ __device__ constexpr int buckets(int bits) { return ((1 << bits) + 31) / 32; }
-
-// 32-bit words of shared memory one warp's table takes: fc and symbol by
-// rank, then per bucket a u8 rank (c0) and a u32 start mask (bm)
-__host__ __device__ constexpr int table_words(int bits) {
-  return 256 + 64 + (buckets(bits) + 3) / 4 + buckets(bits);
-}
-
-// one block's rank table in shared memory
-struct RankTable {
-  uint32_t* fc;  // by rank: freq | cumul << 16
-  uint8_t* sym;  // by rank
-  uint8_t* c0;   // by bucket: the rank of the symbol that owns its first slot
-  uint32_t* bm;  // by bucket: a bit at each slot where a symbol starts
-};
-
-// the table's arrays in `tab` (table_words(bits) words of shared memory)
-__device__ __forceinline__ RankTable rank_table_at(uint32_t* tab, int bits) {
-  return {tab, reinterpret_cast<uint8_t*>(tab + 256), reinterpret_cast<uint8_t*>(tab + 256 + 64),
-          tab + 256 + 64 + (buckets(bits) + 3) / 4};
-}
 
 // Thread j of a warp loads symbols 8j..8j+7 of a freq | cumul << 16 row into
 // fcs and returns the rank of its first: the present (freq > 0) symbols
@@ -148,43 +137,9 @@ __device__ __forceinline__ int load_symbols(uint32_t (&fcs)[8], const uint32_t* 
   return incl - present;
 }
 
-// The table of the block whose freq | cumul << 16 row is fc_row, built in
-// `tab` (table_words(bits) words) by the 32 threads of one warp, thread j.
-// Ends with __syncwarp: the warp may read it on return.
-__device__ __forceinline__ RankTable build_rank_table(uint32_t* tab, const uint32_t* __restrict__ fc_row, int bits,
-                                                      int j) {
-  const uint32_t n_slots = 1u << bits;
-  const RankTable t = rank_table_at(tab, bits);
-  for (int i = j; i < buckets(bits); i += 32) t.bm[i] = 0u;
-  uint32_t fcs[8];
-  int rank = load_symbols(fcs, fc_row, j);
-  __syncwarp();  // bm zeroed before any start bit is set
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const uint32_t f = fcs[q] & 0xFFFFu, c = fcs[q] >> 16;
-    if (f == 0 || c >= n_slots) continue;
-    t.fc[rank] = fcs[q];
-    t.sym[rank] = static_cast<uint8_t>(8 * j + q);
-    atomicOr(&t.bm[c >> 5], 1u << (c & 31));
-    // buckets whose first slot lies in [c, c + f) start inside this symbol
-    const uint32_t end = min(c + f, n_slots);
-    for (uint32_t bk = (c + 31) >> 5; (bk << 5) < end; ++bk) t.c0[bk] = static_cast<uint8_t>(rank);
-    ++rank;
-  }
-  __syncwarp();
-  return t;
-}
-
-// the rank of the symbol that owns `slot`: its bucket's first rank plus the
-// symbols that start after the bucket's first slot and at or before `slot`
-__device__ __forceinline__ uint32_t rank_of(const RankTable& t, uint32_t slot) {
-  const uint32_t bk = slot >> 5;
-  return t.c0[bk] + __popc(t.bm[bk] & ((2u << (slot & 31)) - 2u));
-}
-
-// The rank kernel's table, each lookup one 8-byte shared load: per bucket
+// A block's rank table, each lookup one 8-byte shared load: per bucket
 // {start mask without bit 0, rank of the symbol that owns its first slot},
-// per rank {symbol | freq << 8, cumul}.  At B=15 it takes 10.3 KiB a warp.
+// per rank {symbol | freq << 8, cumul}.  At B=15 it takes 10.3 KiB.
 struct PackedTable {
   uint2* bucket;
   uint2* entry;
@@ -194,12 +149,17 @@ struct PackedTable {
 // table whatever the freqs
 __host__ __device__ constexpr int packed_table_bytes(int bits) { return 8 * (buckets(bits) + 256 + 32); }
 
-// As build_rank_table, into `tab` (packed_table_bytes(bits) of shared
-// memory, 8-byte aligned).
+// the table's arrays in `tab` (packed_table_bytes(bits) of shared memory,
+// 8-byte aligned)
+__device__ __forceinline__ PackedTable packed_table_at(uint2* tab, int bits) { return {tab, tab + buckets(bits)}; }
+
+// The table of the block whose freq | cumul << 16 row is fc_row, built in
+// `tab` by the 32 threads of one warp, thread j.  Ends with __syncwarp: the
+// warp may read it on return.
 __device__ __forceinline__ PackedTable build_packed_table(uint2* tab, const uint32_t* __restrict__ fc_row, int bits,
                                                           int j) {
   const uint32_t n_slots = 1u << bits;
-  const PackedTable t{tab, tab + buckets(bits)};
+  const PackedTable t = packed_table_at(tab, bits);
   for (int i = j; i < buckets(bits); i += 32) t.bucket[i] = make_uint2(0u, 0u);
   uint32_t fcs[8];
   int rank = load_symbols(fcs, fc_row, j);
@@ -210,6 +170,7 @@ __device__ __forceinline__ PackedTable build_packed_table(uint2* tab, const uint
     if (f == 0 || c >= n_slots) continue;
     t.entry[rank] = make_uint2(static_cast<uint32_t>(8 * j + q) | f << 8, c);
     if (c & 31) atomicOr(&t.bucket[c >> 5].x, 1u << (c & 31));  // a bucket's first slot counts in its rank
+    // buckets whose first slot lies in [c, c + f) start inside this symbol
     const uint32_t end = min(c + f, n_slots);
     for (uint32_t bk = (c + 31) >> 5; (bk << 5) < end; ++bk) t.bucket[bk].y = static_cast<uint32_t>(rank);
     ++rank;
@@ -225,6 +186,12 @@ __device__ __forceinline__ uint32_t packed_rank(const PackedTable& t, uint32_t s
   return b.y + __popc(b.x << (~slot & 31u));
 }
 
+// u16 words or u32 annotated words in each half of a warp's window
+template <typename Word>
+__host__ __device__ constexpr int window_half() {
+  return sizeof(Word) == sizeof(uint16_t) ? kWindowHalf : kAnnWindowHalf;
+}
+
 // shared memory of one warp's tables in mt_decode_kernel: the packed table,
 // then with kFlat the slot -> rank map (16-byte multiples)
 __host__ __device__ constexpr int decode_table_bytes(int bits, bool flat) {
@@ -233,16 +200,20 @@ __host__ __device__ constexpr int decode_table_bytes(int bits, bool flat) {
 
 // shared memory of one CTA of mt_decode_kernel: the warps' windows, then
 // their tables
+template <typename Word>
 __host__ __device__ constexpr size_t decode_smem_bytes(int bits, bool flat) {
-  return kWarps * (2 * kWindowHalf * sizeof(uint16_t) + decode_table_bytes(bits, flat));
+  return kWarps * (2 * window_half<Word>() * sizeof(Word) + decode_table_bytes(bits, flat));
 }
 
 // ceil(a / n) for any sign of a, n > 0
 __device__ __forceinline__ long long ceil_div(long long a, int n) { return a > 0 ? (a + n - 1) / n : -((-a) / n); }
 
-template <int K, bool kFlat>
+// Word = uint16_t: the rank route, reading the blob's words.  Word =
+// uint32_t: the annotated route, reading the annotation (word | rank << 16)
+// in their place, each lane carrying the rank of its slot.
+template <int K, bool kFlat, typename Word>
 __global__ void __launch_bounds__(kWarps * 32)
-mt_decode_kernel(const uint16_t* __restrict__ stream,   // [nwords] the blob's word region (2-byte aligned)
+mt_decode_kernel(const Word* __restrict__ stream,       // [nwords] words or annotation (Word-aligned)
                  const BlockIndex* __restrict__ index,  // [nb]
                  const uint32_t* __restrict__ init,     // [nb, 32K] header states
                  const uint32_t* __restrict__ fctab,    // [nb, 256] freq | cumul << 16
@@ -251,44 +222,49 @@ mt_decode_kernel(const uint16_t* __restrict__ stream,   // [nwords] the blob's w
                  long long* __restrict__ cursor,        // [nb] words consumed
                  int nb, int bits, long long nwords, long long length) {
   extern __shared__ __align__(16) uint32_t dsmem[];
+  constexpr bool kAnnotated = sizeof(Word) == sizeof(uint32_t);
+  constexpr int kW = sizeof(Word);             // bytes a word
+  constexpr int kHalf = window_half<Word>();   // words of a window half
+  constexpr int kRing = 2 * kHalf;             // words of a warp's window
   constexpr int n = 32 * K;
-  constexpr int kRing = 2 * kWindowHalf;  // words of a warp's window
-  static_assert(kWindowHalf >= 2 * n, "a half holds a group's reads twice over");
+  static_assert(kHalf >= 2 * n, "a half holds a group's reads twice over");
   const int w = threadIdx.x >> 5;
   const int j = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps + w;
   if (b >= nb) return;  // warp-uniform; the kernel syncs only within a warp
-  uint16_t* ring = reinterpret_cast<uint16_t*>(dsmem) + w * kRing;
+  // typed as Word*: a byte pointer here let ptxas recompute the ring's
+  // offset and the lane mask inside the group loop (+2.7 % at n=32, PERF.md)
+  Word* ring = reinterpret_cast<Word*>(dsmem) + w * kRing;
   const uint32_t slot_mask = (1u << bits) - 1u;
 
-  // ---- the window: word p of the stream at ring[(p - wbase) % kRing], wbase
-  //      the block's first word rounded down to a 16-byte address; words at or
-  //      past min(word_end, nwords), or below 0, read as 0.  Its first two
-  //      halves are on their way while the warp builds its table.
+  // ---- the window: word p of the stream at ring word (p - wbase) % kRing,
+  //      wbase the block's first word rounded down to a 16-byte address;
+  //      words at or past min(word_end, nwords), or below 0, read as 0.  Its
+  //      first two halves are on their way while the warp builds its table.
   const BlockIndex ix = index[b];
   const long long word_end = min(ix.word_end, nwords);
   const uint8_t* src = reinterpret_cast<const uint8_t*>(stream);
-  const int ph = window::phase(src, 2 * ix.word_start) >> 1;  // the block's first word's window position
+  const int ph = window::phase(src, kW * ix.word_start) / kW;  // the block's first word's window position
   const long long wbase = ix.word_start - ph;
   long long next_half = 0;  // the next half to copy, into slot next_half % 2
   auto fill_next = [&]() {
-    window::fill<2 * kWindowHalf>(reinterpret_cast<uint8_t*>(ring + (next_half & 1) * kWindowHalf), src,
-                                  2 * (wbase + next_half * kWindowHalf), 2 * word_end, j);
+    window::fill<kW * kHalf>(reinterpret_cast<uint8_t*>(ring + (next_half & 1) * kHalf), src,
+                             kW * (wbase + next_half * kHalf), kW * word_end, j);
     ++next_half;
   };
   fill_next();
   fill_next();
-  uint8_t* tables = reinterpret_cast<uint8_t*>(dsmem) + kWarps * kRing * sizeof(uint16_t) +
-                    w * decode_table_bytes(bits, kFlat);
+  uint8_t* tables = reinterpret_cast<uint8_t*>(dsmem) + kWarps * kRing * kW + w * decode_table_bytes(bits, kFlat);
   const PackedTable t = build_packed_table(reinterpret_cast<uint2*>(tables), fctab + (size_t)b * 256, bits, j);
   uint8_t* rank_map = tables + packed_table_bytes(bits);  // with kFlat: slot -> rank
   if (kFlat) {
     for (uint32_t slot = j; slot <= slot_mask; slot += 32) rank_map[slot] = static_cast<uint8_t>(packed_rank(t, slot));
   }
+  auto rank_at = [&](uint32_t slot) -> uint32_t { return kFlat ? rank_map[slot] : packed_rank(t, slot); };
   window::wait_all();
   __syncwarp();
   long long rel = ph;                     // window position of the block's next word
-  long long refill_at = kWindowHalf;      // once rel reaches it, the half below it is free
+  long long refill_at = kHalf;            // once rel reaches it, the half below it is free
   long long ready_end = kRing;            // the window holds positions below it
   long long event = min(refill_at, ready_end - n + 1);  // the next rel at which either check fires
 
@@ -299,12 +275,14 @@ mt_decode_kernel(const uint16_t* __restrict__ stream,   // [nwords] the blob's w
   const long long out_limit = min(ix.out_limit, length);
   const uint32_t lt = (1u << j) - 1u;
   uint32_t st[K];
+  uint32_t rank[K];  // annotated: the rank of the lane's slot
   uint8_t* lane_out[K];
   int g_lo[K];
   unsigned g_span[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     st[k] = init[(size_t)b * n + j + 32 * k];
+    if (kAnnotated) rank[k] = rank_at(st[k] & slot_mask);
     const long long first = ix.out_start + idx2idx32(j) + 32 * k;  // the lane's byte of group 0
     lane_out[k] = out + first;
     const long long lo = min(max(ceil_div(-first, n), 0LL), static_cast<long long>(groups));
@@ -318,37 +296,42 @@ mt_decode_kernel(const uint16_t* __restrict__ stream,   // [nwords] the blob's w
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const uint32_t slot = st[k] & slot_mask;
-      const uint2 e = t.entry[kFlat ? rank_map[slot] : packed_rank(t, slot)];
+      const uint2 e = t.entry[kAnnotated ? rank[k] : rank_at(slot)];
       st[k] = (st[k] >> bits) * (e.x >> 8) + slot - e.y;
       if (static_cast<unsigned>(g - g_lo[k]) < g_span[k])
         lane_out[k][static_cast<size_t>(g) * n] = static_cast<uint8_t>(e.x);  // the symbol: e.x's low byte
       consume[k] = st[k] < kConsumePoint;
       ballot[k] = __ballot_sync(kFullMask, consume[k]);
+      // annotated: the next rank if the lane keeps its state, which depends
+      // on neither the ballot nor the read, so it overlaps them
+      if (kAnnotated) rank[k] = rank_at(st[k] & slot_mask);
     }
     // every lane reads (no branch to reconverge); a lane that consumes keeps
-    // the word.  Ring offsets in bytes wrap, so 32 bits do.
-    uint32_t at = 2 * static_cast<uint32_t>(rel);
+    // the word, and annotated its rank.  Ring offsets in bytes wrap, so 32
+    // bits do.
+    uint32_t at = kW * static_cast<uint32_t>(rel);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const uint32_t word = *reinterpret_cast<const uint16_t*>(
-          reinterpret_cast<const uint8_t*>(ring) + ((at + 2 * __popc(ballot[k] & lt)) & (2 * kRing - 1)));
-      st[k] = consume[k] ? __byte_perm(word, st[k], 0x5410) : st[k];  // (st << 16) | word
-      at += 2 * __popc(ballot[k]);
+      const uint32_t v = *reinterpret_cast<const Word*>(reinterpret_cast<const uint8_t*>(ring) +
+                                                        ((at + kW * __popc(ballot[k] & lt)) & (kW * kRing - 1)));
+      st[k] = consume[k] ? __byte_perm(v, st[k], 0x5410) : st[k];  // (st << 16) | (v & 0xFFFF)
+      if (kAnnotated) rank[k] = consume[k] ? (v >> 16) & 0xFFu : rank[k];
+      at += kW * __popc(ballot[k]);
     }
-    rel += (at - 2 * static_cast<uint32_t>(rel)) / 2;
+    rel += (at - kW * static_cast<uint32_t>(rel)) / kW;
     if (rel >= event) {
       // every later read lies at or past rel: once rel leaves a half, its
-      // slot takes the half after the next, which has ~kWindowHalf - 2n
-      // words of reading to land before a group can reach it
+      // slot takes the half after the next, which has ~kHalf - 2n words of
+      // reading to land before a group can reach it
       if (rel >= refill_at) {
         __syncwarp();  // every lane's reads of the slot are done
         fill_next();
-        refill_at += kWindowHalf;
+        refill_at += kHalf;
       }
       if (rel + n > ready_end) {  // the next group may read into the half last copied
         window::wait_all();
         __syncwarp();
-        ready_end += kWindowHalf;
+        ready_end += kHalf;
       }
       event = min(refill_at, ready_end - n + 1);
     }
@@ -370,7 +353,7 @@ mt_annotate_kernel(const uint16_t* __restrict__ stream,   // [nwords] the blob's
                    const uint32_t* __restrict__ fctab,    // [nb, 256] freq | cumul << 16
                    uint32_t* __restrict__ ann,            // [nwords]
                    int nb, int bits, long long nwords) {
-  extern __shared__ uint32_t smem[];
+  extern __shared__ __align__(16) uint32_t dsmem[];
   const int b = blockIdx.x;
   const uint32_t slot_mask = (1u << bits) - 1u;
   const long long lo = min(max(index[b].word_start, 0LL), nwords);
@@ -379,9 +362,10 @@ mt_annotate_kernel(const uint16_t* __restrict__ stream,   // [nwords] the blob's
   for (long long w = gap_lo + threadIdx.x; w < lo; w += kAnnThreads) ann[w] = 0u;
   if (b == nb - 1)
     for (long long w = hi + threadIdx.x; w < nwords; w += kAnnThreads) ann[w] = 0u;
-  if (threadIdx.x < 32) build_rank_table(smem, fctab + (size_t)b * 256, bits, threadIdx.x);
+  uint2* tab = reinterpret_cast<uint2*>(dsmem);
+  if (threadIdx.x < 32) build_packed_table(tab, fctab + (size_t)b * 256, bits, threadIdx.x);
   __syncthreads();
-  const RankTable t = rank_table_at(smem, bits);
+  const PackedTable t = packed_table_at(tab, bits);
   for (long long w0 = lo + threadIdx.x; w0 < hi; w0 += kAnnThreads * kAnnUnroll) {
     uint32_t word[kAnnUnroll];
 #pragma unroll
@@ -392,96 +376,32 @@ mt_annotate_kernel(const uint16_t* __restrict__ stream,   // [nwords] the blob's
 #pragma unroll
     for (int u = 0; u < kAnnUnroll; ++u) {
       const long long w = w0 + u * kAnnThreads;
-      if (w < hi) ann[w] = word[u] | (rank_of(t, word[u] & slot_mask) << 16);
+      if (w < hi) ann[w] = word[u] | (packed_rank(t, word[u] & slot_mask) << 16);
     }
   }
 }
 
-// mt_decode_kernel's contract, reading the annotation in place of the words
-template <int K>
-__global__ void __launch_bounds__(kWarps * 32)
-mt_decode_annotated_kernel(const uint32_t* __restrict__ ann,      // [nwords] word | rank << 16
-                           const BlockIndex* __restrict__ index,  // [nb]
-                           const uint32_t* __restrict__ init,     // [nb, 32K] header states
-                           const uint32_t* __restrict__ fctab,    // [nb, 256] freq | cumul << 16
-                           uint8_t* __restrict__ out,             // [length]
-                           uint32_t* __restrict__ fin,            // [nb, 32K] states after the last group
-                           long long* __restrict__ cursor,        // [nb] words consumed
-                           int nb, int bits, long long nwords, long long length) {
-  extern __shared__ uint32_t smem[];
-  constexpr int n = 32 * K;
-  const int w = threadIdx.x >> 5;
-  const int j = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + w;
-  if (b >= nb) return;  // warp-uniform; the kernel syncs only within a warp
-  const uint32_t slot_mask = (1u << bits) - 1u;
-  const RankTable t = build_rank_table(smem + w * table_words(bits), fctab + (size_t)b * 256, bits, j);
-
-  const BlockIndex ix = index[b];
-  const long long word_end = min(ix.word_end, nwords);
-  const long long out_limit = min(ix.out_limit, length);
-  const uint32_t lt = (1u << j) - 1u;
-  uint32_t st[K], rank[K];
-  int byte_of[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    st[k] = init[(size_t)b * n + j + 32 * k];
-    rank[k] = rank_of(t, st[k] & slot_mask);
-    byte_of[k] = idx2idx32(j) + 32 * k;
-  }
-  long long rw = 0;  // words of the block consumed so far
-  for (long long g = 0; g < ix.num_groups; ++g) {
-    const long long group_pos = ix.out_start + g * n;
-    bool consume[K];
-    unsigned ballot[K];
-    uint32_t kept_rank[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const uint32_t sym = t.sym[rank[k]], fc = t.fc[rank[k]];
-      st[k] = (st[k] >> bits) * (fc & 0xFFFFu) + (st[k] & slot_mask) - (fc >> 16);
-      const long long pos = group_pos + byte_of[k];
-      if (pos >= 0 && pos < out_limit) out[pos] = static_cast<uint8_t>(sym);
-      consume[k] = st[k] < kConsumePoint;
-      ballot[k] = __ballot_sync(kFullMask, consume[k]);
-      // the next rank if the lane keeps its state: depends on neither the
-      // ballot nor the load, so it overlaps them
-      kept_rank[k] = rank_of(t, st[k] & slot_mask);
-    }
-    long long base = rw;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      rank[k] = kept_rank[k];
-      if (consume[k]) {
-        const long long a = ix.word_start + base + __popc(ballot[k] & lt);
-        // a read past the block's words gives word 0 and rank 0: slot 0
-        // belongs to the first present symbol, so rank_of(0) = 0
-        const uint32_t v = a >= 0 && a < word_end ? ann[a] : 0u;
-        st[k] = (st[k] << 16) | (v & 0xFFFFu);
-        rank[k] = (v >> 16) & 0xFFu;
-      }
-      base += __popc(ballot[k]);
-    }
-    rw = base;
-  }
-#pragma unroll
-  for (int k = 0; k < K; ++k) fin[(size_t)b * n + j + 32 * k] = st[k];
-  if (j == 0) cursor[b] = rw;
-}
-
+// One launch of mt_decode_kernel over Word-typed words (see the C entries)
 template <typename Word>
-using DecodeKernel = void (*)(const Word*, const BlockIndex*, const uint32_t*, const uint32_t*, uint8_t*, uint32_t*,
-                              long long*, int, int, long long, long long);
-
-template <typename Word>
-cudaError_t launch_decode(DecodeKernel<Word> kernel, size_t smem, const void* stream, const void* index,
-                          const void* init, const void* fctab, void* out, void* fin, void* cursor, int nb, int bits,
-                          long long nwords, long long length, cudaStream_t cs) {
+int launch_decode(const void* stream, const void* index, const void* init, const void* fctab, void* out, void* fin,
+                  void* cursor, int nb, int n, int bits, long long nwords, long long length, void* cuda_stream) {
+  if (nb <= 0) return 0;
+  if ((n != 32 && n != 64) || bits < 0 || bits > 15 || reinterpret_cast<uintptr_t>(stream) % sizeof(Word) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool flat = bits <= kFlatMaxBits;
+  const auto kernel = n == 64 ? (flat ? mt_decode_kernel<2, true, Word> : mt_decode_kernel<2, false, Word>)
+                              : (flat ? mt_decode_kernel<1, true, Word> : mt_decode_kernel<1, false, Word>);
+  const size_t smem = decode_smem_bytes<Word>(bits, flat);  // 49 KB at B=15
+  if (smem > 48 * 1024) {
+    const cudaError_t set = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (set != cudaSuccess) return static_cast<int>(set);
+  }
   const int blocks = (nb + kWarps - 1) / kWarps;
-  kernel<<<blocks, kWarps * 32, smem, cs>>>(
+  kernel<<<blocks, kWarps * 32, smem, static_cast<cudaStream_t>(cuda_stream)>>>(
       static_cast<const Word*>(stream), static_cast<const BlockIndex*>(index), static_cast<const uint32_t*>(init),
       static_cast<const uint32_t*>(fctab), static_cast<uint8_t*>(out), static_cast<uint32_t*>(fin),
       static_cast<long long*>(cursor), nb, bits, nwords, length);
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -489,43 +409,24 @@ cudaError_t launch_decode(DecodeKernel<Word> kernel, size_t smem, const void* st
 extern "C" int hsr_mt_decode(const void* stream, const void* index, const void* init, const void* fctab,
                              void* out, void* fin, void* cursor, int nb, int n, int bits, long long nwords,
                              long long length, void* cuda_stream) {
-  if (nb <= 0) return 0;
-  if ((n != 32 && n != 64) || bits < 0 || bits > 15 || reinterpret_cast<uintptr_t>(stream) % 2 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
-  const bool flat = bits <= kFlatMaxBits;
-  const auto kernel = n == 64 ? (flat ? mt_decode_kernel<2, true> : mt_decode_kernel<2, false>)
-                              : (flat ? mt_decode_kernel<1, true> : mt_decode_kernel<1, false>);
-  const size_t smem = decode_smem_bytes(bits, flat);  // 49 KB at B=15 with 512-word halves
-  if (smem > 48 * 1024) {
-    const cudaError_t set = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (set != cudaSuccess) return static_cast<int>(set);
-  }
-  const cudaError_t err = launch_decode<uint16_t>(kernel, smem, stream, index, init, fctab, out, fin, cursor, nb, bits,
-                                                  nwords, length, cs);
-  return static_cast<int>(err);
+  return launch_decode<uint16_t>(stream, index, init, fctab, out, fin, cursor, nb, n, bits, nwords, length,
+                                 cuda_stream);
 }
 
 extern "C" int hsr_mt_annotate(const void* stream, const void* index, const void* fctab, void* ann, int nb, int bits,
                                long long nwords, void* cuda_stream) {
   if (nb <= 0) return 0;
   if (bits < 0 || bits > 15) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(uint32_t) * table_words(bits);  // <= 6.3 KB
+  const size_t smem = packed_table_bytes(bits);  // <= 10.3 KB
   mt_annotate_kernel<<<nb, kAnnThreads, smem, static_cast<cudaStream_t>(cuda_stream)>>>(
       static_cast<const uint16_t*>(stream), static_cast<const BlockIndex*>(index),
       static_cast<const uint32_t*>(fctab), static_cast<uint32_t*>(ann), nb, bits, nwords);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the annotation must be 4-byte aligned
 extern "C" int hsr_mt_decode_annotated(const void* ann, const void* index, const void* init, const void* fctab,
                                        void* out, void* fin, void* cursor, int nb, int n, int bits, long long nwords,
                                        long long length, void* cuda_stream) {
-  if (nb <= 0) return 0;
-  if ((n != 32 && n != 64) || bits < 0 || bits > 15) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
-  const size_t smem = sizeof(uint32_t) * kWarps * table_words(bits);  // <= 25.6 KB
-  const cudaError_t err =
-      launch_decode<uint32_t>(n == 64 ? mt_decode_annotated_kernel<2> : mt_decode_annotated_kernel<1>, smem, ann,
-                              index, init, fctab, out, fin, cursor, nb, bits, nwords, length, cs);
-  return static_cast<int>(err);
+  return launch_decode<uint32_t>(ann, index, init, fctab, out, fin, cursor, nb, n, bits, nwords, length, cuda_stream);
 }

@@ -273,16 +273,24 @@ def decode_blocks_annotated_cuda(ann, index, states, fctab, *, bits: int, n: int
         raise ValueError("decode_blocks_annotated_cuda: n must be 32 or 64 and bits at most 15")
     if index.shape != (nb, len(INDEX_FIELDS)) or states.shape != (nb, n) or fctab.shape != (nb, 256):
         raise ValueError("decode_blocks_annotated_cuda: operand shapes do not match the block count")
+    if ann.data_ptr() % 4:
+        raise ValueError("decode_blocks_annotated_cuda: the annotation must start at a 4-byte aligned address")
     out = torch.zeros(length, dtype=torch.uint8, device=dev)
     fin = torch.empty((nb, n), dtype=torch.int32, device=dev)
     cursor = torch.empty(nb, dtype=torch.int64, device=dev)
     if nb:
-        build.launch(
-            "mt_decode_annotated", "hsr_mt_decode_annotated", dev,
-            ann.data_ptr(), index.data_ptr(), states.data_ptr(), fctab.data_ptr(),
-            out.data_ptr(), fin.data_ptr(), cursor.data_ptr(), nb, n, bits, ann.numel(), length,
-        )
+        launch_decode_annotated(ann, index, states, fctab, out, fin, cursor, bits=bits, n=n)
     return out, fin, cursor
+
+
+def launch_decode_annotated(ann, index, states, fctab, out, fin, cursor, *, bits: int, n: int) -> None:
+    """One launch of the annotated decode kernel into the outputs given, as
+    launch_decode; decode_blocks_annotated_cuda's checks are the caller's."""
+    build.launch(
+        "mt_decode_annotated", "hsr_mt_decode_annotated", ann.device,
+        ann.data_ptr(), index.data_ptr(), states.data_ptr(), fctab.data_ptr(),
+        out.data_ptr(), fin.data_ptr(), cursor.data_ptr(), index.shape[0], n, bits, ann.numel(), out.numel(),
+    )
 
 
 def decode_blocks_annotated(ann, index, states, fctab, *, bits: int, n: int, length: int):

@@ -300,6 +300,46 @@ def test_mt_decode_window_edges(cuda, case, bits, n):
             assert torch.equal(g, w), name
 
 
+@pytest.mark.parametrize("n", (32, 64))
+@pytest.mark.parametrize("bits", (10, 12, 15))
+@pytest.mark.parametrize("case", chip_smoke.DECODE_EDGES)
+def test_mt_annotated_window_edges(cuda, case, bits, n):
+    """The annotate kernel == its plain version (every word) and the
+    annotated decode kernel == its plain version (bytes, final states,
+    cursors) on test_mt_decode_window_edges' cases: the annotation's blocks
+    at every phase of a u32 word in 16 bytes, blocks with fewer words than
+    one window half, word regions that run out mid-group (reads past them
+    give word 0 and rank 0), and one 1 MiB block."""
+    for name, (words, index, states, fc), kw in chip_smoke.decode_edge_operands(case, bits, n, cuda):
+        ann = mtd.annotate_cuda(words, index, fc, bits=bits)
+        got = mtd.decode_blocks_annotated_cuda(ann, index, states, fc, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ann, mtd.annotate_plain(words, index, fc, bits=bits)), name
+        want = mtd.decode_blocks_annotated_plain(ann, index, states, fc, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+
+
+def test_mt_decode_annotated_refuses_unaligned_annotation(cuda):
+    """The annotated decode's C entry refuses an annotation that does not
+    start on a 4-byte boundary (its window copies 16-byte chunks at the
+    block's u32 phase), as the rank decode refuses an odd word region."""
+    ann = torch.zeros(64, dtype=torch.int32, device=cuda)
+    index = torch.tensor([[0, 32, 0, 64, 1]], dtype=torch.int64, device=cuda)
+    states = torch.full((1, 64), 1 << 16, dtype=torch.int32, device=cuda)
+    fc = torch.zeros((1, 256), dtype=torch.int32, device=cuda)
+    fc[0, 0] = 1 << 12
+    out = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    fin, cursor = torch.empty_like(states), torch.empty(1, dtype=torch.int64, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    lib = build.load()
+    args = (index.data_ptr(), states.data_ptr(), fc.data_ptr(), out.data_ptr(), fin.data_ptr(), cursor.data_ptr(),
+            1, 64, 12, 60, 64, stream)
+    assert lib.hsr_mt_decode_annotated(ann.data_ptr() + 2, *args) != 0
+    assert lib.hsr_mt_decode_annotated(ann.data_ptr() + 4, *args) == 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("rule", mte.RULES)
 @pytest.mark.parametrize("n", (32, 64))
 @pytest.mark.parametrize("case", chip_smoke.ENCODE_EDGES)

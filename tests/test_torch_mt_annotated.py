@@ -15,6 +15,7 @@ block; the last two tests pin the fault (ROADMAP queue 3)."""
 
 import functools
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -181,6 +182,25 @@ def test_annotated_plain_equals_rank_plain(bits, n):
         want = pdec.decode_blocks_plain(region, ix, states, fc, **kw)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", (32, 64))
+@pytest.mark.parametrize("bits", (10, 12, 15))
+@pytest.mark.parametrize("case", [c for c in chip_smoke.DECODE_EDGES if c != "one 1 MiB block"])
+def test_annotated_plain_equals_rank_plain_at_window_edges(case, bits, n):
+    """annotate_plain then decode_blocks_annotated_plain == decode_blocks_plain
+    (bytes, final states, cursors) on the cases that hold the kernels'
+    shared-memory windows at their edges (`chip_smoke.decode_edge_operands`,
+    which the card runs against the kernels): word regions shifted by 0..7
+    words (every phase of a u32 annotation word in 16 bytes), blocks shorter
+    than a window half, word regions cut mid-group.  The 1 MiB block is
+    left to the card for time."""
+    for name, (words, index, states, fc), kw in chip_smoke.decode_edge_operands(case, bits, n, torch.device("cpu")):
+        ann = pdec.annotate_plain(words, index, fc, bits=bits)
+        got = pdec.decode_blocks_annotated_plain(ann, index, states, fc, **kw)
+        want = pdec.decode_blocks_plain(words, index, states, fc, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
 
 
 def test_annotation_marks_block_words_only():
