@@ -38,6 +38,17 @@ the port's two paths through their public entry points:
     yardstick; tpx encode and mt encode (b) take their histograms on the
     card, one launch of each kernel a call, with no wait on the card, and
     their `kernel_hist` layer is split into its steps;
+  * the XLA scan codecs (`kernels/scan.py`, the port of `ops/raw_jax.py`'s
+    `decode_section` and `encode_section`): both kernels against their plain
+    versions (`SCAN_EDGES`: per-stream and shared streams and tables,
+    streams cut short so that reads run past their end, `__graft_entry__.entry`'s
+    random tables; n = 16, 32, 64 at B = 10, 12, 15), the raw wire's round
+    trip on 64 MiB of enwik8-like text at n = 64, 32 and 16 (one chain
+    each), `mt_decode_device`'s chain on the 64 MiB x-ray blob (step (a),
+    then the batched scan decode of step (c) alone), the n=16 mt round trip
+    on 64 MiB of x-ray (both scan kernels batched at full width), the split
+    of mt and tpx over two devices (one card named twice), and malformed
+    mt blobs through the whole chain;
   * the mt decode and encode kernels' shared-memory windows at their edges
     (`DECODE_EDGES`, `ENCODE_EDGES`; the annotated route's two kernels on
     `DECODE_EDGES` too), and the two wire writers, tpx and
@@ -69,10 +80,12 @@ from __future__ import annotations
 
 import functools
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -102,6 +115,9 @@ KERNELS = {
     # the on-device histogram model, XLA in the JAX package and not Pallas
     "hist_count": ("hsrans_tpu_torch/csrc/hist.cu", "hsrans_tpu/models/jax_hist.py:31"),
     "hist_normalize": ("hsrans_tpu_torch/csrc/hist.cu", "hsrans_tpu/models/jax_hist.py:68"),
+    # the XLA scan codecs (lax.scan in the JAX package, not Pallas)
+    "scan_decode": ("hsrans_tpu_torch/csrc/scan.cu", "hsrans_tpu/ops/raw_jax.py:48"),
+    "scan_encode": ("hsrans_tpu_torch/csrc/scan.cu", "hsrans_tpu/ops/raw_jax.py:161"),
 }
 # the least time the card could take for a kernel's work: the bytes this
 # run's data needs (each input read once, each output written once: the
@@ -1460,6 +1476,354 @@ def hist_kernels_vs_plain(data: np.ndarray, dev: torch.device) -> tuple[list[dic
     return rows, edges, library_ms
 
 
+# the cases that hold the two scan kernels against their plain versions
+# (tests/test_torch_cuda_kernels.py runs them too): every stream its own
+# stream and tables, one stream and one table set shared by all, streams cut
+# short (reads from before their start, which wrap, and past their end,
+# which read 0xFFFF), and `__graft_entry__.entry`'s shapes and tables (freq
+# 1, cumul 0: no rANS tables, so the state arithmetic wraps)
+SCAN_EDGES = ("per-stream", "shared", "short streams", "entry tables")
+SCAN_STEPS = 256  # groups of each case: the plain versions take ~0.1 s a case on the card
+
+
+def scan_edge_operands(case: str, n: int, bits: int, dev: torch.device) -> list[tuple[str, tuple, dict]]:
+    """[("decode" | "encode", operands, keywords)] of one SCAN_EDGES case on
+    `dev` (n and bits ignored for "entry tables": B=8, n=64, bits=12, 32
+    steps), made with numpy from a seed: random states, the stream words
+    and tail counts, tables of real histograms of enwik8-like text."""
+    from hsrans_tpu_torch.models.histogram import complete_hist, normalize_hist, observe_hist
+    from hsrans_tpu_torch.models.tables import make_dec3
+    from tools.gen_inputs import text_like
+
+    rng = np.random.default_rng(SCAN_EDGES.index(case) * 1000 + n * 16 + bits)
+    nb, steps, w = 64, SCAN_STEPS, SCAN_STEPS * n
+    if case == "entry tables":
+        nb, n, bits, steps, w = 8, 64, 12, 32, 4096
+    freqs = []
+    for _ in range(nb):
+        src = text_like(rng, int(rng.integers(2000, 40000)))
+        freqs.append(normalize_hist(observe_hist(src), src.size, bits).symbol_count)
+    tabs = [make_dec3(complete_hist(f, bits)) for f in freqs]
+    sym, tfreq, tcum = (np.stack([t[k] for t in tabs]).astype(dt)
+                        for k, dt in (("sym", np.uint8), ("freq", np.uint16), ("cumul", np.uint16)))
+    if case == "entry tables":
+        sym = rng.integers(0, 256, (nb, 1 << bits), dtype=np.int64).astype(np.uint8)
+        tfreq, tcum = np.ones((nb, 1 << bits), np.uint16), np.zeros((nb, 1 << bits), np.uint16)
+    states = rng.integers(1 << 15, 1 << 31, (nb, n), dtype=np.uint32)
+    if case == "short streams":
+        w = 3 * n
+    stream = rng.integers(0, 1 << 16, (nb, w), dtype=np.uint32).astype(np.uint16)
+    read_pos = np.zeros(nb, np.int32)
+    valid = np.full(nb, steps * n, np.int32) if case == "entry tables" else rng.integers(0, steps * n + 2, nb).astype(np.int32)
+    if case == "short streams":
+        read_pos = rng.integers(-w - 2, w, nb).astype(np.int32)
+    if case == "shared":
+        stream, sym, tfreq, tcum = stream[0], sym[0], tfreq[0], tcum[0]
+
+    def t(a, dtype=None):
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        return (x.view(dtype) if dtype is not None else x).to(dev)
+
+    dec = (t(states, torch.int32), t(stream, torch.int16), t(read_pos), t(sym), t(tfreq, torch.int16),
+           t(tcum, torch.int16), t(valid))
+    efreq = np.stack(freqs) if case != "shared" else freqs[0]
+    ecum = (np.cumsum(efreq, axis=-1, dtype=np.uint64) - efreq).astype(np.uint16)
+    group_bytes = text_like(rng, nb * steps * n).reshape(nb, steps, n)
+    evalid = np.arange(steps * n).reshape(steps, n)[None] < rng.integers(0, steps * n + 1, nb)[:, None, None]
+    enc = (t(states, torch.int32), t(group_bytes), t(evalid), t(efreq.astype(np.uint16), torch.int16),
+           t(ecum, torch.int16))
+    # tail off in one decode case a depth; on, every lane's count is checked at every step
+    return [("decode", dec, {"bits": bits, "num_steps": steps, "tail": not (case == "per-stream" and bits == 12)}),
+            ("encode", enc, {"bits": bits, "num_steps": steps})]
+
+
+def scan_check(kind: str, args: tuple, kw: dict) -> dict:
+    """One scan kernel against its plain version on the same CUDA tensors,
+    exact; decode also reports the streams whose reads ran past the stream
+    (final read position at or past W)."""
+    from hsrans_tpu_torch.kernels import scan
+
+    cuda, plain = ((scan.decode_section_cuda, scan.decode_section_plain) if kind == "decode"
+                   else (scan.encode_section_cuda, scan.encode_section_plain))
+    got = cuda(*args, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, plain(*args, **kw))
+    if err:
+        raise AssertionError(f"scan {kind} {kw}: kernel differs from its plain version (max abs err {err})")
+    res = {"max_abs_err": err}
+    if kind == "decode":
+        res["streams_read_past_w"] = int((got[2] >= args[1].shape[-1]).sum())
+    return res
+
+
+def scan_kernel_row(kind: str, args: tuple, kw: dict, symbols: int, dev: torch.device) -> dict:
+    """The kernel at a main path's launch: against its plain version, timed
+    through its wrapper (queued and host-paced), by its launch alone and
+    over its chain's links (num_steps), beside the plain version and the
+    bound (a chain: the bound is the bytes and operations, not the links)."""
+    from hsrans_tpu_torch.kernels import scan
+
+    res = scan_check(kind, args, kw)
+    steps = kw["num_steps"]
+    if kind == "decode":
+        wrapper, plain = scan.decode_section_cuda, scan.decode_section_plain
+        outs = wrapper(*args, **kw)
+        stride = args[3].shape[-1] if args[3].dim() == 2 else 0
+        launch = lambda: scan.launch_decode(*args[:6], stride, args[6], *outs, bits=kw["bits"], tail=kw["tail"])  # noqa: E731
+        # every operand but the stream, of which the words consumed; the outputs
+        moved = nbytes(*args, *outs) - nbytes(args[1]) + 2 * int((outs[2].to(torch.int64) - args[2]).sum())
+    else:
+        wrapper, plain = scan.encode_section_cuda, scan.encode_section_plain
+        outs = wrapper(*args, **kw)
+        stride = 256 if args[3].dim() == 2 else 0
+        launch = lambda: scan.launch_encode(*args, stride, *outs, bits=kw["bits"])  # noqa: E731
+        moved = nbytes(*args, *outs)
+    res |= {
+        "ms": cuda_ms(lambda: wrapper(*args, **kw), 5, queue_ahead=True),
+        "ms_host_paced": cuda_ms(lambda: wrapper(*args, **kw), 5),
+        **launch_times(launch, steps),
+        "plain_ms": cuda_ms(lambda: plain(*args, **kw), 1),
+        **bound(moved, OPS_PER_SYMBOL[kind] * symbols),
+        "streams": int(args[0].shape[0]), "lanes": int(args[0].shape[1]), "steps": steps,
+        "bound_note": "a chain per stream: the links, not bytes or operations, set its time",
+    }
+    return res
+
+
+# the prefix of the 64 MiB raw input that the port's numpy raw wire encodes
+# to check the card's blob, by lane count: one that loop (one Python step a
+# lane group, 0.42, 0.74 and 1.35 s a MiB at n = 64, 32 and 16 on the H100
+# machine's host, its numpy_encode_s) encodes in under a minute: the whole
+# input at n = 64 and 32, half of it at n = 16.  The three run at once in
+# worker processes while the card runs its round trips.
+RAW_COMPARE_MIB = {64: 64, 32: 64, 16: 32}
+
+
+def numpy_raw_blob(data: np.ndarray, hist, n: int) -> tuple[bytes, float]:
+    """The port's numpy raw wire of `data` and its seconds (in a worker)."""
+    from hsrans_tpu_torch.ops.reference import raw_encode_16w
+
+    t0 = time.perf_counter()
+    blob = raw_encode_16w(data, hist, n)
+    return blob, time.perf_counter() - t0
+
+
+def timed_s(fn):
+    """(fn(), its seconds on the host's clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def once_ms(fn) -> float:
+    """One call's milliseconds by CUDA events (a chain that takes seconds)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def scan_phases(repo: Path, dev: torch.device, ctx: dict, tpx_data: np.ndarray, tpx_blob: bytes) -> tuple[dict, dict]:
+    """The XLA scan codecs and the device fan-out on the card: the two scan
+    kernels against their plain versions (SCAN_EDGES at n = 16, 32, 64 and
+    B = 10, 12, 15), the raw wire's 64 MiB round trips, mt_decode_device's
+    chain and the n=16 mt round trip at 64 MiB, the split over two devices,
+    and malformed mt blobs.  Returns the kernel rows (at the n=16 round
+    trip's launches) and the launches of each path."""
+    from hsrans_tpu_torch import raw_decode_torch, raw_encode_torch, tpx_encode_torch
+    from hsrans_tpu_torch.kernels import scan
+    from hsrans_tpu_torch.kernels.mt_encode import plan_freqs, plan_rows, scan_operands
+    from hsrans_tpu_torch.models.histogram import normalize_hist, observe_hist
+    from hsrans_tpu_torch.ops.raw_scan import raw_decode_operands
+    from hsrans_tpu_torch.ops.tpx import TpxParams
+    from hsrans_tpu_torch.ops.mt import block_index, mt_encode_py
+    from hsrans_tpu_torch.parallel import sharded as psh
+    from hsrans_tpu_torch.parallel.tpx_sharded import tpx_decode_device, tpx_encode_device
+    from hsrans_tpu_torch.runtime import build
+    from tools.gen_inputs import text_like
+
+    # 1. each kernel against its plain version on SCAN_EDGES
+    cases = []
+    for case in SCAN_EDGES:
+        for n, bits in ([(64, 12)] if case == "entry tables" else [(n, b) for n in (16, 32, 64) for b in (10, 12, 15)]):
+            for kind, args, kw in scan_edge_operands(case, n, bits, dev):
+                cases.append({"case": case, "kind": kind, "n": n, "bits": bits, **scan_check(kind, args, kw)})
+    past = sum(c.get("streams_read_past_w", 0) for c in cases if c["case"] == "short streams")
+    if not past:
+        raise AssertionError("scan decode: no short stream read past its end")
+    emit("scan_kernels_vs_plain", cases=len(cases), max_abs_err=max(c["max_abs_err"] for c in cases),
+         short_streams_read_past_w=past)
+
+    # 2. the raw wire: 64 MiB of enwik8-like text (seed 8) at B=12 and n = 64,
+    #    32, 16, each one stream: a single chain of ceil(length / n) links.
+    #    The card's blob is checked against the port's numpy copy of the wire
+    #    on RAW_COMPARE_MIB's prefix, encoded in worker processes meanwhile
+    data = tpx_data
+    hist = normalize_hist(observe_hist(data), data.size, 12)
+    raw = {}
+    raw_launches = {}
+    card_blobs = {}
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=len(RAW_COMPARE_MIB), mp_context=spawn) as pool:
+        numpy_runs = {n: pool.submit(numpy_raw_blob, data[: mib * MIB], hist, n) for n, mib in RAW_COMPARE_MIB.items()}
+        for n in RAW_COMPARE_MIB:
+            build.reset_launches()
+            blob, enc_s = timed_s(lambda: raw_encode_torch(data, hist, n, device="cuda"))
+            back, dec_s = timed_s(lambda: raw_decode_torch(blob, 12, n, device="cuda"))
+            raw_launches[n] = {k: build.LAUNCHES[k] for k in ("scan_decode", "scan_encode")}
+            if back != data.tobytes():
+                raise AssertionError(f"raw n={n}: raw_decode_torch does not return the 64 MiB input")
+            if raw_launches[n] != {"scan_decode": 1, "scan_encode": 1}:
+                raise AssertionError(f"raw n={n}: launches {raw_launches[n]}, one of each scan kernel expected")
+            # the decode's launch alone: one chain of the whole blob
+            steps = -(-data.size // n)
+            dargs = raw_decode_operands(blob, 12, n, dev)[1]
+            outs = (torch.empty((1, steps, n), dtype=torch.uint8, device=dev),
+                    torch.empty((1, n), dtype=torch.int32, device=dev), torch.empty(1, dtype=torch.int32, device=dev))
+            dec_ms = once_ms(lambda: scan.launch_decode(*dargs[:6], 0, dargs[6], *outs, bits=12, tail=True))
+            card_blobs[n] = blob
+            raw[n] = {"bytes": data.size, "ratio": len(blob) / data.size, "encode_s": enc_s, "decode_s": dec_s,
+                      "encode_MiBps": data.size / MIB / enc_s, "decode_MiBps": data.size / MIB / dec_s,
+                      "decode_launch_ms": dec_ms, "decode_link_us": dec_ms * 1e3 / steps, "links": steps,
+                      "launches": raw_launches[n]}
+        for n, mib in RAW_COMPARE_MIB.items():
+            want, numpy_s = numpy_runs[n].result()
+            part = data[: mib * MIB]
+            got = card_blobs[n] if part.size == data.size else raw_encode_torch(part, hist, n, device="cuda")
+            if got != want:
+                raise AssertionError(f"raw n={n}: the card's blob of {mib} MiB differs from raw_encode_16w's")
+            raw[n].update(numpy_compare_MiB=mib, numpy_encode_s=numpy_s)
+    emit("raw_round_trip", bits=12, **{f"n={n}": v for n, v in raw.items()})
+
+    # 3. mt_decode_device's chain on the 64 MiB x-ray device_plan blob: step
+    #    (a), then step (c) alone on its 2,472 coded blocks
+    xray_data, _ = ctx["main"]
+    main_blob = ctx["main_blob"]
+    build.reset_launches()
+    t0 = time.perf_counter()
+    if psh.mt_decode_device(main_blob, 12, 64, device="cuda") != xray_data.tobytes():
+        raise AssertionError("mt_decode_device: the 64 MiB x-ray blob does not decode to its input")
+    chain_s = time.perf_counter() - t0
+    step_a = {k: build.LAUNCHES[k] for k in ("mt_decode", "scan_decode")}
+    if step_a != {"mt_decode": 1, "scan_decode": 0}:
+        raise AssertionError(f"mt_decode_device: launches {step_a}, step (a) alone expected")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    if psh.scan_decode_blob(main_blob, 12, 64, [dev]) != xray_data.tobytes():
+        raise AssertionError("step (c): the batched scan decode does not return the 64 MiB x-ray input")
+    step_c_s = time.perf_counter() - t0
+    if build.LAUNCHES["scan_decode"] != 1:
+        raise AssertionError(f"step (c): {build.LAUNCHES['scan_decode']} scan_decode launches, 1 expected")
+    _, stream, blocks = block_index(main_blob, 64)
+    bb_main = psh.gather_blocks(blocks, 12, 64)
+    step_c_row = scan_kernel_row("decode", psh.batch_operands(bb_main, stream, slice(None), dev),
+                                 {"bits": 12, "num_steps": bb_main.max_steps, "tail": True}, int(bb_main.sizes.sum()), dev)
+
+    # 4. n=16: mt_encode_device and mt_decode_device on 64 MiB of x-ray in
+    #    uniform 64 KiB blocks (1,024 blocks x 4,096 groups), both scan
+    #    kernels batched at full width; the blob == the CPU tier's
+    plan16 = psh.uniform_plan(xray_data, 12, 16, 64 << 10)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    blob16 = psh.mt_encode_device(xray_data, 12, 16, plan=plan16, device="cuda")
+    enc16_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back16 = psh.mt_decode_device(blob16, 12, 16, device="cuda")
+    dec16_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES[k] for k in ("scan_encode", "scan_decode", "mt_decode", "mt_encode")}
+    if back16 != xray_data.tobytes():
+        raise AssertionError("mt n=16: the 64 MiB round trip does not return the input")
+    if launches != {"scan_encode": 1, "scan_decode": 1, "mt_decode": 0, "mt_encode": 0}:
+        raise AssertionError(f"mt n=16: launches {launches}, one of each scan kernel expected")
+    t0 = time.perf_counter()
+    if psh.mt_encode_device(xray_data, 12, 16, plan=plan16, device="cpu") != blob16:
+        raise AssertionError("mt n=16: the card's blob differs from the CPU tier's")
+    cpu16_s = time.perf_counter() - t0
+    data_t = torch.from_numpy(xray_data).to(dev)
+    _, ks, index, given, freqs, _ = plan_rows(xray_data, plan16, 12, 16, "section")
+    freqs_t = plan_freqs(data_t, ks, index, given, freqs, 12, 16)
+    *eops, esteps = scan_operands(data_t, torch.from_numpy(index).to(dev), freqs_t, 16)
+    rows = {"scan_encode": scan_kernel_row("encode", tuple(eops), {"bits": 12, "num_steps": esteps}, xray_data.size, dev)}
+    _, stream, blocks = block_index(blob16, 16)
+    bb = psh.gather_blocks(blocks, 12, 16)
+    rows["scan_decode"] = scan_kernel_row("decode", psh.batch_operands(bb, stream, slice(None), dev),
+                                          {"bits": 12, "num_steps": bb.max_steps, "tail": True}, xray_data.size, dev)
+    for name in rows:
+        rows[name]["max_abs_err"] = max([rows[name]["max_abs_err"], *(c["max_abs_err"] for c in cases
+                                                                       if c["kind"] == name[5:])])
+
+    # 5. the split over two devices (one card, named twice): the bytes of one,
+    #    and each call's seconds on one device and on two (host clock, the
+    #    call's whole time: bytes in, bytes out)
+    split, split_s = {}, {}
+    two = [dev, dev]
+    plan64 = psh.uniform_plan(xray_data, 12, 64, 64 << 10)
+    blob64 = psh.mt_encode_device(xray_data, 12, 64, plan=plan64, device="cuda")  # warm
+    tpx_params = TpxParams(bits=12)
+    calls = {
+        "mt n=64 encode": lambda devs: psh.mt_encode_device(xray_data, 12, 64, plan=plan64, devices=devs),
+        "mt n=64 decode, step (a)": lambda devs: psh.mt_decode_device(blob64, 12, 64, devices=devs),
+        "mt n=16 encode": lambda devs: psh.mt_encode_device(xray_data, 12, 16, plan=plan16, devices=devs),
+        "mt n=16 decode, step (c)": lambda devs: psh.mt_decode_device(blob16, 12, 16, devices=devs),
+        "tpx encode": lambda devs: tpx_encode_device(tpx_data, 12, devices=devs),
+        "tpx decode": lambda devs: tpx_decode_device(tpx_blob, devices=devs),
+    }
+    want = {"mt n=64 encode": blob64, "mt n=64 decode, step (a)": xray_data.tobytes(), "mt n=16 encode": blob16,
+            "mt n=16 decode, step (c)": xray_data.tobytes(), "tpx decode": tpx_data.tobytes(),
+            # the JAX default geometry, as tpx_encode_torch's at 64 MiB
+            "tpx encode": tpx_encode_torch(tpx_data, p=tpx_params, device="cuda")}
+    for name, call in calls.items():
+        one, one_s = timed_s(lambda: call([dev]))
+        got, two_s = timed_s(lambda: call(two))
+        split[name] = one == want[name] and got == one
+        split_s[name] = {"one_device_s": one_s, "two_devices_s": two_s}
+    if not all(split.values()):
+        raise AssertionError(f"the split over two devices changed bytes: {split}")
+
+    # 6. malformed mt blobs through the whole chain, n=64 (mt decode's
+    #    malformed blobs, the bad-freq blob) and n=16 (step (c)): None or
+    #    bytes, the CPU tier's outcome, no CUDA fault afterwards
+    small_data, small, bad = ctx["malformed"]
+    bad = list(bad)
+    rng = np.random.default_rng(111)
+    freq_data = text_like(np.random.default_rng(1), 3 * 4096 + 100)
+    fb = bytearray(mt_encode_py(freq_data, 12, 64, psh.uniform_plan(freq_data, 12, 64, 4096)))
+    f = np.frombuffer(bytes(fb[288:800]), "<u2").copy()  # the first block's freqs, summed to 2^12 + 1
+    f[np.argmax(f)] += 1
+    fb[288:800] = f.astype("<u2").tobytes()
+    bad.append(bytes(fb))
+    small16 = mt_encode_py(small_data[: 1 << 18], 12, 16, psh.uniform_plan(small_data[: 1 << 18], 12, 16, 16 << 10))
+    bad16 = [small16[:cut] for cut in (0, 16, 1000, len(small16) // 2, len(small16) - 1)]
+    for lo, hi in ((0, 3), (16, 32), (32, 96), (96, 608), (608, len(small16))):
+        for _ in range(3):
+            b = bytearray(small16)
+            b[int(rng.integers(lo, hi))] ^= int(rng.integers(1, 256))
+            bad16.append(bytes(b))
+    outcomes = {"none": 0, "bytes": 0}
+    for n, blobs in ((64, bad), (16, bad16)):
+        for b in blobs:
+            out = psh.mt_decode_device(b, 12, n, device="cuda")
+            if out != psh.mt_decode_device(b, 12, n, device="cpu"):
+                raise AssertionError(f"mt_decode_device n={n}: a malformed blob's outcome differs from the CPU tier's")
+            outcomes["none" if out is None else "bytes"] += 1
+    torch.cuda.synchronize()
+    if psh.mt_decode_device(bad[-1], 12, 64, device="cuda") is not None:
+        raise AssertionError("mt_decode_device: the bad-freq blob did not give None")
+    if psh.mt_decode_device(small16, 12, 16, device="cuda") != small_data[: 1 << 18].tobytes():
+        raise AssertionError("mt_decode_device n=16: decode after the malformed blobs failed")
+    emit("mt_device_chain", bytes=xray_data.size, step_a_launches=step_a, chain_s=chain_s, step_c_s=step_c_s,
+         step_c_blocks=int(bb_main.states.shape[0]),
+         step_c_kernel=step_c_row, n16={"blocks": len(plan16), "groups": int(index[:, 1].max()), "encode_s": enc16_s,
+                                        "decode_s": dec16_s, "cpu_tier_encode_s": cpu16_s, "launches": launches},
+         split=split, split_s=split_s, malformed=outcomes)
+    emit("scan_kernels_main_path", **rows)
+    return rows, {"n16": launches, "raw": raw_launches}
+
+
 def main() -> int:
     global CARD, OPS_PER_S
     if not torch.cuda.is_available():
@@ -1593,6 +1957,11 @@ def main() -> int:
     #     the plain versions, every byte written
     wire_rows = wire_edges(dev)
 
+    # 12. the XLA scan codecs and the device fan-out: the scan kernels
+    #     against their plain versions, the raw wire at 64 MiB, the mt chain
+    #     and the n=16 round trip at 64 MiB, the split over two devices
+    scan_rows, scan_launches = scan_phases(repo, dev, ctx, data, blob)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsrans_tpu"))
     if foreign:
         raise AssertionError(f"the run loaded modules of JAX or of the JAX package: {foreign}")
@@ -1623,6 +1992,12 @@ def main() -> int:
             if name == "hist_count":
                 library_ms = hist_rows[0][key]["library_ms"]
                 row["library_whole_input_ms"] = bincount_ms  # one torch.bincount of the 64 MiB, one histogram
+        elif name in scan_rows:
+            # at the n=16 mt round trip of 64 MiB x-ray, the path that launches each once
+            row = {"launches": scan_launches["n16"][name], "path": "mt n=16 64 MiB x-ray, 1,024 blocks",
+                   **{k: scan_rows[name][k] for k in (*keys, "max_abs_err", "launch_ms", "link_us", "ms_host_paced")},
+                   "raw_round_trip_launches": {n: v[name] for n, v in scan_launches["raw"].items()},
+                   "bound_note": scan_rows[name]["bound_note"], "xla_not_pallas": True}
         elif name == "mt_decode":
             row = {"launches": mt_launches, "max_abs_err": max(r["max_abs_err"] for r in mt_rows + edge_rows["mt_decode"]),
                    **{k: mt_rows[0][k] for k in (*keys, "launch_ms", "link_us")}}

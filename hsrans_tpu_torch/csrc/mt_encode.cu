@@ -332,19 +332,19 @@ __device__ __forceinline__ void copy_u16(uint16_t* __restrict__ out, const uint1
   }
 }
 
-template <int K>
+template <int N>
 __global__ void __launch_bounds__(kWarps * 32)
 mt_place_kernel(const uint16_t* __restrict__ words,    // [words_cap] the encode's scratch
                 const EncIndex* __restrict__ index,    // [nb]
                 const long long* __restrict__ count,   // [nb]
-                const uint32_t* __restrict__ fin,      // [nb, 32K]
+                const uint32_t* __restrict__ fin,      // [nb, N]
                 const uint16_t* __restrict__ freqs,    // [nb, 256]
                 int nb,
                 const PlaceRow* __restrict__ place,    // [n_rows] the blob's parts, dest ascending from 0
                 int n_rows,
                 uint16_t* __restrict__ out,            // [out_len] the blob as u16
                 long long words_cap, long long out_len) {
-  constexpr int n = 32 * K;
+  constexpr int n = N;  // lanes of the wire (16, 32 or 64): only the header's size depends on it
   constexpr int kHeader = 4 + 4 + 2 * n + 256;  // u16s of size, offset, states, freqs
   const int j = threadIdx.x & 31;
   const long long lo = (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * kChunkU16;
@@ -445,7 +445,7 @@ extern "C" int hsr_mt_wire(const void* words, const void* index, const void* cou
   if (n_rows <= 0 || out_len <= 0) return 0;
   const bool aligned = (reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(words) |
                         reinterpret_cast<uintptr_t>(fin) | reinterpret_cast<uintptr_t>(freqs)) % 16 == 0;
-  if ((n != 32 && n != 64) || !aligned) return static_cast<int>(cudaErrorInvalidValue);
+  if ((n != 16 && n != 32 && n != 64) || !aligned) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
   const long long chunks = (out_len + kChunkU16 - 1) / kChunkU16;
   const int blocks = static_cast<int>((chunks + kWarps - 1) / kWarps);
@@ -457,8 +457,10 @@ extern "C" int hsr_mt_wire(const void* words, const void* index, const void* cou
   const auto* pl = static_cast<const PlaceRow*>(place);
   auto* o = static_cast<uint16_t*>(out);
   if (n == 64)
-    mt_place_kernel<2><<<blocks, kWarps * 32, 0, cs>>>(wd, ix, ct, fs, fq, nb, pl, n_rows, o, words_cap, out_len);
+    mt_place_kernel<64><<<blocks, kWarps * 32, 0, cs>>>(wd, ix, ct, fs, fq, nb, pl, n_rows, o, words_cap, out_len);
+  else if (n == 32)
+    mt_place_kernel<32><<<blocks, kWarps * 32, 0, cs>>>(wd, ix, ct, fs, fq, nb, pl, n_rows, o, words_cap, out_len);
   else
-    mt_place_kernel<1><<<blocks, kWarps * 32, 0, cs>>>(wd, ix, ct, fs, fq, nb, pl, n_rows, o, words_cap, out_len);
+    mt_place_kernel<16><<<blocks, kWarps * 32, 0, cs>>>(wd, ix, ct, fs, fq, nb, pl, n_rows, o, words_cap, out_len);
   return static_cast<int>(cudaGetLastError());
 }

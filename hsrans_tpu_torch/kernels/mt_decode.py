@@ -35,7 +35,7 @@ from ..ops.mt import MtBlock, _as_array, block_index
 from ..ops.reference import decode_tail_group
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
 from ..runtime import build
-from ..runtime.device import layer_clock, resolve
+from ..runtime.device import layer_clock, resolve_all, shares
 from .tpx_decode import from_u32, to_u32
 
 _M32 = 0xFFFFFFFF
@@ -359,23 +359,47 @@ def device_operands(stream: np.ndarray, index, states, fc, n: int, dev: torch.de
     return tuple(torch.from_numpy(a).to(dev) for a in arrays)
 
 
+def _decode_share(stream: np.ndarray, index, states, fc, *, bits: int, n: int, length: int, dev: torch.device,
+                  layers: dict[str, float] | None):
+    """One device's coded blocks (rows of block_operands, their outputs
+    counted from the first block's) decoded on `dev` by the route
+    `_PAIR_V2` picks: (out uint8 [length], final states, words consumed),
+    tensors on `dev`."""
+    with layer_clock(layers, "h2d", dev):
+        args = device_operands(stream, index, states, fc, n, dev)
+    if _PAIR_V2:
+        stream_t, index_t, states_t, fc_t = args
+        with layer_clock(layers, "kernel_annotate", dev):
+            ann = annotate(stream_t, index_t, fc_t, bits=bits)
+        with layer_clock(layers, "kernel", dev):
+            return decode_blocks_annotated(ann, index_t, states_t, fc_t, bits=bits, n=n, length=length)
+    with layer_clock(layers, "kernel", dev):
+        return decode_blocks(*args, bits=bits, n=n, length=length)
+
+
 def mt_decode_torch(
     blob: bytes | np.ndarray,
     bits: int,
     n: int = 64,
     device: str | torch.device = "cuda",
     layers: dict[str, float] | None = None,
+    devices: list | None = None,
 ) -> bytes | None:
     """Decode an mt_rANS32xN 16w blob (n in {32, 64}, B <= 15) on `device`;
     None where `hsrans_tpu.kernels.mt64_decode.mt64_decode_tpu` gives None
     (bits > 15 or another n, a broken header chain, a negative word count, a
     coded block whose freqs do not sum to 2^B).
 
+    With `devices`, the coded blocks are split over them (`shares`: each a
+    contiguous run of ceil(blocks / len(devices))), one launch on each, and
+    each share's byte range copied back to its place in the output; the
+    bytes do not depend on the split.
     With `layers`, adds the seconds of each layer of this call to it
     (host_index, host_tables, h2d, kernel, d2h, host_assemble, and
     kernel_annotate on the annotated route), the device synchronized at
     each boundary."""
-    dev = resolve(device)
+    devs = resolve_all(device, devices)
+    dev = devs[-1]
     if bits > 15 or n not in (32, 64):
         return None
     with layer_clock(layers, "host_index", dev):
@@ -390,22 +414,24 @@ def mt_decode_torch(
     if ops is None:
         return None
     index, states, fc = ops
-    with layer_clock(layers, "h2d", dev):
-        args = device_operands(stream, index, states, fc, n, dev)
-    if _PAIR_V2:
-        stream_t, index_t, states_t, fc_t = args
-        with layer_clock(layers, "kernel_annotate", dev):
-            ann = annotate(stream_t, index_t, fc_t, bits=bits)
-        with layer_clock(layers, "kernel", dev):
-            out_t, fin_t, cursor_t = decode_blocks_annotated(ann, index_t, states_t, fc_t, bits=bits, n=n, length=length)
-    else:
-        with layer_clock(layers, "kernel", dev):
-            out_t, fin_t, cursor_t = decode_blocks(*args, bits=bits, n=n, length=length)
+    out = np.zeros(length, dtype=np.uint8)
+    for dev, lo, hi in shares(devs, len(index)):
+        # the share's blocks write the bytes [first, end) of the output (block
+        # outputs ascend and do not overlap): it decodes into a buffer of
+        # that range on its device, copied back to its place
+        sub = index[lo:hi].copy()
+        first = int(sub[0, 2]) if hi > lo else 0
+        end = max(first, min(int(sub[:, 3].max()), length)) if hi > lo else 0
+        sub[:, 2:4] -= first
+        out_t, fin_t, cursor_t = _decode_share(stream, sub, states[lo:hi], fc[lo:hi], bits=bits, n=n,
+                                               length=end - first, dev=dev, layers=layers)
+        with layer_clock(layers, "d2h", dev):
+            torch.from_numpy(out[first:end]).copy_(out_t)
     # the trailing partial group (fewer than n bytes) continues the chain of
-    # the last block, where that block is coded
+    # the last block, where that block is coded; fin_t and cursor_t are the
+    # last share's
     tail_from = int(index[-1, 2] + index[-1, 4] * n) if not blocks[-1].is_single else length
     with layer_clock(layers, "d2h", dev):
-        out = out_t.cpu().numpy()
         if tail_from < length:
             fin = fin_t[-1].cpu().numpy().view(np.uint32)
             read_pos = int(index[-1, 0]) + int(cursor_t[-1])

@@ -15,7 +15,10 @@ offsets, and one more launch writes the whole blob (`place_blocks`): its
 head, each coded block's part, header and words, and each single-symbol
 indicator, at its offset.  Unlike the JAX package, no coded block goes to a
 host encoder (the final block, and sizes off its kernel's 512-byte grid,
-included); the bytes are the same.
+included); the bytes are the same.  At n = 16, where the JAX package's
+`mt_encode_device` runs the XLA scan `encode_section`, the blocks go
+through the scan encode kernel of `kernels/scan.py` instead
+(`encode_blocks_scan`), and the same placement writes the wire.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from ..ops.mt import _as_array
 from ..ops.planner import BlockPlan
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
 from ..runtime import build
-from ..runtime.device import layer_clock, resolve
+from ..runtime.device import layer_clock, resolve, shares
+from .scan import encode_section_kernel
 from .tpx_decode import from_u32, to_u32
 
 _M32 = 0xFFFFFFFF
@@ -182,6 +186,52 @@ def encode_blocks(data, index, freqs, *, bits: int, n: int, rule: str, words_cap
     return fn(data, index, freqs, bits=bits, n=n, rule=rule, words_cap=words_cap)
 
 
+def scan_operands(data, index, freqs, n: int):
+    """The scan encode's operands of the coded blocks (index int64 [nb, 5]
+    (INDEX_FIELDS), freqs int16 [nb, 256] on data's device): fresh states,
+    each block's lane groups in lane order (a byte read as 0 from
+    byte_limit on; a lane valid while its group is one of the block's and
+    its position below valid_limit), its freqs and their cumuls (u16 wrap),
+    and the step count, the longest block's groups."""
+    dev = data.device
+    f = freqs.to(torch.int64) & 0xFFFF
+    cumul = ((torch.cumsum(f, dim=1) - f) & 0xFFFF).to(torch.int16)
+    start, num_groups, byte_limit, valid_limit = (index[:, c, None, None] for c in range(4))
+    steps = int(index[:, 1].max())
+    g = torch.arange(steps, device=dev)[None, :, None]
+    pos = start + g * n + torch.from_numpy(IDX2IDX[n]).to(dev)[None, None, :]
+    src = data if data.numel() else torch.zeros(1, dtype=torch.uint8, device=dev)
+    inside = (pos >= 0) & (pos < torch.clamp(byte_limit, max=data.numel()))
+    group_bytes = torch.where(inside, src[torch.clamp(pos, 0, src.numel() - 1)], 0).to(torch.uint8)
+    valid = (g < num_groups) & (pos < valid_limit)
+    init = torch.full((index.shape[0], n), DECODE_CONSUME_POINT_16, dtype=torch.int32, device=dev)
+    return init, group_bytes, valid, freqs, cumul, steps
+
+
+def encode_blocks_scan(data, index, freqs, *, bits: int, n: int, rule: str, words_cap: int):
+    """encode_blocks' contract at any lane count under the "section" rule,
+    through the scan encode kernel (`kernels/scan.py`: the kernel for CUDA
+    operands, its plain version for CPU operands): every block's lane
+    groups gathered from the input (`scan_operands`), one call, and each
+    block's emitted words, compacted in wire order, moved to the end of its
+    region.  The scan encode is the JAX package's `encode_section`, whose
+    emit test scales max(freq, 1): the "section" rule."""
+    if rule != "section":
+        raise ValueError("the scan encode follows the section rule")
+    dev = data.device
+    nb = index.shape[0]
+    words = torch.zeros(words_cap, dtype=torch.int16, device=dev)
+    if nb == 0:
+        return words, torch.zeros(0, dtype=torch.int64, device=dev), torch.zeros((0, n), dtype=torch.int32, device=dev)
+    *ops, steps = scan_operands(data, index, freqs, n)
+    got, emits, fin = encode_section_kernel(*ops, bits=bits, num_steps=steps)
+    count = emits.sum(dim=(1, 2))
+    flat = torch.masked_select(got, emits)  # blocks in order, each in (group, lane) order
+    shift = index[:, 4] - count - (torch.cumsum(count, 0) - count)
+    words[torch.arange(flat.numel(), device=dev) + torch.repeat_interleave(shift, count, output_size=flat.numel())] = flat
+    return words, count, fin
+
+
 def emitted_words(words: torch.Tensor, index: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     """Every block's emitted words, blocks in order: the part of the encode's
     scratch that its contract defines (the words of all coded blocks as the
@@ -240,8 +290,8 @@ def place_blocks_cuda(words, index, count, fin, freqs, place, *, n: int, out_u16
         "place_blocks_cuda", words, index, count, fin, freqs, place, int16=(0, 4), int64=(1, 2, 5)
     )
     nb = index.shape[0]
-    if n not in (32, 64):
-        raise ValueError("place_blocks_cuda: n must be 32 or 64")
+    if n not in (16, 32, 64):
+        raise ValueError("place_blocks_cuda: n must be 16, 32 or 64")
     if count.shape != (nb,) or fin.shape != (nb, n) or freqs.shape != (nb, 256) or place.shape[1:] != (len(PLACE_FIELDS),):
         raise ValueError("place_blocks_cuda: operand shapes do not match the block count")
     out = torch.empty(out_u16, dtype=torch.int16, device=dev)  # the parts tile the blob: the kernel writes every u16
@@ -389,27 +439,47 @@ def encode_plan(
     bits: int,
     n: int,
     rule: str,
-    dev: torch.device,
+    devices: list[torch.device],
     layers: dict[str, float] | None = None,
 ) -> bytes:
-    """The mt blob of `plan` over `arr`, every coded block encoded from fresh
-    states on `dev` (plan_rows says what `rule` changes), the histograms of
-    rows without freqs too (`plan_freqs`).  With `layers`, the
-    host's walk of the plan counts as host_index and those histograms as
+    """The mt blob of `plan` over `arr` (n of 16, 32 or 64), every coded
+    block encoded from fresh states (plan_rows says what `rule` changes),
+    the histograms of rows without freqs too (`plan_freqs`).  The coded
+    blocks are split over `devices` (`shares`: each a contiguous run); on
+    each, their histograms and one encode launch, by the mt encode kernel
+    at n = 32 and 64 (`encode_blocks`) and by the scan encode kernel at
+    n = 16 (`encode_blocks_scan`); the words, counts and states are gathered
+    in order on the first device, which writes the blob (`place_blocks`).
+    The bytes do not depend on the split.  With `layers`, the host's walk
+    of the plan counts as host_index and those histograms as
     kernel_hist."""
-    if n not in (32, 64) or not 1 <= bits <= 15:
-        raise ValueError("mt encode needs n in (32, 64) and 1 <= bits <= 15")
+    if n not in (16, 32, 64) or not 1 <= bits <= 15:
+        raise ValueError("mt encode needs n in (16, 32, 64) and 1 <= bits <= 15")
+    encode = encode_blocks if n in (32, 64) else encode_blocks_scan
+    dev = devices[0]
     length = arr.size
     with layer_clock(layers, "host_index", dev):
         kinds, ks, index, given, freqs, bias = plan_rows(arr, plan, bits, n, rule)
-    words_cap = int(index[-1, 4]) if len(ks) else 0
-    with layer_clock(layers, "h2d", dev):
-        data_t = _input_tensor(arr, dev)
-        index_t = torch.from_numpy(index).to(dev)
-    with layer_clock(layers, "kernel_hist", dev):
-        freqs_t = plan_freqs(data_t, ks, index, given, freqs, bits, n)
-    with layer_clock(layers, "kernel_encode", dev):
-        words_t, count_t, fin_t = encode_blocks(data_t, index_t, freqs_t, bits=bits, n=n, rule=rule, words_cap=words_cap)
+    outs = []
+    for d, lo, hi in shares(devices, len(ks)):
+        # a share's scratch regions start at 0 on its device; laid end to end
+        # in order they are the whole call's
+        sub = index[lo:hi].copy()
+        sub[:, 4] -= index[lo - 1, 4] if lo else 0
+        with layer_clock(layers, "h2d", d):
+            data_t = _input_tensor(arr, d)
+            index_t = torch.from_numpy(sub).to(d)
+        with layer_clock(layers, "kernel_hist", d):
+            freqs_t = plan_freqs(data_t, ks[lo:hi], sub, given[lo:hi], freqs[lo:hi], bits, n)
+        with layer_clock(layers, "kernel_encode", d):
+            words_cap = int(sub[-1, 4]) if hi > lo else 0
+            outs.append((freqs_t, *encode(data_t, index_t, freqs_t, bits=bits, n=n, rule=rule, words_cap=words_cap)))
+    if len(outs) > 1:
+        with layer_clock(layers, "gather", dev):
+            freqs_t, words_t, count_t, fin_t = (torch.cat([o[i].to(dev) for o in outs]) for i in range(4))
+            index_t = torch.from_numpy(index).to(dev)
+    else:
+        freqs_t, words_t, count_t, fin_t = outs[0]
     with layer_clock(layers, "host_layout", dev):
         place, out_u16 = part_layout(plan, kinds, ks, bias, count_t.cpu().numpy(), n, length)
         place_t = torch.from_numpy(place).to(dev)
@@ -464,4 +534,4 @@ def mt_encode_torch(
     arr = _as_array(data)
     if plan is None:
         plan = uniform_rows(arr.size, block_size)
-    return encode_plan(arr, plan, bits, 64, "groups", dev, layers)
+    return encode_plan(arr, plan, bits, 64, "groups", [dev], layers)

@@ -17,7 +17,7 @@ import torch
 from ..ops.mt import _as_array
 from ..ops.tpx import L, TpxMega, tpx_parse
 from ..runtime import build
-from ..runtime.device import layer_clock, resolve
+from ..runtime.device import layer_clock, resolve_all, shares
 
 _M32 = 0xFFFFFFFF
 WARPS = 4  # rows (one warp each) of a CTA: csrc/tpx_common.cuh kWarps
@@ -200,14 +200,21 @@ def decode_mega(blob, desc, row_start, states, symtab, fctab, *, bits: int, out_
 
 
 def tpx_decode_torch(
-    blob: bytes | np.ndarray, device: str | torch.device = "cuda", layers: dict[str, float] | None = None
+    blob: bytes | np.ndarray,
+    device: str | torch.device = "cuda",
+    layers: dict[str, float] | None = None,
+    devices: list | None = None,
 ) -> bytes | None:
     """Decode a tpx blob (v1, v2 or v3 wire) on `device`; None if malformed.
 
+    With `devices`, the megablocks are split over them (`shares`: each a
+    contiguous run), one launch on each, and each share's bytes copied back
+    to their place in the output; the bytes do not depend on the split.
     With `layers`, adds the seconds of each layer of this call to it
     (host_parse, host_tables, h2d, kernel, d2h, host_assemble), the device
     synchronized at each boundary."""
-    dev = resolve(device)
+    devs = resolve_all(device, devices)
+    dev = devs[0]
     with layer_clock(layers, "host_parse", dev):
         buf = _as_array(blob)
         parsed = tpx_parse(buf)
@@ -218,16 +225,25 @@ def tpx_decode_torch(
         return None
     with layer_clock(layers, "host_tables", dev):
         tabs = dec_tables(np.concatenate([m.freqs for m in megas]), p.bits)
-        desc, row_start, states = decode_operands(megas, length)
     if tabs is None:
         return None
-    if not len(desc):
-        return b""
-    with layer_clock(layers, "h2d", dev):
-        ops = [torch.from_numpy(a).to(dev) for a in (buf, row_start, states.view(np.int32), *tabs)]
-    with layer_clock(layers, "kernel", dev):
-        out = decode_mega(ops[0], desc, *ops[1:], bits=p.bits, out_len=-(-length // 4) * 4)
-    with layer_clock(layers, "d2h", dev):
-        host = out[:length].cpu().numpy()
+    tab0 = np.cumsum([0] + [m.n_tiles for m in megas])
+    out = np.zeros(length, dtype=np.uint8)
+    for d, lo, hi in shares(devs, len(megas)):
+        with layer_clock(layers, "host_tables", d):
+            # the share's megas that hold data, their output from its first byte
+            desc, row_start, states = decode_operands(megas[lo:hi], length)
+        if not len(desc):
+            continue
+        base = int(desc[0, 9])
+        desc[:, 9] -= base
+        n_out = int(desc[:, 10].sum())
+        with layer_clock(layers, "h2d", d):
+            share_tabs = (t[tab0[lo] : tab0[hi]] for t in tabs)
+            ops = [torch.from_numpy(a).to(d) for a in (buf, row_start, states.view(np.int32), *share_tabs)]
+        with layer_clock(layers, "kernel", d):
+            got = decode_mega(ops[0], desc, *ops[1:], bits=p.bits, out_len=-(-n_out // 4) * 4)
+        with layer_clock(layers, "d2h", d):
+            torch.from_numpy(out[base : base + n_out]).copy_(got[:n_out])
     with layer_clock(layers, "host_assemble", dev):
-        return host.tobytes()
+        return out.tobytes()

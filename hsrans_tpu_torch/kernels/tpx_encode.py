@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models.device_hist import segment_hists
+from ..ops.reference import _as_array
 from ..ops.tpx import (
     DECODE_CONSUME_POINT_16,
     MAGIC3,
@@ -33,7 +34,7 @@ from ..ops.tpx import (
     tpx_plan_geometry,
 )
 from ..runtime import build
-from ..runtime.device import layer_clock, resolve
+from ..runtime.device import layer_clock, resolve, resolve_all, shares
 from .mt_encode import _input_tensor, magic_tensor, shift_tensor
 from .tpx_decode import WARPS, ctas_of, desc_on, from_u32, to_u32
 
@@ -293,12 +294,6 @@ def write_wire(win, cnt, states, freqs, wdesc: np.ndarray, row_at: np.ndarray, *
     return fn(win, cnt, states, freqs, wdesc, row_at, v3=v3, out_u16=out_u16)
 
 
-def _as_array(data: bytes | np.ndarray) -> np.ndarray:
-    if isinstance(data, (bytes, bytearray, memoryview)):
-        return np.frombuffer(data, dtype=np.uint8)
-    return np.ascontiguousarray(data, dtype=np.uint8)
-
-
 def mega_segments(geoms: list[tuple[int, int, int, int, int]]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The one-call encode's descriptors of the megas [(base, rows, steps,
     n_tiles, valid bytes)] and each tile's bytes: (desc int64 [M, 9]
@@ -363,30 +358,39 @@ def _encode_megas(
     *,
     bits: int,
     v3: bool,
-    device: torch.device,
+    devices: list[torch.device],
     layers: dict[str, float] | None,
 ) -> bytes:
     """The blob: `head` (the 44-byte header; the total length at [16:24]
     filled in here), then the wire sections of the megas [(base, rows,
-    steps, n_tiles, valid bytes)] encoded on `device`, with v3 each after
-    its u32 rows | u32 steps: one kernel launch of each histogram kernel,
-    of the encode and of the wire writer for all of them.  Bytes equal
+    steps, n_tiles, valid bytes)], with v3 each after its u32 rows | u32
+    steps.  The megas are split over `devices` (`shares`: each a contiguous
+    run); on each, one launch of each histogram kernel, of the encode and
+    of the wire writer for its share, and the shares' sections follow one
+    another in mega order.  Bytes equal
     `hsrans_tpu.ops.tpx._encode_mega_into`'s mega by mega."""
-    with layer_clock(layers, "h2d", device):
-        data = _input_tensor(arr, device)
-    with layer_clock(layers, "kernel_hist", device):
-        desc, freqs_t, fc, m, l = mega_operands(data, geoms, bits=bits)  # the freqs stay on the card for the writer
-    with layer_clock(layers, "kernel_encode", device):
-        win, cnt, states = encode_mega(data, desc, fc, m, l, bits=bits)
-    with layer_clock(layers, "host_layout", device):
-        views = mega_views(win, cnt, states, desc)
-        row_words = torch.cat([torch.clamp(c, max=L).sum(dim=2).reshape(-1) for _, c, _ in views]).cpu().numpy()
-        wdesc, row_at, out_u16 = wire_layout(desc, row_words.astype(np.int64), v3=v3, base=len(head) // 2)
-    with layer_clock(layers, "kernel_concat", device):
-        blob_t = write_wire(win, cnt, states, freqs_t, wdesc, row_at, v3=v3, out_u16=out_u16)
-    with layer_clock(layers, "d2h", device):
-        blob = blob_t.cpu().numpy()
-    with layer_clock(layers, "host_mux", device):
+    blobs = []
+    for dev, lo, hi in shares(devices, len(geoms)):
+        first = geoms[lo][0]
+        end = max(base + valid for base, *_, valid in geoms[lo:hi])
+        share = [(base - first, *rest) for base, *rest in geoms[lo:hi]]
+        with layer_clock(layers, "h2d", dev):
+            data = _input_tensor(arr[first:end], dev)
+        with layer_clock(layers, "kernel_hist", dev):
+            desc, freqs_t, fc, m, l = mega_operands(data, share, bits=bits)  # the freqs stay on the card for the writer
+        with layer_clock(layers, "kernel_encode", dev):
+            win, cnt, states = encode_mega(data, desc, fc, m, l, bits=bits)
+        with layer_clock(layers, "host_layout", dev):
+            views = mega_views(win, cnt, states, desc)
+            row_words = torch.cat([torch.clamp(c, max=L).sum(dim=2).reshape(-1) for _, c, _ in views]).cpu().numpy()
+            wdesc, row_at, out_u16 = wire_layout(desc, row_words.astype(np.int64), v3=v3, base=len(head) // 2)
+        with layer_clock(layers, "kernel_concat", dev):
+            blob_t = write_wire(win, cnt, states, freqs_t, wdesc, row_at, v3=v3, out_u16=out_u16)
+        with layer_clock(layers, "d2h", dev):
+            # every share's sections are written after a head's room; the first keeps it
+            blobs.append(blob_t[len(head) if blobs else 0 :].cpu().numpy())
+    with layer_clock(layers, "host_mux", devices[0]):
+        blob = blobs[0] if len(blobs) == 1 else np.concatenate(blobs)
         blob[: len(head)] = np.frombuffer(head, np.uint8)
         blob[16:24] = np.array([blob.size], "<u8").view(np.uint8)
         return blob.tobytes()
@@ -406,9 +410,12 @@ def tpx_encode_torch(
     device: str | torch.device = "cuda",
     layers: dict[str, float] | None = None,
     device_tables: bool = False,
+    devices: list | None = None,
 ) -> bytes:
-    """Encode to the tpx v2 wire on `device`; equal to the JAX package's
-    `ops.tpx.tpx_encode` and `kernels.tpx_encode.tpx_encode_tpu`.
+    """Encode to the tpx v2 wire on `device`, or with the megablocks split
+    over `devices` (`_encode_megas`); equal to the JAX package's
+    `ops.tpx.tpx_encode` and `kernels.tpx_encode.tpx_encode_tpu`, and to its
+    `parallel.tpx_sharded.tpx_encode_device` for every mesh.
 
     The per-tile histograms, their exact normalization to 2^B and the
     encode tables are made on `device` (`mega_operands`).
@@ -418,14 +425,14 @@ def tpx_encode_torch(
     of this call to it (h2d, kernel_hist, kernel_encode, host_layout,
     kernel_concat, d2h, host_mux), the device synchronized at each
     boundary."""
-    dev = resolve(device)
+    devs = resolve_all(device, devices)
     arr = _as_array(data)
     length = arr.size
     p = p or TpxParams.auto(length, bits, goal)
     if p.lanes != L or p.steps % 4 or not 10 <= p.bits <= 15:
         raise ValueError("tpx encode requires lanes == 128, steps % 4 == 0 and 10 <= bits <= 15")
     geoms = [(base, p.rows, p.steps, n_tiles, valid) for base, n_tiles, valid in _mega_layout(length, p)]
-    return _encode_megas(bytes(tpx_header(length, p)), arr, geoms, bits=p.bits, v3=False, device=dev, layers=layers)
+    return _encode_megas(bytes(tpx_header(length, p)), arr, geoms, bits=p.bits, v3=False, devices=devs, layers=layers)
 
 
 def tpx_encode_adaptive_torch(
@@ -449,4 +456,4 @@ def tpx_encode_adaptive_torch(
     head = MAGIC3 + length.to_bytes(8, "little") + bytes(8)
     head += b"".join(int(v).to_bytes(4, "little") for v in (bits, g0.rows, L, g0.steps, g0.n_tiles))
     megas = [(g.base, g.rows, g.steps, g.n_tiles, max(0, min(length - g.base, g.span))) for g in geoms]
-    return _encode_megas(head, arr, megas, bits=bits, v3=True, device=dev, layers=layers)
+    return _encode_megas(head, arr, megas, bits=bits, v3=True, devices=[dev], layers=layers)

@@ -2,8 +2,9 @@
 
 The port's copy of the host tier of `hsrans_tpu/ops/mt.py` (the wire format
 is documented there): `block_index`, the O(blocks) walk of the header chain
-that the decoder starts from, and `mt_encode_py`, the numpy encoder that is
-the wire authority.  The port loads no module of the JAX package;
+that the decoder starts from, `mt_encode_py`, the numpy encoder that is the
+wire authority, and `mt_decode_py`, its sequential decoder (the host step of
+`parallel/sharded.py::mt_decode_device`).  The port loads no module of the JAX package;
 `tests/test_torch_mt_decode.py` holds each function here equal to its
 original.
 
@@ -20,20 +21,14 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..models.histogram import complete_hist
-from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
+from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX, INV_IDX2IDX
 from .planner import BlockPlan, plan_blocks_mt
-from .reference import encode_groups
+from .reference import _as_array, decode_full_groups, decode_tail_group, encode_groups
 
 _U32 = np.uint32
 _SINGLE_BIT = 1 << 63
 _SYM_SHIFT = 54
 _SIZE_MASK = (1 << 54) - 1
-
-
-def _as_array(data: bytes | np.ndarray) -> np.ndarray:
-    if isinstance(data, (bytes, bytearray, memoryview)):
-        return np.frombuffer(data, dtype=np.uint8)
-    return np.asarray(data, dtype=np.uint8)
 
 
 def mt_capacity(input_size: int, n: int) -> int:
@@ -157,3 +152,47 @@ def block_index(blob: bytes | np.ndarray, n: int) -> tuple[int, np.ndarray, list
         if blocks[-1].is_last:
             break
     return length, stream, blocks
+
+
+def mt_decode_py(blob: bytes | np.ndarray, bits: int, n: int) -> bytes | None:
+    """Sequential (single-stream) numpy decode, the correctness oracle: the
+    blocks in order, each from its state snapshot, the trailing partial
+    lane group from the last coded block's chain; None where the header
+    chain breaks, a block's freqs do not sum to 2^B, or a partial group
+    follows a single-symbol block."""
+    idx = block_index(blob, n)
+    if idx is None:
+        return None
+    length, stream, blocks = idx
+    if length == 0:
+        return b""
+    out = np.zeros(length, dtype=np.uint8)
+    inv_perm = INV_IDX2IDX[n]
+    out_len_states = max(length - n + 1, 0)
+
+    last_states = last_hist = last_r = None
+    i = 0
+    for blk in blocks:
+        i = blk.out_start
+        if blk.is_single:
+            out[i : i + blk.size] = blk.symbol
+            i += blk.size
+            continue
+        hist = complete_hist(blk.freq, bits)
+        if hist is None:
+            return None
+        block_end = min(blk.out_start + blk.size, out_len_states)
+        num_groups = max(0, -(-(block_end - i) // n))
+        syms, states, r = decode_full_groups(blk.states.copy(), stream, blk.word_start, hist, n, num_groups)
+        out[i : i + num_groups * n] = syms[:, inv_perm].reshape(-1)
+        i += num_groups * n
+        last_states, last_hist, last_r = states, hist, r
+
+    if i < length:
+        if last_hist is None:
+            return None  # a trailing partial group after a single-symbol block
+        tail, _, _ = decode_tail_group(last_states, stream, last_r, last_hist, n, i, length)
+        perm = IDX2IDX[n]
+        sel = (i + perm) < length
+        out[i + perm[sel]] = tail[np.arange(n)[sel]]
+    return out.tobytes()

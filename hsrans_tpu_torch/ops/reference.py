@@ -4,8 +4,13 @@ the lane-group encode and decode steps that the mt wire chains per block.
 The port's copy of the pieces of `hsrans_tpu/ops/reference.py` that the mt
 codec runs (`encode_groups` for the host encoder, `decode_full_groups` and
 `decode_tail_group` for the reference decode and the trailing partial lane
-group), so that the port loads no module of the JAX package;
-`tests/test_torch_mt_decode.py` holds each equal to its original.
+group) and of its raw 16w wire (`raw_encode_16w`, `raw_decode_16w`), so that
+the port loads no module of the JAX package; `tests/test_torch_mt_decode.py`
+and `tests/test_torch_raw_scan.py` hold each equal to its original, the raw
+wire also to the C++ reference's golden blobs.
+
+Raw wire format: u64 rawLength | u64 compressedLength | 256*u16 freq |
+N*u32 states | u16 word stream (rANS32x32_16w.cpp:130-158).
 
 Decode processes groups of n lanes forward, lane j of a group coding the
 byte at offset IDX2IDX[n][j]; a lane whose state drops below 2^15 shifts in
@@ -19,10 +24,44 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..models.histogram import Hist, make_cumul_inv
-from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX, encode_emit_point_16
+from ..models.histogram import Hist, complete_hist, make_cumul_inv
+from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX, INV_IDX2IDX, encode_emit_point_16
 
 _U32 = np.uint32
+_HDR_FIXED = 16 + 512  # two u64 + 256 u16 freqs
+
+
+def _as_array(data: bytes | np.ndarray) -> np.ndarray:
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return np.frombuffer(data, dtype=np.uint8)
+    return np.asarray(data, dtype=np.uint8)
+
+
+def raw_capacity(input_size: int, n_lanes: int) -> int:
+    """Worst-case compressed size (rANS32x32_16w.cpp:10-13)."""
+    return input_size + n_lanes + 512 + 4 * n_lanes + 16
+
+
+def _group_layout(length: int, n: int) -> tuple[int, int]:
+    """(full groups, total groups with the possibly partial one): the
+    reference's decode main loop runs while i < length - n + 1, the tail
+    group (lanes masked by i + idx2idx[j] < length) takes the rest."""
+    if length <= 0:
+        return 0, 0
+    total = -(-length // n)
+    out_len_in_states = length - n + 1
+    full = 0 if out_len_in_states <= 0 else -(-out_len_in_states // n)
+    return full, total
+
+
+def _gather_group_bytes(data: np.ndarray, length: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """[G, n] byte matrix in lane order and the validity mask of the tail."""
+    perm = IDX2IDX[n]
+    _, total = _group_layout(length, n)
+    padded = np.zeros(total * n, dtype=np.uint8)
+    padded[:length] = data
+    pos = (np.arange(total, dtype=np.int64)[:, None] * n) + perm[None, :]
+    return padded[pos % max(total * n, 1)], pos < length
 
 
 def encode_groups(
@@ -118,3 +157,73 @@ def decode_tail_group(
     w = stream[read_pos + offs].astype(_U32)
     states = np.where(consume, (states_t << _U32(16)) | w, states_t)
     return np.where(v, sym, 0), states, read_pos + int(consume.sum())
+
+
+def raw_encode_16w(data: bytes | np.ndarray, hist: Hist, n_lanes: int) -> bytes:
+    """Encode one buffer with a static histogram; returns the wire blob."""
+    arr = _as_array(data)
+    length = arr.size
+    n = n_lanes
+    states = np.full(n, DECODE_CONSUME_POINT_16, dtype=_U32)
+    groups, valid = _gather_group_bytes(arr, length, n)
+    words, emits, states = encode_groups(states, groups, valid, hist)
+    stream = words[emits]  # forward wire stream: (group ascending, lane ascending)
+
+    out = bytearray()
+    out += int(length).to_bytes(8, "little")
+    out += b"\0" * 8  # total length patched below
+    out += hist.symbol_count.astype("<u2").tobytes()
+    out += states.astype("<u4").tobytes()
+    out += stream.astype("<u2").tobytes()
+    out[8:16] = len(out).to_bytes(8, "little")
+    return bytes(out)
+
+
+def raw_decode_16w(blob: bytes | np.ndarray, total_symbol_count_bits: int, n_lanes: int) -> bytes | None:
+    """Decode a raw 16w wire blob; None on malformed input."""
+    buf = _as_array(blob)
+    n = n_lanes
+    bits = total_symbol_count_bits
+    if buf.size < _HDR_FIXED + 4 * n:
+        return None
+    length = int.from_bytes(buf[0:8].tobytes(), "little")
+    expected_in = int.from_bytes(buf[8:16].tobytes(), "little")
+    if buf.size < expected_in:
+        return None
+    hist = complete_hist(buf[16 : 16 + 512].view("<u2").astype(np.uint16), bits)
+    if hist is None:
+        return None
+    off = _HDR_FIXED
+    states = buf[off : off + 4 * n].view("<u4").astype(_U32)
+    off += 4 * n
+    stream = np.zeros(((buf.size - off) // 2) + 2 * n, dtype=np.uint16)
+    raw_words = buf[off : off + ((buf.size - off) // 2) * 2].view("<u2")
+    stream[: raw_words.size] = raw_words
+    out, _ = _decode_section_16w(states, stream, 0, length, 0, hist, n)
+    return out.tobytes()
+
+
+def _decode_section_16w(
+    states: np.ndarray,
+    stream: np.ndarray,
+    read_pos: int,
+    length: int,
+    start: int,
+    hist: Hist,
+    n: int,
+) -> tuple[np.ndarray, tuple[np.ndarray, int]]:
+    """Decode symbols [start, length): full groups, then the masked tail.
+    Returns (the span's bytes in output order, (states, read pos))."""
+    span = length - start
+    if span <= 0:
+        return np.zeros(0, dtype=np.uint8), (states, read_pos)
+    total = -(-span // n)
+    out_len_in_states = length - n + 1
+    full = 0 if out_len_in_states <= start else -(-(out_len_in_states - start) // n)
+    syms, states, r = decode_full_groups(states, stream, read_pos, hist, n, full)
+    parts = [syms]
+    if total > full:
+        tail, states, r = decode_tail_group(states, stream, r, hist, n, start + full * n, length)
+        parts.append(tail[None, :])
+    out = np.concatenate(parts, axis=0)[:, INV_IDX2IDX[n]].reshape(-1)[:span]
+    return out, (states, r)

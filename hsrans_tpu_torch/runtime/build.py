@@ -37,11 +37,12 @@ NVCC_FLAGS = [
 # kernel name -> successful launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {
     "tpx_decode": 0, "tpx_encode": 0, "tpx_concat": 0, "mt_decode": 0, "mt_annotate": 0, "mt_decode_annotated": 0,
-    "mt_encode": 0, "mt_place": 0, "hist_count": 0, "hist_normalize": 0,
+    "mt_encode": 0, "mt_place": 0, "hist_count": 0, "hist_normalize": 0, "scan_decode": 0, "scan_encode": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # blob, blob bytes, mega descriptors, megas, CTAs, row starts, init states, sym table, fc table, out, bits,
     # cuda stream
@@ -65,6 +66,12 @@ _SIGNATURES = {
     "hsr_hist_count": [_P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P, _P],
     # counts, divisors, rows, bits, freq, cumul, cuda stream
     "hsr_hist_normalize": [_P, _P, _I, _I, _P, _P, _P],
+    # states, stream, stream stride, stream words, read_pos, sym, freq, cumul tables, table stride, table length,
+    # valid counts, symbols, final states, final read_pos, streams, n, bits, steps, tail, cuda stream
+    "hsr_scan_decode": [_P, _P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P],
+    # states, group bytes, valid, freq, cumul tables, table stride, words, emits, final states, streams, n, bits,
+    # emit point, steps, cuda stream
+    "hsr_scan_encode": [_P, _P, _P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _LL, _LL, _P],
 }
 
 _lib = None

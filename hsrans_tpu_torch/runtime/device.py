@@ -57,6 +57,25 @@ def resolve(device: str | torch.device) -> torch.device:
     return dev
 
 
+def resolve_all(device: str | torch.device, devices=None) -> list[torch.device]:
+    """The devices a call splits its batch over: each of `devices`
+    resolved, or `[resolve(device)]` when it is None or empty (the
+    counterpart of a mesh axis; a list may name one device more than
+    once)."""
+    return [resolve(d) for d in devices] if devices else [resolve(device)]
+
+
+def shares(devices: list[torch.device], count: int) -> list[tuple[torch.device, int, int]]:
+    """(device, lo, hi): contiguous shares of `count` rows over the devices,
+    as a batch padded to a multiple of len(devices) and cut into equal
+    parts, ceil(count / len(devices)) rows each, the pad rows dropped.
+    Devices whose share would be empty are left out; with no rows the
+    first device takes the empty share."""
+    size = -(-count // len(devices))
+    out = [(d, i * size, min((i + 1) * size, count)) for i, d in enumerate(devices) if i * size < count]
+    return out or [(devices[0], 0, 0)]
+
+
 @contextmanager
 def layer_clock(acc: dict[str, float] | None, key: str, dev: torch.device):
     """Add the host-clock seconds of the block to `acc[key]`, the device

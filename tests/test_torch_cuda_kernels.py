@@ -82,8 +82,8 @@ def test_kernels_equal_plain(cuda, bits, case):
     blob += data.size.to_bytes(8, "little") + bytes(8)
     for v in (bits, *TPX_GEOMS[case][0][:1], 128, TPX_GEOMS[case][0][1], TPX_GEOMS[case][0][2]):
         blob += v.to_bytes(4, "little")
-    blob = enc._encode_megas(bytes(blob), data, geoms, bits=bits, v3=v3, device=cuda, layers=None)
-    assert blob == enc._encode_megas(blob[:44], data, geoms, bits=bits, v3=v3, device=torch.device("cpu"), layers=None)
+    blob = enc._encode_megas(bytes(blob), data, geoms, bits=bits, v3=v3, devices=[cuda], layers=None)
+    assert blob == enc._encode_megas(blob[:44], data, geoms, bits=bits, v3=v3, devices=[torch.device("cpu")], layers=None)
     if not v3:
         p = TpxParams(bits=bits, rows=geoms[0][1], steps=geoms[0][2], tiles=geoms[0][3])
         assert bytes(blob) == tpx_encode(data, p=p)
@@ -265,8 +265,8 @@ def test_mt_encode_kernels_equal_plain(cuda, bits, n, rule):
     assert torch.equal(mte.emitted_words(got[0], ops[1], got[1]), mte.emitted_words(want[0], ops[1], want[1]))
     pargs, pkw = chip_smoke.place_operands(plan, kinds, ks, bias, got[0], ops[1], *got[1:], ops[2], n, data.size)
     assert chip_smoke.place_check("mt place", pargs, pkw, timed=False)["every_byte_written"]
-    whole = mte.encode_plan(data, plan, bits, n, rule, cuda)
-    assert whole == mte.encode_plan(data, plan, bits, n, rule, torch.device("cpu"))
+    whole = mte.encode_plan(data, plan, bits, n, rule, [cuda])
+    assert whole == mte.encode_plan(data, plan, bits, n, rule, [torch.device("cpu")])
     assert mtd.mt_decode_torch(whole, bits, n, device="cuda") == data.tobytes() == mt_decode_py(whole, bits, n)
 
 
@@ -451,9 +451,9 @@ def test_tpx_device_tables_equal_authority(cuda, bits, case):
         data = text_like(np.random.default_rng(bits), sum(spans) - 5000)
         bases = np.cumsum([0, *spans[:-1]]).tolist()
         geoms = [(b, r, s, n, min(data.size - b, z)) for b, (r, s, n), z in zip(bases, geom, spans)]
-        blob = enc._encode_megas(bytes(44), data, geoms, bits=bits, v3=True, device=cuda, layers=None)
+        blob = enc._encode_megas(bytes(44), data, geoms, bits=bits, v3=True, devices=[cuda], layers=None)
         assert _hist_launches(before) == 1
-        assert blob == enc._encode_megas(bytes(44), data, geoms, bits=bits, v3=True, device=torch.device("cpu"),
+        assert blob == enc._encode_megas(bytes(44), data, geoms, bits=bits, v3=True, devices=[torch.device("cpu")],
                                          layers=None)
         assert _hist_launches(before) == 1
 
@@ -486,3 +486,74 @@ def test_mt_plan_histograms_on_the_card(cuda, given):
     assert _hist_launches(before) == int(given != "all")
     assert blob == mte.mt_encode_torch(data, 12, plan=plan, device="cpu") == mte.mt_encode_torch(data, 12, plan=full, device="cpu")
     assert mtd.mt_decode_torch(blob, 12, 64, device="cuda") == data.tobytes()
+
+
+SCAN_CASES = [(case, n, bits) for case in chip_smoke.SCAN_EDGES if case != "entry tables"
+              for n in (16, 32, 64) for bits in (10, 12, 15)] + [("entry tables", 64, 12)]
+
+
+@pytest.mark.parametrize(("case", "n", "bits"), SCAN_CASES)
+def test_scan_kernels_equal_plain(cuda, case, n, bits):
+    """The scan decode and encode kernels == their plain versions on
+    chip_smoke.SCAN_EDGES, exact: per-stream and shared streams and tables,
+    streams cut short (reads before their start wrap, past their end read
+    0xFFFF), `__graft_entry__.entry`'s random tables."""
+    rows = [chip_smoke.scan_check(kind, args, kw) for kind, args, kw in chip_smoke.scan_edge_operands(case, n, bits, cuda)]
+    assert all(r["max_abs_err"] == 0 for r in rows)
+    if case == "short streams":
+        assert rows[0]["streams_read_past_w"] > 0
+
+
+@pytest.mark.parametrize("n", (16, 32, 64))
+def test_raw_round_trip_equals_authority(cuda, n):
+    """raw_encode_torch on the card == the JAX package's numpy raw wire and
+    the port's CPU tier; raw_decode_torch returns the input, and gives the
+    CPU tier's outcome on a blob cut short with its header patched."""
+    from hsrans_tpu.models.histogram import make_hist
+    from hsrans_tpu.ops.reference import raw_encode_16w
+    from hsrans_tpu_torch import raw_decode_torch, raw_encode_torch
+
+    data = text_like(np.random.default_rng(n), (1 << 18) + 7)
+    hist = make_hist(data, 12)
+    before = dict(build.LAUNCHES)
+    blob = raw_encode_torch(data, hist, n, device="cuda")
+    assert blob == raw_encode_16w(data, hist, n) == raw_encode_torch(data, hist, n, device="cpu")
+    assert raw_decode_torch(blob, 12, n, device="cuda") == data.tobytes()
+    assert build.LAUNCHES["scan_encode"] - before["scan_encode"] == 1
+    short = bytearray(blob[: len(blob) // 2])
+    short[8:16] = len(short).to_bytes(8, "little")
+    assert raw_decode_torch(bytes(short), 12, n, device="cuda") == raw_decode_torch(bytes(short), 12, n, device="cpu")
+
+
+@pytest.mark.parametrize("n", (16, 32, 64))
+def test_mt_device_chain_on_the_card(cuda, n):
+    """mt_encode_device then mt_decode_device on the card, split over one
+    and two devices (the card named twice): the input, the CPU tier's
+    blob, and None for a coded block whose freqs do not sum to 2^B."""
+    from hsrans_tpu_torch.parallel import sharded as psh
+
+    data = text_like(np.random.default_rng(90 + n), 5 * 4096 + 301)
+    plan = psh.uniform_plan(data, 12, n, 4096)
+    blob = psh.mt_encode_device(data, 12, n, plan=plan, device="cuda")
+    assert blob == psh.mt_encode_device(data, 12, n, plan=plan, device="cpu")
+    assert psh.mt_encode_device(data, 12, n, plan=plan, devices=[cuda, cuda]) == blob
+    for devices in ([cuda], [cuda, cuda]):
+        assert psh.mt_decode_device(blob, 12, n, devices=devices) == data.tobytes()
+        assert psh.scan_decode_blob(blob, 12, n, psh.resolve_all("cuda", devices)) == data.tobytes()
+    bad = bytearray(blob)
+    lo = 32 + 4 * n  # the first block's freqs
+    freq = np.frombuffer(bytes(bad[lo : lo + 512]), "<u2").copy()
+    freq[np.argmax(freq)] += 1
+    bad[lo : lo + 512] = freq.astype("<u2").tobytes()
+    assert psh.mt_decode_device(bytes(bad), 12, n, device="cuda") is None
+
+
+def test_tpx_split_on_the_card(cuda):
+    from hsrans_tpu_torch.parallel import tpx_sharded as ptpx
+
+    p = TpxParams(bits=12, rows=8, lanes=128, steps=8, tiles=2)
+    data = text_like(np.random.default_rng(17), 9 * p.mega_bytes + 777)
+    blob = tpx_encode(data, p=p)
+    for devices in ([cuda], [cuda, cuda], [cuda] * 3):
+        assert ptpx.tpx_encode_device(data, p=p, devices=devices) == blob
+        assert ptpx.tpx_decode_device(blob, devices=devices) == data.tobytes()

@@ -363,3 +363,48 @@ def test_tail_is_the_last_blocks_chain():
         tail_from = int(index[-1, 2] + index[-1, 4] * n)
         assert 0 < length - tail_from < n
         assert mt_decode_torch(blob, 12, n, device="cpu") == data.tobytes()
+
+
+def test_corrupted_payload_reads_word_0_past_a_block_as_the_pallas_decoder_does():
+    """A deliberate difference, pinned on its recorded input: a flipped bit
+    sends block 2's chain past its words.  The port reads word 0 there, as
+    `mt64_decode_tpu` does (the kernels' zero-filled windows rely on it, and
+    `mt_decode_device` returns step (a)'s bytes before any host decode);
+    the numpy authority reads on into block 3's header, so the two first
+    differ at byte 12267."""
+    data = text_like(np.random.default_rng(114), 5 * 4096 + 77)
+    blob = bytearray(jmt.mt_encode_py(data, 14, 32, jsh.uniform_plan(data, 14, 32, 4096)))
+    blob[7036] ^= 1 << 2
+    blob = bytes(blob)
+    got = mt_decode_torch(blob, 14, 32, device="cpu")
+    assert got == jdec.mt64_decode_tpu(blob, 14, interpret=True, n=32)
+    oracle = jmt.mt_decode_py(blob, 14, 32)
+    assert pmt.mt_decode_py(blob, 14, 32) == oracle
+    diff = np.nonzero(np.frombuffer(got, np.uint8) != np.frombuffer(oracle, np.uint8))[0]
+    assert diff[0] == 12267
+    assert psh.mt_decode_device(blob, 14, 32, device="cpu") == got
+
+
+@pytest.mark.parametrize("bits", (10, 14))
+@pytest.mark.parametrize("n", (16, 32, 64))
+def test_mt_decode_py_equals_original(bits, n):
+    """The port's copy of the sequential decoder == the JAX package's, on
+    valid blobs and on truncations and flips (None outcomes and errors
+    included)."""
+    rng = np.random.default_rng(bits + n)
+    data = np.concatenate([text_like(rng, 6000), np.full(900, 5, np.uint8), text_like(rng, 1234)])
+    blob = jmt.mt_encode_py(data, bits, n)
+    cases = [blob, blob[:len(blob) // 2], blob[:15]]
+    for pos in rng.integers(0, len(blob), 8).tolist():
+        b = bytearray(blob)
+        b[pos] ^= 0x10
+        cases.append(bytes(b))
+    def outcome(fn, b):  # a corrupted chain can index past the stream: both raise alike
+        try:
+            return fn(b, bits, n)
+        except IndexError as e:
+            return type(e)
+
+    for b in cases:
+        assert outcome(pmt.mt_decode_py, b) == outcome(jmt.mt_decode_py, b)
+    assert pmt.mt_decode_py(blob, bits, n) == data.tobytes()

@@ -18,8 +18,9 @@ PORT = REPO / "hsrans_tpu_torch"
 
 def test_import_and_cpu_round_trip_without_jax():
     """With jax and every module of `hsrans_tpu` unimportable, the port
-    imports and round-trips (tpx plain v2 and adaptive v3, and mt) on the
-    CPU, and its blobs equal the JAX package's encoders."""
+    imports and round-trips (tpx plain v2 and adaptive v3, mt, the raw wire,
+    mt at n=16 and the device splits) on the CPU, and its blobs equal the
+    JAX package's encoders."""
     from hsrans_tpu.ops.mt import mt_encode_py
     from hsrans_tpu.ops.tpx import tpx_encode, tpx_encode_adaptive
     from hsrans_tpu.parallel.sharded import mt_encode_device, uniform_plan
@@ -41,6 +42,16 @@ def test_import_and_cpu_round_trip_without_jax():
         "for blob, n in ((h.mt_encode_torch(data, 12, device='cpu'), 64), (mt_encode_device(data, 12, 32, device='cpu'), 32)):\n"
         "    assert h.mt_decode_torch(blob, 12, n, device='cpu') == data.tobytes()\n"
         "    print(hashlib.sha256(blob).hexdigest())\n"
+        "from hsrans_tpu_torch.models.histogram import Hist, normalize_hist, observe_hist\n"
+        "hist = normalize_hist(observe_hist(data), data.size, 12)\n"
+        "for n in (16, 32, 64):\n"
+        "    raw = h.raw_encode_torch(data, hist, n, device='cpu')\n"
+        "    assert h.raw_decode_torch(raw, 12, n, device='cpu') == data.tobytes()\n"
+        "blob16 = mt_encode_device(data, 12, 16, uniform_block=4096, device='cpu')\n"
+        "from hsrans_tpu_torch.parallel.sharded import mt_decode_device\n"
+        "assert mt_decode_device(blob16, 12, 16, devices=['cpu', 'cpu']) == data.tobytes()\n"
+        "from hsrans_tpu_torch.parallel.tpx_sharded import tpx_decode_device, tpx_encode_device\n"
+        "assert tpx_decode_device(tpx_encode_device(data, devices=['cpu'] * 3), device='cpu') == data.tobytes()\n"
         "assert not any(m.split('.')[0] in ('jax', 'hsrans_tpu') for m, v in sys.modules.items() if v is not None)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
@@ -60,6 +71,8 @@ def test_no_port_source_imports_jax(package):
     package itself is the port)."""
     files = [*PORT.rglob("*.py"), REPO / "chip_smoke.py", REPO / "chip_ab.py"]
     assert len(files) >= 10 and PORT / "models" / "device_hist.py" in files
+    assert {PORT / "kernels" / "scan.py", PORT / "ops" / "raw_scan.py", PORT / "models" / "tables.py",
+            PORT / "parallel" / "tpx_sharded.py"} <= set(files)
     for f in files:
         for line in f.read_text().splitlines():
             words = line.split()
@@ -88,8 +101,9 @@ def test_every_entry_point_is_bound_and_reports_its_launch():
             body = text[at : text.index("\n}", at)]  # to the end of the launching function
             assert "cudaGetLastError()" in body, (src.name, text[at - 80 : at])
     assert entries == set(build._SIGNATURES)
-    assert {"hsr_hist_count", "hsr_hist_normalize"} <= entries  # csrc/hist.cu
-    assert {"mt_annotate", "mt_decode_annotated", "hist_count", "hist_normalize"} <= set(build.LAUNCHES)
+    assert {"hsr_hist_count", "hsr_hist_normalize", "hsr_scan_decode", "hsr_scan_encode"} <= entries
+    assert {"mt_annotate", "mt_decode_annotated", "hist_count", "hist_normalize", "scan_decode",
+            "scan_encode"} <= set(build.LAUNCHES)
 
 
 def test_cuda_sources_stand_alone():
@@ -139,6 +153,23 @@ def test_cuda_without_a_card_raises():
         mt_encode_device(b"abc", 12, 32, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpx_encode_torch(b"abc", device="cuda", device_tables=True)
+    from hsrans_tpu_torch import raw_decode_torch, raw_encode_torch
+    from hsrans_tpu_torch.models.histogram import normalize_hist
+    from hsrans_tpu_torch.parallel.sharded import mt_decode_device
+    from hsrans_tpu_torch.parallel.tpx_sharded import tpx_decode_device, tpx_encode_device
+
+    hist = normalize_hist(np.ones(256, np.uint32), 256, 12)
+    for call in (
+        lambda: raw_encode_torch(b"abc", hist, 16, device="cuda"),
+        lambda: raw_decode_torch(bytes(1000), 12, 16, device="cuda"),
+        lambda: mt_decode_device(bytes(16), 12, 16, device="cuda"),
+        lambda: mt_decode_device(bytes(16), 12, 64, devices=["cpu", "cuda"]),
+        lambda: mt_encode_device(b"abc", 12, 16, device="cuda"),
+        lambda: tpx_encode_device(b"abc", device="cuda"),
+        lambda: tpx_decode_device(b"HSRTPX02", devices=["cuda"]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     with pytest.raises(ValueError):
         resolve("mps")
     assert resolve("cpu") == torch.device("cpu")
@@ -183,6 +214,17 @@ def test_wrappers_refuse_cpu_tensors():
             torch.zeros(32, dtype=torch.int32), torch.zeros((1, 5), dtype=torch.int64),
             torch.zeros((1, 64), dtype=torch.int32), t, bits=12, n=64, length=64,
         )
+    from hsrans_tpu_torch.kernels import scan
+
+    st = torch.zeros((1, 16), dtype=torch.int32)
+    i32 = torch.zeros(1, dtype=torch.int32)
+    tab = torch.zeros(4096, dtype=torch.int16)
+    with pytest.raises(ValueError, match="CUDA"):
+        scan.decode_section_cuda(st, torch.zeros(8, dtype=torch.int16), i32, torch.zeros(4096, dtype=torch.uint8), tab,
+                                 tab, i32, bits=12, num_steps=1, tail=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        scan.encode_section_cuda(st, torch.zeros((1, 1, 16), dtype=torch.uint8), torch.ones((1, 1, 16), dtype=torch.bool),
+                                 tab[:256], tab[:256], bits=12, num_steps=1)
     index = torch.tensor([[0, 1, 64, 64, 64]], dtype=torch.int64)
     freqs = torch.ones((1, 256), dtype=torch.int16)
     with pytest.raises(ValueError, match="CUDA"):

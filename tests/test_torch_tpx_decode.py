@@ -203,7 +203,11 @@ def test_one_call_v3_mixed_geometry_odd_rows(bits):
     assert tpx_decode(blob) == data.tobytes()
     got, desc, length = _one_call(blob)
     assert len(desc) == 3 and got[:length].tobytes() == data.tobytes()
-    assert pe._encode_megas(blob[:44], data, geoms, bits=bits, v3=True, device=torch.device("cpu"), layers=None) == blob
+    assert pe._encode_megas(blob[:44], data, geoms, bits=bits, v3=True, devices=[torch.device("cpu")], layers=None) == blob
+    for k in (2, 3):  # the megas split over k devices: the same bytes each way
+        cpus = [torch.device("cpu")] * k
+        assert pe._encode_megas(blob[:44], data, geoms, bits=bits, v3=True, devices=cpus, layers=None) == blob
+        assert tpx_decode_torch(blob, devices=cpus) == data.tobytes()
 
 
 @pytest.mark.parametrize("bits", (10, 12, 15))

@@ -169,7 +169,7 @@ def test_wire_writer_equals_pallas_concat_and_write_mega(case, bits):
     assert got[len(head) :].tobytes() == _pallas_sections(win, cnt, states, desc, freqs, v3)
     if v3:
         assert (2 * wdesc[:, pt.WIRE_FIELDS.index("sec_off")] % 4 == 2).any()
-    blob = pt._encode_megas(head, data, geoms, bits=bits, v3=v3, device=torch.device("cpu"), layers=None)
+    blob = pt._encode_megas(head, data, geoms, bits=bits, v3=v3, devices=[torch.device("cpu")], layers=None)
     if v3:
         want = bytearray(head)
         for base, rows, steps, n_tiles, valid in geoms:
