@@ -2,7 +2,7 @@
 """Launch A/B of the mt and tpx kernels of several source trees, side by
 side in one process on the same operands.
 
-    python3 chip_ab.py NAME=DIR [NAME=DIR ...] [--mt-decode] [--out FILE]
+    python3 chip_ab.py NAME=DIR [NAME=DIR ...] [--mt-decode | --scan] [--out FILE]
 
 Each DIR holds a copy of the port's package (`DIR/hsrans_tpu_torch/`): this
 checkout (`.`), a parent commit unpacked by `git archive`, or a copy whose
@@ -33,7 +33,11 @@ equal the plain version's.  Each case times every tree's launch alone
 (`chip_smoke.launch_times`: CUDA events over 20 launches queued behind a
 spin) in turns, each tree and then back in reverse order, and prints one
 JSON line with the card's name and power limit; `--out` also appends the
-lines to FILE.  `--mt-decode` runs the decode cases alone.
+lines to FILE.  `--mt-decode` runs the decode cases alone.  `--scan` runs
+the two scan kernels of `csrc/scan.cu` alone (`run_scan`): the n=16 mt
+round trip's calls on 64 MiB of x-ray, step (c) of `mt_decode_device` on the
+64 MiB x-ray blob and the raw wire's single chain on 64 MiB of text at
+n=64 (one launch a turn), at B=12, and the decodes again at B=15.
 
     python3 chip_ab.py NAME=DIR [NAME=DIR ...] --e2e REPS [--out FILE]
 
@@ -481,6 +485,141 @@ def run_hist(libs: dict, dev: torch.device, sink) -> None:
                   **in_turns({t: (lambda t=t: normalize(t)) for t in libs}, 1)})
 
 
+def scan_cases(dev: torch.device) -> list[tuple[str, str, tuple, dict]]:
+    """(name, "decode" | "encode", kernel operands, keywords) of the scan
+    kernels' calls: the n=16 mt round trip on 64 MiB of x-ray in uniform 64
+    KiB blocks (1,024 streams x 4,096 groups, per-stream tables), step (c)
+    of mt_decode_device on the 64 MiB x-ray device_plan blob (2,472 streams,
+    n=64), and the raw wire's single chain on 64 MiB of enwik8-like text at
+    n=64 (seed 8), all at B=12; then the decodes of the n=16 call and the
+    raw chain at B=15 (the largest tables the decode stages in shared
+    memory: 160 KiB a stream)."""
+    from hsrans_tpu_torch import raw_encode_torch
+    from hsrans_tpu_torch.kernels.mt_encode import mt_encode_torch, plan_freqs, plan_rows, scan_operands
+    from hsrans_tpu_torch.models.histogram import normalize_hist, observe_hist
+    from hsrans_tpu_torch.ops.mt import block_index
+    from hsrans_tpu_torch.ops.raw_scan import raw_decode_operands
+    from hsrans_tpu_torch.parallel import sharded as psh
+    from hsrans_tpu_torch.rans import DECODE_CONSUME_POINT_16, IDX2IDX
+    from tools.gen_inputs import text_like
+
+    def mt_decode_case(name: str, blob: bytes, bits: int, n: int) -> tuple:
+        _, stream, blocks = block_index(blob, n)
+        bb = psh.gather_blocks(blocks, bits, n)
+        return (name, "decode", psh.batch_operands(bb, stream, slice(None), dev),
+                {"bits": bits, "num_steps": bb.max_steps, "tail": True})
+
+    xray = np.tile(np.fromfile(REPO / "tests" / "corpus" / "xray.bin", np.uint8), 8)
+    text = text_like(np.random.default_rng(8), 64 * MIB)
+    data_t = torch.from_numpy(xray).to(dev)
+    n = 64
+    total = -(-text.size // n)
+    perm = torch.from_numpy(IDX2IDX[n]).to(dev)
+    padded = torch.zeros(total * n, dtype=torch.uint8, device=dev)
+    padded[: text.size] = torch.from_numpy(text).to(dev)
+    valid = torch.arange(total, device=dev)[:, None] * n + perm[None, :] < text.size
+    cases = []
+    for bits in (12, 15):
+        plan16 = psh.uniform_plan(xray, bits, 16, 64 << 10)
+        mt16 = f"mt n=16 x-ray 64 MiB, 64 KiB blocks, B={bits}"
+        hist = normalize_hist(observe_hist(text), text.size, bits)
+        raw = f"raw x64 64 MiB text, one chain, B={bits}"
+        if bits == 12:
+            _, ks, index, given, freqs, _ = plan_rows(xray, plan16, bits, 16, "section")
+            freqs_t = plan_freqs(data_t, ks, index, given, freqs, bits, 16)
+            *eops, esteps = scan_operands(data_t, torch.from_numpy(index).to(dev), freqs_t, 16)
+            cases.append((mt16, "encode", tuple(eops), {"bits": bits, "num_steps": esteps}))
+        cases.append(mt_decode_case(mt16, psh.mt_encode_device(xray, bits, 16, plan=plan16, device=dev), bits, 16))
+        if bits == 12:
+            main = mt_encode_torch(xray, bits, plan=psh.device_plan(xray, bits, 64, MT_CAPS[bits]), device=dev)
+            cases.append(mt_decode_case(f"step (c), x-ray 64 MiB device_plan 24 KiB, B={bits}", main, bits, 64))
+            cases.append((raw, "encode",
+                          (torch.full((1, n), DECODE_CONSUME_POINT_16, dtype=torch.int32, device=dev),
+                           padded.view(total, n)[:, perm][None].contiguous(), valid[None].contiguous(),
+                           torch.from_numpy(hist.symbol_count.astype(np.uint16).view(np.int16)).to(dev),
+                           torch.from_numpy(hist.cumul.astype(np.uint16).view(np.int16)).to(dev)),
+                          {"bits": bits, "num_steps": total}))
+        blob = raw_encode_torch(text, hist, n, device=dev)
+        cases.append((raw, "decode", raw_decode_operands(blob, bits, n, dev)[1],
+                      {"bits": bits, "num_steps": total, "tail": True, "input": text}))
+    return cases
+
+
+def run_scan(libs: dict, dev: torch.device, sink) -> None:
+    """Each tree's scan decode and encode launch alone, in turns, on
+    scan_cases' operands: the mt calls by launch_times (20 launches queued
+    ahead, each tree then back), the raw chain one launch a turn.  Every
+    tree's outputs equal the plain version's (mt calls), or the first
+    tree's, and the raw decode the input (the raw chain, a million steps
+    of the plain version's Python loop).  A tree whose encode takes the magic table (16 arguments)
+    gets this checkout's."""
+    from hsrans_tpu_torch.kernels import scan
+    from hsrans_tpu_torch.rans import INV_IDX2IDX
+
+    cs = torch.cuda.current_stream(dev).cuda_stream
+    magic = scan.magic_tensor(dev)
+    for name, kind, args, kw in scan_cases(dev):
+        kw = dict(kw)
+        want_input = kw.pop("input", None)
+        nb, n = args[0].shape
+        steps = kw["num_steps"]
+        if kind == "decode":
+            (sym, freq, cum), tab_stride = scan._shared_or_rows("chip_ab", args[3:6], nb)
+            states, stream, read_pos, valid = args[0], args[1], args[2], args[6]
+            w = stream.shape[-1]
+            outs = {k: (torch.empty((nb, steps, n), dtype=torch.uint8, device=dev),
+                        torch.empty((nb, n), dtype=torch.int32, device=dev),
+                        torch.empty(nb, dtype=torch.int32, device=dev)) for k in libs}
+
+            def launch(k: str) -> None:
+                checked(k, libs[k].hsr_scan_decode(
+                    states.data_ptr(), stream.data_ptr(), w if stream.dim() == 2 else 0, w, read_pos.data_ptr(),
+                    sym.data_ptr(), freq.data_ptr(), cum.data_ptr(), tab_stride, sym.shape[-1], valid.data_ptr(),
+                    *(t.data_ptr() for t in outs[k]), nb, n, kw["bits"], steps, int(kw["tail"]), cs))
+        else:
+            (freq, cum), tab_stride = scan._shared_or_rows("chip_ab", args[3:5], nb)
+            states, gb, valid = args[0], args[1], args[2]
+            outs = {k: (torch.empty((nb, steps, n), dtype=torch.int16, device=dev),
+                        torch.empty((nb, steps, n), dtype=torch.bool, device=dev),
+                        torch.empty((nb, n), dtype=torch.int32, device=dev)) for k in libs}
+
+            def launch(k: str) -> None:
+                extra = (magic.data_ptr(),) if len(libs[k].hsr_scan_encode.argtypes) == 16 else ()
+                checked(k, libs[k].hsr_scan_encode(
+                    states.data_ptr(), gb.data_ptr(), valid.data_ptr(), freq.data_ptr(), cum.data_ptr(), tab_stride,
+                    *(t.data_ptr() for t in outs[k]), nb, n, kw["bits"], scan.encode_emit_point_16(kw["bits"]) & 0xFFFFFFFF,
+                    steps, *extra, cs))
+
+        for k in libs:
+            launch(k)
+        torch.cuda.synchronize()
+        first = next(iter(libs))
+        chain = nb == 1  # the raw wire's single chain
+        if not chain:
+            plain = scan.decode_section_plain if kind == "decode" else scan.encode_section_plain
+            want = plain(*args, **kw)
+        else:
+            want = outs[first]
+            if want_input is not None:
+                got = want[0][0][:, torch.from_numpy(INV_IDX2IDX[n]).to(dev)].reshape(-1)[: want_input.size]
+                if not torch.equal(got, torch.from_numpy(want_input).to(dev)):
+                    raise AssertionError(f"{first} {name}: the raw decode does not return the input")
+        for k in libs:
+            if chip_smoke.max_abs_err(outs[k], want):
+                raise AssertionError(f"{k} scan {kind}, {name}: differs from the plain version or the first tree")
+        row = {"kernel": f"scan_{kind}", "case": name, "streams": nb, "lanes": n, "steps": steps,
+               "tab_stride": tab_stride}
+        if not chain:
+            sink({**row, **in_turns({k: (lambda k=k: launch(k)) for k in libs}, steps)})
+        else:  # one chain of seconds: one launch a turn
+            turns = {k: [] for k in libs}
+            for k in [*libs, *reversed(libs)]:
+                turns[k].append(chip_smoke.once_ms(lambda: launch(k)))
+            ms = {k: statistics.mean(t) for k, t in turns.items()}
+            sink({**row, "max_groups": steps, "launch_ms": ms, "turns": turns,
+                  "link_us": {k: t * 1e3 / steps for k, t in ms.items()}})
+
+
 def hist_wrappers(dev: torch.device) -> dict:
     """This process's tree's histogram wrappers on hist_cases' operands, by
     CUDA events over 20 calls, queued ahead (`ms`: a burst of calls in
@@ -561,6 +700,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--out", type=Path, help="a file to which the JSON lines are appended")
     ap.add_argument("--e2e", type=int, metavar="REPS", help="time the entry points end to end, REPS calls each")
     ap.add_argument("--mt-decode", action="store_true", help="time the mt decode kernels only (both routes)")
+    ap.add_argument("--scan", action="store_true", help="time the scan kernels only (csrc/scan.cu)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -590,6 +730,9 @@ def main(argv: list[str] | None = None) -> int:
         sink({"phase": "build", "trees": trees, "libraries": {k: str(b.library_path()) for k, b in builds.items()}})
         if args.mt_decode:
             run_mt_decode(libs, torch.device("cuda", 0), sink)
+            return 0
+        if args.scan:
+            run_scan(libs, torch.device("cuda", 0), sink)
             return 0
         run_tpx(libs, torch.device("cuda", 0), sink)
         run(libs, torch.device("cuda", 0), sink)

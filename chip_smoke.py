@@ -42,7 +42,10 @@ the port's two paths through their public entry points:
     `decode_section` and `encode_section`): both kernels against their plain
     versions (`SCAN_EDGES`: per-stream and shared streams and tables,
     streams cut short so that reads run past their end, `__graft_entry__.entry`'s
-    random tables; n = 16, 32, 64 at B = 10, 12, 15), the raw wire's round
+    random tables, tables cut short and of 2^16 slots, streams whose reads
+    run into the ring's refills past their end, encode divisors over all of
+    u16 and states over all of u32; n = 16, 32, 64 at B = 10, 12, 15 and
+    more), the raw wire's round
     trip on 64 MiB of enwik8-like text at n = 64, 32 and 16 (one chain
     each), `mt_decode_device`'s chain on the 64 MiB x-ray blob (step (a),
     then the batched scan decode of step (c) alone), the n=16 mt round trip
@@ -159,7 +162,8 @@ def int32_ops_per_s() -> float:
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields, "card": CARD}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "elapsed_s": time.perf_counter() - START, "card": CARD}), flush=True)
 
 
 def cuda_ms(fn, reps: int, queue_ahead: bool = False) -> float:
@@ -1476,36 +1480,123 @@ def hist_kernels_vs_plain(data: np.ndarray, dev: torch.device) -> tuple[list[dic
     return rows, edges, library_ms
 
 
-# the cases that hold the two scan kernels against their plain versions
+# The scan kernels' edge cases, each exact against its plain version
 # (tests/test_torch_cuda_kernels.py runs them too): every stream its own
 # stream and tables, one stream and one table set shared by all, streams cut
 # short (reads from before their start, which wrap, and past their end,
-# which read 0xFFFF), and `__graft_entry__.entry`'s shapes and tables (freq
-# 1, cumul 0: no rANS tables, so the state arithmetic wraps)
-SCAN_EDGES = ("per-stream", "shared", "short streams", "entry tables")
+# which read 0xFFFF), `__graft_entry__.entry`'s shapes and tables (freq 1,
+# cumul 0: no rANS tables, so the state arithmetic wraps); and the decode's
+# shared-memory tables and stream ring at their edges: tables shorter than
+# 2^B slots by a length off the 16-byte grid (the staged slots past them
+# read 255 / 0xFFFF), tables of 2^16 slots (above the shared-memory
+# constant: the L1 route), streams of a few hundred words on rows at every
+# 16-byte phase whose reads run into the ring's refills past W; and the
+# encode's division at its edges (freqs up to 0xFFFF and 0, states over all
+# of u32).
+SCAN_EDGES = ("per-stream", "shared", "short streams", "entry tables", "short tables", "wide tables",
+              "wide divisors", "refills past W")
 SCAN_STEPS = 256  # groups of each case: the plain versions take ~0.1 s a case on the card
+SCAN_RING_HALF = 512  # csrc/scan.cu's kRingHalf: the ring's first refill starts 1,024 words in
+
+
+def scan_case_shapes(case: str) -> list[tuple[int, int]]:
+    """The (n, bits) pairs at which a SCAN_EDGES case runs."""
+    if case == "entry tables":
+        return [(64, 12)]
+    if case == "wide tables":
+        return [(n, 16) for n in (16, 32, 64)]
+    if case == "refills past W":
+        return [(n, 12) for n in (16, 32, 64)]
+    if case == "wide divisors":
+        return [(n, b) for n in (16, 32, 64) for b in (10, 15, 31)]
+    return [(n, b) for n in (16, 32, 64) for b in (10, 12, 15)]
 
 
 def scan_edge_operands(case: str, n: int, bits: int, dev: torch.device) -> list[tuple[str, tuple, dict]]:
-    """[("decode" | "encode", operands, keywords)] of one SCAN_EDGES case on
-    `dev` (n and bits ignored for "entry tables": B=8, n=64, bits=12, 32
-    steps), made with numpy from a seed: random states, the stream words
-    and tail counts, tables of real histograms of enwik8-like text."""
+    """[("decode" | "encode", operands, keywords)] of one SCAN_EDGES case at
+    one of its scan_case_shapes on `dev` ("entry tables": B=8, n=64,
+    bits=12, 32 steps), made with numpy from a seed: random states, the
+    stream words and tail counts, tables of real histograms of enwik8-like
+    text (random tables at 2^16 slots).  The first four cases give one
+    decode and one encode; "short tables", "wide tables" and "refills past
+    W" two decodes (per-stream and shared rows), "wide divisors" two encodes
+    (per-stream and shared tables)."""
     from hsrans_tpu_torch.models.histogram import complete_hist, normalize_hist, observe_hist
     from hsrans_tpu_torch.models.tables import make_dec3
     from tools.gen_inputs import text_like
 
     rng = np.random.default_rng(SCAN_EDGES.index(case) * 1000 + n * 16 + bits)
     nb, steps, w = 64, SCAN_STEPS, SCAN_STEPS * n
+
+    def t(a, dtype=None):
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        return (x.view(dtype) if dtype is not None else x).to(dev)
+
+    def text_freqs(rows: int, b: int) -> list[np.ndarray]:
+        out = []
+        for _ in range(rows):
+            src = text_like(rng, int(rng.integers(2000, 40000)))
+            out.append(normalize_hist(observe_hist(src), src.size, b).symbol_count)
+        return out
+
+    def dec_tables(freqs: list[np.ndarray], b: int) -> tuple[np.ndarray, ...]:
+        tabs = [make_dec3(complete_hist(f, b)) for f in freqs]
+        return tuple(np.stack([tab[k] for tab in tabs]).astype(dt)
+                     for k, dt in (("sym", np.uint8), ("freq", np.uint16), ("cumul", np.uint16)))
+
+    def dec(states, stream, read_pos, sym, tfreq, tcum, valid, tail=True):
+        return ("decode", (t(states, torch.int32), t(stream, torch.int16), t(read_pos), t(sym), t(tfreq, torch.int16),
+                           t(tcum, torch.int16), t(valid)), {"bits": bits, "num_steps": steps, "tail": tail})
+
+    def enc(states, group_bytes, evalid, efreq, ecum):
+        return ("encode", (t(states, torch.int32), t(group_bytes), t(evalid), t(efreq.astype(np.uint16), torch.int16),
+                           t(ecum.astype(np.uint16), torch.int16)), {"bits": bits, "num_steps": steps})
+
+    def tails(k: int) -> np.ndarray:
+        return rng.integers(0, steps * n + 2, k).astype(np.int32)
+
+    if case in ("short tables", "refills past W"):
+        sym, tfreq, tcum = dec_tables(text_freqs(nb, bits), bits)
+        states = rng.integers(1 << 15, 1 << 31, (nb, n), dtype=np.uint32)
+        if case == "short tables":  # lengths off the 16-byte grid, per-stream and shared
+            cut, cut1 = (5 << bits) // 8 + 3, (1 << bits) - 7
+            stream = rng.integers(0, 1 << 16, (nb, w), dtype=np.uint32).astype(np.uint16)
+            read_pos = np.zeros(nb, np.int32)
+            return [dec(states, stream, read_pos, sym[:, :cut], tfreq[:, :cut], tcum[:, :cut], tails(nb)),
+                    dec(states, stream[0], read_pos, sym[0, :cut1], tfreq[0, :cut1], tcum[0, :cut1], tails(nb))]
+        # a stream of an odd number of words under the ring's first refill
+        w = SCAN_RING_HALF + 89 + 2 * n
+        stream = rng.integers(0, 1 << 16, (nb, w), dtype=np.uint32).astype(np.uint16)
+        read_pos = rng.integers(0, w, nb).astype(np.int32)
+        read_pos[:4] = (0, 1, w - 1, w)
+        return [dec(states, stream, read_pos, sym, tfreq, tcum, tails(nb)),
+                dec(states, stream[0], read_pos, sym[0], tfreq[0], tcum[0], tails(nb), tail=False)]
+    if case == "wide tables":  # 2^16 random slots: the L1 route, per-stream and shared (cut short)
+        nb = 16
+        states = rng.integers(0, 1 << 32, (nb, n), dtype=np.uint64).astype(np.uint32)
+        stream = rng.integers(0, 1 << 16, (nb, w), dtype=np.uint32).astype(np.uint16)
+        sym = rng.integers(0, 256, (nb, 1 << bits), dtype=np.int64).astype(np.uint8)
+        tfreq, tcum = (rng.integers(0, 1 << 16, (nb, 1 << bits), dtype=np.uint32).astype(np.uint16) for _ in range(2))
+        read_pos = np.zeros(nb, np.int32)
+        cut = (1 << bits) - 5
+        return [dec(states, stream, read_pos, sym, tfreq, tcum, tails(nb)),
+                dec(states, stream[0], read_pos, sym[0, :cut], tfreq[0, :cut], tcum[0, :cut], tails(nb))]
+    if case == "wide divisors":  # freqs over all of u16 and 0, states over all of u32
+        edges = np.array([0, 1, 2, 3, 255, 0x7FFF, 0x8000, 0x8001, 0xFFFE, 0xFFFF], np.uint32)
+        efreq = rng.integers(0, 1 << 16, (nb, 256), dtype=np.uint32)
+        efreq[:, : edges.size] = edges
+        efreq = np.take_along_axis(efreq, rng.permuted(np.tile(np.arange(256), (nb, 1)), axis=1), axis=1)
+        ecum = rng.integers(0, 1 << 16, (nb, 256), dtype=np.uint32)
+        states = rng.integers(0, 1 << 32, (nb, n), dtype=np.uint64).astype(np.uint32)
+        states[:, :4] = (0, (1 << 31) - 1, 1 << 31, (1 << 32) - 1)
+        group_bytes = rng.integers(0, 256, (nb, steps, n), dtype=np.int64).astype(np.uint8)
+        evalid = rng.random((nb, steps, n)) < 0.9
+        return [enc(states, group_bytes, evalid, efreq, ecum), enc(states, group_bytes, evalid, efreq[1], ecum[1])]
+
     if case == "entry tables":
         nb, n, bits, steps, w = 8, 64, 12, 32, 4096
-    freqs = []
-    for _ in range(nb):
-        src = text_like(rng, int(rng.integers(2000, 40000)))
-        freqs.append(normalize_hist(observe_hist(src), src.size, bits).symbol_count)
-    tabs = [make_dec3(complete_hist(f, bits)) for f in freqs]
-    sym, tfreq, tcum = (np.stack([t[k] for t in tabs]).astype(dt)
-                        for k, dt in (("sym", np.uint8), ("freq", np.uint16), ("cumul", np.uint16)))
+    freqs = text_freqs(nb, bits)
+    sym, tfreq, tcum = dec_tables(freqs, bits)
     if case == "entry tables":
         sym = rng.integers(0, 256, (nb, 1 << bits), dtype=np.int64).astype(np.uint8)
         tfreq, tcum = np.ones((nb, 1 << bits), np.uint16), np.zeros((nb, 1 << bits), np.uint16)
@@ -1519,22 +1610,13 @@ def scan_edge_operands(case: str, n: int, bits: int, dev: torch.device) -> list[
         read_pos = rng.integers(-w - 2, w, nb).astype(np.int32)
     if case == "shared":
         stream, sym, tfreq, tcum = stream[0], sym[0], tfreq[0], tcum[0]
-
-    def t(a, dtype=None):
-        x = torch.from_numpy(np.ascontiguousarray(a))
-        return (x.view(dtype) if dtype is not None else x).to(dev)
-
-    dec = (t(states, torch.int32), t(stream, torch.int16), t(read_pos), t(sym), t(tfreq, torch.int16),
-           t(tcum, torch.int16), t(valid))
     efreq = np.stack(freqs) if case != "shared" else freqs[0]
     ecum = (np.cumsum(efreq, axis=-1, dtype=np.uint64) - efreq).astype(np.uint16)
     group_bytes = text_like(rng, nb * steps * n).reshape(nb, steps, n)
     evalid = np.arange(steps * n).reshape(steps, n)[None] < rng.integers(0, steps * n + 1, nb)[:, None, None]
-    enc = (t(states, torch.int32), t(group_bytes), t(evalid), t(efreq.astype(np.uint16), torch.int16),
-           t(ecum, torch.int16))
     # tail off in one decode case a depth; on, every lane's count is checked at every step
-    return [("decode", dec, {"bits": bits, "num_steps": steps, "tail": not (case == "per-stream" and bits == 12)}),
-            ("encode", enc, {"bits": bits, "num_steps": steps})]
+    return [dec(states, stream, read_pos, sym, tfreq, tcum, valid, tail=not (case == "per-stream" and bits == 12)),
+            enc(states, group_bytes, evalid, efreq, ecum)]
 
 
 def scan_check(kind: str, args: tuple, kw: dict) -> dict:
@@ -1648,14 +1730,15 @@ def scan_phases(repo: Path, dev: torch.device, ctx: dict, tpx_data: np.ndarray, 
     # 1. each kernel against its plain version on SCAN_EDGES
     cases = []
     for case in SCAN_EDGES:
-        for n, bits in ([(64, 12)] if case == "entry tables" else [(n, b) for n in (16, 32, 64) for b in (10, 12, 15)]):
+        for n, bits in scan_case_shapes(case):
             for kind, args, kw in scan_edge_operands(case, n, bits, dev):
                 cases.append({"case": case, "kind": kind, "n": n, "bits": bits, **scan_check(kind, args, kw)})
-    past = sum(c.get("streams_read_past_w", 0) for c in cases if c["case"] == "short streams")
-    if not past:
-        raise AssertionError("scan decode: no short stream read past its end")
+    past = {c: sum(r.get("streams_read_past_w", 0) for r in cases if r["case"] == c)
+            for c in ("short streams", "refills past W")}
+    if not all(past.values()):
+        raise AssertionError(f"scan decode: streams read past their end {past}, some in each case expected")
     emit("scan_kernels_vs_plain", cases=len(cases), max_abs_err=max(c["max_abs_err"] for c in cases),
-         short_streams_read_past_w=past)
+         streams_read_past_w=past, by_case={c: sum(r["case"] == c for r in cases) for c in SCAN_EDGES})
 
     # 2. the raw wire: 64 MiB of enwik8-like text (seed 8) at B=12 and n = 64,
     #    32, 16, each one stream: a single chain of ceil(length / n) links.
@@ -2024,6 +2107,7 @@ def main() -> int:
     return 0
 
 
+START = time.perf_counter()
 CARD = ""
 OPS_PER_S = 0.0  # int32_ops_per_s() of the card, set by main
 

@@ -8,11 +8,16 @@ the JAX shapes onto it): u32 values travel as int32 storage of their bits,
 u16 values as int16, bools as bool.  Both kernels keep XLA's contract bit for
 bit, out-of-range gathers included (`csrc/scan.cu` lists it): a stream index
 at or past W reads 0xFFFF, one in [-W, 0) wraps, a table slot past the
-table's length reads 255 or 0xFFFF.
+table's length reads 255 or 0xFFFF.  The encode kernel divides by a magic
+from `magic_table` (built here once a device), exact for every u32 state
+and every u16 freq.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX, encode_emit_point_16
@@ -21,6 +26,42 @@ from .tpx_decode import from_u32, to_u32
 
 _M32 = 0xFFFFFFFF
 LANES = (16, 32, 64)
+MAGIC_SIZE = 1 << 16  # the encode's divisors: every u16 freq (d = max(freq, 1))
+
+
+def magic_shift(d: np.ndarray) -> np.ndarray:
+    """l = ceil(log2 d) of int64 d >= 1 (0 at d = 1): the bit length of
+    d - 1, which the encode kernel takes as 32 - __clz(d - 1)."""
+    d = np.asarray(d, dtype=np.int64)
+    l = np.zeros_like(d)
+    for k in range(32):
+        l += (d - 1) >> k > 0
+    return l
+
+
+def magic_table() -> np.ndarray:
+    """uint32 [MAGIC_SIZE]: at d the encode's magic of max(d, 1),
+    m = floor(2^(32 + l) / d) + 1 - 2^32 with l = magic_shift(d), so that
+    magic_quotient(x, d) == x // d for every u32 x and every d in
+    [1, 2^16) (Granlund-Montgomery's 33-bit multiplier 2^32 + m)."""
+    d = np.maximum(np.arange(MAGIC_SIZE, dtype=np.int64), 1)
+    return ((np.int64(1) << (32 + magic_shift(d))) // d + 1 - (np.int64(1) << 32)).astype(np.uint32)
+
+
+def magic_quotient(x: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """The encode kernel's division written out in numpy uint64: x // d as
+    (x + umulhi(m, x)) >> l, m and l from magic_table and magic_shift, the
+    sum in 64 bits."""
+    x = np.asarray(x, dtype=np.uint64)
+    m = magic_table()[d].astype(np.uint64)
+    l = magic_shift(d).astype(np.uint64)
+    return (x + ((m * x) >> np.uint64(32))) >> l
+
+
+@functools.cache
+def magic_tensor(dev: torch.device) -> torch.Tensor:
+    """magic_table() as int32 (u32 bits) on `dev`, made once per device."""
+    return torch.from_numpy(magic_table().view(np.int32)).to(dev)
 
 
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -211,7 +252,7 @@ def launch_encode(states, group_bytes, valid, freq_tab, cumul_tab, tab_stride: i
         "scan_encode", "hsr_scan_encode", states.device,
         states.data_ptr(), group_bytes.data_ptr(), valid.data_ptr(), freq_tab.data_ptr(), cumul_tab.data_ptr(),
         tab_stride, words.data_ptr(), emits.data_ptr(), fin.data_ptr(), nb, n, bits,
-        encode_emit_point_16(bits) & _M32, num_steps,
+        encode_emit_point_16(bits) & _M32, num_steps, magic_tensor(states.device).data_ptr(),
     )
 
 

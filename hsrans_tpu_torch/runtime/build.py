@@ -70,8 +70,8 @@ _SIGNATURES = {
     # valid counts, symbols, final states, final read_pos, streams, n, bits, steps, tail, cuda stream
     "hsr_scan_decode": [_P, _P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P],
     # states, group bytes, valid, freq, cumul tables, table stride, words, emits, final states, streams, n, bits,
-    # emit point, steps, cuda stream
-    "hsr_scan_encode": [_P, _P, _P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _LL, _LL, _P],
+    # emit point, steps, magic table, cuda stream
+    "hsr_scan_encode": [_P, _P, _P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _LL, _LL, _P, _P],
 }
 
 _lib = None

@@ -488,8 +488,7 @@ def test_mt_plan_histograms_on_the_card(cuda, given):
     assert mtd.mt_decode_torch(blob, 12, 64, device="cuda") == data.tobytes()
 
 
-SCAN_CASES = [(case, n, bits) for case in chip_smoke.SCAN_EDGES if case != "entry tables"
-              for n in (16, 32, 64) for bits in (10, 12, 15)] + [("entry tables", 64, 12)]
+SCAN_CASES = [(case, n, bits) for case in chip_smoke.SCAN_EDGES for n, bits in chip_smoke.scan_case_shapes(case)]
 
 
 @pytest.mark.parametrize(("case", "n", "bits"), SCAN_CASES)
@@ -497,10 +496,13 @@ def test_scan_kernels_equal_plain(cuda, case, n, bits):
     """The scan decode and encode kernels == their plain versions on
     chip_smoke.SCAN_EDGES, exact: per-stream and shared streams and tables,
     streams cut short (reads before their start wrap, past their end read
-    0xFFFF), `__graft_entry__.entry`'s random tables."""
+    0xFFFF), `__graft_entry__.entry`'s random tables, tables cut short of
+    2^B slots (shared memory) and of 2^16 slots (the L1 route), reads that
+    run into the stream ring's refills past W, encode divisors over all of
+    u16 and states over all of u32."""
     rows = [chip_smoke.scan_check(kind, args, kw) for kind, args, kw in chip_smoke.scan_edge_operands(case, n, bits, cuda)]
     assert all(r["max_abs_err"] == 0 for r in rows)
-    if case == "short streams":
+    if case in ("short streams", "refills past W"):
         assert rows[0]["streams_read_past_w"] > 0
 
 

@@ -138,6 +138,111 @@ def test_encode_section_shared_and_unbatched(n):
     _same(raw_jax.encode_section(*one, **kw), raw_scan.encode_section(*one, **kw))
 
 
+@pytest.mark.parametrize("bits", DEPTHS)
+@pytest.mark.parametrize("n", LANES)
+def test_decode_section_short_tables(n, bits):
+    """Tables shorter than 2^bits slots by a length off the 16-byte grid,
+    per-stream and shared: a slot at or past the length reads 255 and
+    0xFFFF (the slots the kernel stages in shared memory past the table)."""
+    states, stream, read_pos, sym, freq, cumul, valid = _decode_operands(np.random.default_rng(500 + n + bits), 4, n,
+                                                                         bits, 300)
+    states[:2] = np.random.default_rng(bits).integers(1 << 15, 1 << 31, (2, n), dtype=np.uint32)
+    kw = dict(bits=bits, num_steps=STEPS, tail=True)
+    cut, cut1 = (5 << bits) // 8 + 3, (1 << bits) - 7
+    rows = (states, stream, read_pos, sym[:, :cut], freq[:, :cut], cumul[:, :cut], valid)
+    _same(raw_jax.decode_section(*rows, **kw), raw_scan.decode_section(*rows, **kw))
+    shared = (states, stream[0], read_pos, sym[1, :cut1], freq[1, :cut1], cumul[1, :cut1], valid)
+    _same(raw_jax.decode_section(*shared, **kw), raw_scan.decode_section(*shared, **kw))
+
+
+@pytest.mark.parametrize("n", LANES)
+def test_decode_section_wide_tables(n):
+    """Tables of 2^16 random slots (above the kernel's shared-memory
+    constant: its L1 route), per-stream and shared and cut short, states
+    over all of u32."""
+    rng = np.random.default_rng(600 + n)
+    nb, bits = 3, 16
+    states = rng.integers(0, 1 << 32, (nb, n), dtype=np.uint64).astype(np.uint32)
+    stream = rng.integers(0, 1 << 16, (nb, 200), dtype=np.uint32).astype(np.uint16)
+    read_pos = rng.integers(-50, 150, nb).astype(np.int32)
+    sym = rng.integers(0, 256, (nb, 1 << bits)).astype(np.uint8)
+    freq, cumul = (rng.integers(0, 1 << 16, (nb, 1 << bits)).astype(np.uint16) for _ in range(2))
+    valid = rng.integers(0, STEPS * n + 2, nb).astype(np.int32)
+    kw = dict(bits=bits, num_steps=STEPS, tail=True)
+    rows = (states, stream, read_pos, sym, freq, cumul, valid)
+    _same(raw_jax.decode_section(*rows, **kw), raw_scan.decode_section(*rows, **kw))
+    shared = (states, stream, read_pos, sym[0, :-5], freq[0, :-5], cumul[0, :-5], valid)
+    _same(raw_jax.decode_section(*shared, **kw), raw_scan.decode_section(*shared, **kw))
+
+
+@pytest.mark.parametrize("bits", (10, 15, 31))
+@pytest.mark.parametrize("n", LANES)
+def test_encode_section_wide_divisors(n, bits):
+    """Freqs over all of u16 and 0 (max(freq, 1)), cumuls over all of u16,
+    states over all of u32 (2^31 - 1, 2^31 and 2^32 - 1 among them): the
+    divisions the kernel's magic must take exactly, per-stream and shared."""
+    rng = np.random.default_rng(700 + n + bits)
+    nb, steps = 3, 20
+    states = rng.integers(0, 1 << 32, (nb, n), dtype=np.uint64).astype(np.uint32)
+    states[:, :4] = (0, (1 << 31) - 1, 1 << 31, (1 << 32) - 1)
+    group_bytes = rng.integers(0, 256, (nb, steps, n)).astype(np.uint8)
+    valid = rng.random((nb, steps, n)) < 0.9
+    freq = rng.integers(0, 1 << 16, (nb, 256)).astype(np.uint16)
+    freq[:, :10] = (0, 1, 2, 3, 255, 0x7FFF, 0x8000, 0x8001, 0xFFFE, 0xFFFF)
+    group_bytes[:, :, :10] = np.arange(10, dtype=np.uint8)  # every edge freq coded
+    cumul = rng.integers(0, 1 << 16, (nb, 256)).astype(np.uint16)
+    kw = dict(bits=bits, num_steps=steps)
+    rows = (states, group_bytes, valid, freq, cumul)
+    _same(raw_jax.encode_section(*rows, **kw), raw_scan.encode_section(*rows, **kw))
+    shared = (states, group_bytes, valid, freq[2], cumul[2])
+    _same(raw_jax.encode_section(*shared, **kw), raw_scan.encode_section(*shared, **kw))
+
+
+def _magic_edges(d: np.ndarray) -> np.ndarray:
+    """uint64 [d.size, 15]: for each d the edge values of a u32 dividend: 0,
+    d - 1, d, d + 1, the largest multiple of d in u32 and its neighbours, the
+    multiple nearest 2^31 and its neighbours, 2^31 - 1, 2^31, 2^31 + 1 and
+    2^32 - 1."""
+    d = d.astype(np.uint64)[:, None]
+    top = (np.uint64((1 << 32) - 1) // d) * d
+    mid = (np.uint64(1 << 31) // d) * d
+    one = np.uint64(1)
+    cols = [np.zeros_like(d), d - one, d, d + one, top - one, top, top + one, mid - one, mid, mid + one,
+            np.full_like(d, (1 << 31) - 1), np.full_like(d, 1 << 31), np.full_like(d, (1 << 31) + 1),
+            np.full_like(d, (1 << 32) - 1), np.full_like(d, (1 << 32) - 2)]
+    x = np.concatenate(cols, axis=1)
+    return np.minimum(x, np.uint64((1 << 32) - 1))  # top + 1 may pass 2^32 - 1
+
+
+def test_magic_table_exact_at_edges():
+    """The encode's magic table (kernels/scan.py::magic_table), with the
+    kernel's arithmetic (x + umulhi(m, x)) >> l written out in numpy
+    uint64, equals x // d for every d in 1..65535 at every edge value of
+    a u32 dividend; d = 0 takes d = 1's magic (the kernel divides by
+    max(freq, 1))."""
+    d = np.arange(1, 1 << 16)
+    x = _magic_edges(d)
+    assert np.array_equal(scan.magic_quotient(x, d[:, None]), x // d[:, None].astype(np.uint64))
+    table = scan.magic_table()
+    assert table.dtype == np.uint32 and table.shape == (1 << 16,) and table[0] == table[1]
+    assert np.array_equal(scan.magic_shift(d), np.array([(int(v) - 1).bit_length() for v in d]))
+
+
+def test_magic_table_exact_on_random_dividends():
+    """As above on a seeded random sample: 64 u32 dividends for every d in
+    1..65535, and every d at 4,096 dividends spread over all of u32."""
+    rng = np.random.default_rng(2024)
+    d = np.arange(1, 1 << 16)
+    x = rng.integers(0, 1 << 32, (d.size, 64), dtype=np.uint64)
+    assert np.array_equal(scan.magic_quotient(x, d[:, None]), x // d[:, None].astype(np.uint64))
+    for lo in range(1, 1 << 16, 8192):
+        dd = np.arange(lo, min(lo + 8192, 1 << 16))
+        xs = np.linspace(0, (1 << 32) - 1, 4096, dtype=np.uint64)[None] + rng.integers(0, 2, (dd.size, 1),
+                                                                                     dtype=np.uint64)
+        xs = np.minimum(xs, np.uint64((1 << 32) - 1))
+        assert np.array_equal(scan.magic_quotient(xs, dd[:, None]), xs // dd[:, None].astype(np.uint64))
+
+
 def test_plain_versions_take_torch_tensors():
     """The kernel-level plain versions on torch tensors (u32 as int32 bits)
     equal the tensor API on numpy arrays."""
