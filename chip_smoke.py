@@ -52,6 +52,14 @@ the port's two paths through their public entry points:
     on 64 MiB of x-ray (both scan kernels batched at full width), the split
     of mt and tpx over two devices (one card named twice), and malformed
     mt blobs through the whole chain;
+  * the CLI (`python -m hsrans_tpu_torch.cli`, phase 13) in process at the
+    cuda tier: `--test` over B 10-15 on a prefix of the 64 MiB text (all
+    72 rows OK; the host rows on the native C++ codecs launch no kernel,
+    the tpx and mt dev rows launch theirs), every row's blob on a 1 MiB
+    prefix equal to the torch tier's, the B=12 table of three runs (one
+    JSON line a row), and `utils/profiling.trace` (`torch.profiler`)
+    around one 64 MiB tpx decode and one mt dev round trip: the card's
+    busy share of each window;
   * the mt decode and encode kernels' shared-memory windows at their edges
     (`DECODE_EDGES`, `ENCODE_EDGES`; the annotated route's two kernels on
     `DECODE_EDGES` too), and the two wire writers, tpx and
@@ -382,7 +390,7 @@ def mt_phases(repo: Path, dev: torch.device) -> tuple[list[dict], int, dict]:
     and the inputs and plans made here, which the mt encode phases reuse."""
     from hsrans_tpu_torch import mt_decode_torch
     from hsrans_tpu_torch.ops.mt import mt_encode_py
-    from hsrans_tpu_torch.ops.planner import plan_blocks_mt
+    from hsrans_tpu_torch.ops.planner import plan_blocks_py
     from hsrans_tpu_torch.parallel.sharded import device_plan, uniform_plan
     from hsrans_tpu_torch.runtime import build
     from tools.gen_inputs import text_like
@@ -436,7 +444,7 @@ def mt_phases(repo: Path, dev: torch.device) -> tuple[list[dict], int, dict]:
     trips = [dp(10, 64), dp(13, 64), dp(14, 64), classes[1], classes[2], classes[3]]
     corpus = np.fromfile(repo / "tests" / "corpus" / "corpus.bin", np.uint8)
     name = "corpus.bin reference planner"
-    plans["corpus"] = plan_blocks_mt(corpus, 12, 64)
+    plans["corpus"] = plan_blocks_py(corpus, 12, "mt", 64)
     planner_blob = encode(name, corpus, 12, 64, plans["corpus"])
     trips.append((name, corpus, 12, 64, planner_blob))
     odd = text_like(rng, (1 << 20) + 64 * 5 + 17)  # the last block's tail: 17 bytes past a group
@@ -716,7 +724,7 @@ def mt_encode_kernel_vs_plain(name: str, data: np.ndarray, plan, bits: int, n: i
 def mt_planner_blocks(dev: torch.device) -> dict:
     """The reference planner's largest block on a homogeneous input: 64 MiB
     of independent bytes of one Zipf distribution (seed 8), which
-    `plan_blocks_mt` cuts into blocks up to its 2^25-byte cap.  The encode
+    `plan_blocks_py(..., "mt", 64)` cuts into blocks up to its 2^25-byte cap.  The encode
     kernel's launch alone on that plan (one chain of 512 Ki groups for the
     largest block), the placement against its plain version and timed, and
     `mt_encode_torch` end to end, its blob decoded on the card back to the
@@ -751,12 +759,12 @@ def mt_planner_blocks(dev: torch.device) -> dict:
 def zipf_input() -> tuple[np.ndarray, list, float]:
     """64 MiB of independent bytes of one Zipf distribution (seed 8), the
     reference planner's plan of it (n=64, B=12) and the seconds it took."""
-    from hsrans_tpu_torch.ops.planner import plan_blocks_mt
+    from hsrans_tpu_torch.ops.planner import plan_blocks_py
 
     zipf = 1.0 / np.arange(1, 257)
     data = np.random.default_rng(8).choice(256, size=64 * MIB, p=zipf / zipf.sum()).astype(np.uint8)
     t0 = time.perf_counter()
-    plan = plan_blocks_mt(data, 12, 64)
+    plan = plan_blocks_py(data, 12, "mt", 64)
     return data, plan, time.perf_counter() - t0
 
 
@@ -919,6 +927,12 @@ def mt_encode_phases(repo: Path, dev: torch.device, ctx: dict) -> tuple[list[dic
 # and 15, n=32 and 64, the encode's at B=12, n=32 and 64, under both rules
 DECODE_EDGES = ("word_start residues", "blocks shorter than a half", "word regions cut mid-group", "one 1 MiB block")
 ENCODE_EDGES = ("in_start residues", "block sizes off the 64-byte grid", "one 1 MiB block")
+# the 1 MiB block at two of the six (B, n): the flat table at n=64 and the
+# rank table at n=32, each read through many window refills.  Its plain
+# versions (rank and annotated routes, host-paced) were most of this
+# phase's 254 s in PR 12's run, which the CLI's phase would have pushed past
+# half the script's time limit (PERF.md, PR 13)
+DECODE_EDGE_DEPTHS = {"one 1 MiB block": [(12, 64), (15, 32)]}
 
 
 # the cases that hold the tpx decode kernel's ragged reads and window at its
@@ -1084,26 +1098,25 @@ def mt_window_edges(dev: torch.device) -> dict[str, list[dict]]:
 
     rows: dict[str, list[dict]] = {"mt_decode": [], "mt_decode_annotated": [], "mt_encode": []}
     for case in DECODE_EDGES:
-        for bits in (10, 12, 15):
-            for n in (32, 64):
-                for name, args, kw in decode_edge_operands(case, bits, n, dev):
-                    got = mtd.decode_blocks_cuda(*args, **kw)
-                    torch.cuda.synchronize()
-                    err = max_abs_err(got, mtd.decode_blocks_plain(*args, **kw))
-                    if err:
-                        raise AssertionError(f"mt decode {case}, {name}, B={bits} n={n}: kernel differs (max abs err {err})")
-                    rows["mt_decode"].append({"case": case, "sub": name, "bits": bits, "n": n, "max_abs_err": err})
-                    words, index, states, fc = args
-                    ann = mtd.annotate_cuda(words, index, fc, bits=bits)
-                    got = mtd.decode_blocks_annotated_cuda(ann, index, states, fc, **kw)
-                    torch.cuda.synchronize()
-                    err = max(max_abs_err(ann, mtd.annotate_plain(words, index, fc, bits=bits)),
-                              max_abs_err(got, mtd.decode_blocks_annotated_plain(ann, index, states, fc, **kw)))
-                    if err:
-                        raise AssertionError(f"mt annotated {case}, {name}, B={bits} n={n}: a kernel differs "
-                                             f"(max abs err {err})")
-                    rows["mt_decode_annotated"].append({"case": case, "sub": name, "bits": bits, "n": n,
-                                                        "max_abs_err": err})
+        for bits, n in DECODE_EDGE_DEPTHS.get(case, [(b, n) for b in (10, 12, 15) for n in (32, 64)]):
+            for name, args, kw in decode_edge_operands(case, bits, n, dev):
+                got = mtd.decode_blocks_cuda(*args, **kw)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, mtd.decode_blocks_plain(*args, **kw))
+                if err:
+                    raise AssertionError(f"mt decode {case}, {name}, B={bits} n={n}: kernel differs (max abs err {err})")
+                rows["mt_decode"].append({"case": case, "sub": name, "bits": bits, "n": n, "max_abs_err": err})
+                words, index, states, fc = args
+                ann = mtd.annotate_cuda(words, index, fc, bits=bits)
+                got = mtd.decode_blocks_annotated_cuda(ann, index, states, fc, **kw)
+                torch.cuda.synchronize()
+                err = max(max_abs_err(ann, mtd.annotate_plain(words, index, fc, bits=bits)),
+                          max_abs_err(got, mtd.decode_blocks_annotated_plain(ann, index, states, fc, **kw)))
+                if err:
+                    raise AssertionError(f"mt annotated {case}, {name}, B={bits} n={n}: a kernel differs "
+                                         f"(max abs err {err})")
+                rows["mt_decode_annotated"].append({"case": case, "sub": name, "bits": bits, "n": n,
+                                                    "max_abs_err": err})
     for case in ENCODE_EDGES:
         for n in (32, 64):
             for rule in ("groups", "section"):
@@ -1907,6 +1920,154 @@ def scan_phases(repo: Path, dev: torch.device, ctx: dict, tpx_data: np.ndarray, 
     return rows, {"n16": launches, "raw": raw_launches}
 
 
+CLI_COMPARE_BYTES = 1 << 20  # (d)'s prefix
+# the kernels each kind of device row must launch
+CLI_ROW_KERNELS = {"tpx": {"tpx_encode", "tpx_concat", "tpx_decode", "hist_count", "hist_normalize"},
+                   "dev": {"mt_encode", "mt_place", "mt_decode"}}
+
+
+def cli_row_kind(name: str) -> str | None:
+    """"tpx" or "dev" for the CLI's device rows, None for its host rows."""
+    return "tpx" if name.startswith("tpx ") else "dev" if " dev " in name else None
+
+
+def cli_run(argv: list[str]) -> tuple[int, list[dict], str]:
+    """`hsrans_tpu_torch.cli.main(argv)` in this process, its table captured:
+    the exit code, each row's figures with the seconds and the kernel
+    launches since the row before (the counts set to 0 just before), and
+    the table."""
+    import contextlib
+    import io
+
+    from hsrans_tpu_torch import cli
+    from hsrans_tpu_torch.runtime import build
+
+    rows = []
+    build.reset_launches()
+    last = [dict(build.LAUNCHES), time.perf_counter()]
+
+    def on_row(row: dict) -> None:
+        now, t = dict(build.LAUNCHES), time.perf_counter()
+        rows.append({**row, "s": t - last[1], "launches": {k: v - last[0][k] for k, v in now.items() if v != last[0][k]}})
+        last[:] = [now, t]
+
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        rc = cli.main(argv, on_row=on_row)
+    return rc, rows, table.getvalue()
+
+
+def torch_tier_blob(path: str, nbytes: int, name: str) -> tuple[str, bytes]:
+    """A CLI row's blob at the torch tier (`--backend interpret`: the plain
+    PyTorch versions on the CPU) on the file's first `nbytes` (in a worker)."""
+    from hsrans_tpu_torch import cli
+
+    torch.set_num_threads(1)
+    data = np.fromfile(path, np.uint8, count=nbytes)
+    rows = {c["name"]: c for c in cli._build_codecs(cli.parse_args([path, "--test", "--backend", "interpret"]))}
+    return name, rows[name]["enc"](data)
+
+
+def cli_phases(repo: Path, data: np.ndarray) -> dict[str, int]:
+    """Phase 13, the port's CLI at the cuda tier on the card, on the 64 MiB
+    text in a file: (a) `--test` over B 10-15, every row OK; (b) the B=12 table of 3 runs, one JSON line
+    a row; (c) the device rows' kernel launches, none for the host rows;
+    (d) every row's blob on a 1 MiB prefix equal to the torch tier's; (e)
+    `utils/profiling.trace` around one 64 MiB tpx decode and one mt dev
+    round trip, the card's busy share of each window.  Returns the device
+    kernels' launches in (a)."""
+    import tempfile
+
+    from hsrans_tpu_torch import cli, mt_decode_torch, mt_encode_torch, tpx_decode_torch, tpx_encode_torch
+    from hsrans_tpu_torch.utils.profiling import device_busy, trace
+
+    out_dir = repo / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (repo / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=repo / "build") as tmp:
+        path = Path(tmp) / "text_64mib.bin"
+        data.tofile(path)
+        spawn = multiprocessing.get_context("spawn")
+        names = [c["name"] for c in cli._build_codecs(cli.parse_args([str(path), "--test"]))]
+        with ProcessPoolExecutor(max_workers=6, mp_context=spawn) as pool:
+            # (d)'s torch tier on the host's cores while the card runs (a)
+            cpu_runs = [pool.submit(torch_tier_blob, str(path), CLI_COMPARE_BYTES, name) for name in names]
+
+            # (a) --test over B 10-15 at the default (cuda) tier
+            t0 = time.perf_counter()
+            rc, rows, table = cli_run([str(path), "--test"])
+            test_s = time.perf_counter() - t0
+            (out_dir / "cli_test_table.txt").write_text(table)
+            bad = [r["name"] for r in rows if not r["ok"]]
+            if rc != 0 or bad or len(rows) != 72 or "--test: ALL OK" not in table:
+                raise AssertionError(f"cli --test: exit {rc}, {len(rows)} rows, not OK: {bad}\n{table[-3000:]}")
+
+            # (c) the device rows went through their kernels, the host rows through none
+            launches: dict[str, int] = {}
+            for r in rows:
+                kind = cli_row_kind(r["name"])
+                if kind is None and r["launches"]:
+                    raise AssertionError(f"cli host row {r['name']} launched {r['launches']}")
+                if kind and not CLI_ROW_KERNELS[kind] <= set(r["launches"]):
+                    raise AssertionError(f"cli device row {r['name']} launched only {r['launches']}")
+                for k, v in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            slowest = sorted(rows, key=lambda r: -r["s"])[:6]
+            emit("cli_test", file_bytes=data.size, rows=len(rows), all_ok=True, exit_code=rc, test_s=test_s, launches=launches,
+                 slowest_rows={r["name"]: r["s"] for r in slowest},
+                 device_row_s={r["name"]: r["s"] for r in rows if cli_row_kind(r["name"])})
+
+            # (d) every row's blob at the cuda tier == the torch tier's, 1 MiB prefix
+            head = data[:CLI_COMPARE_BYTES]
+            card_rows = cli._build_codecs(cli.parse_args([str(path), "--test"]))
+            card_blobs = {c["name"]: c["enc"](head) for c in card_rows}
+            cpu_blobs = dict(f.result() for f in cpu_runs)
+        differ = [name for name in names if card_blobs[name] != cpu_blobs[name]]
+        if differ or len(card_blobs) != 72:
+            raise AssertionError(f"cli rows whose cuda-tier blob differs from the torch tier's: {differ}")
+        emit("cli_tiers_equal", rows=len(names), bytes=CLI_COMPARE_BYTES, device_rows=sum(map(bool, map(cli_row_kind, names))))
+
+        # (b) the B=12 table, 3 runs, one JSON line a row (--all: every
+        #     family, the same 12 rows as --test's at B=12)
+        t0 = time.perf_counter()
+        rc, rows_b, table = cli_run([str(path), "--all", "--runs", "3", "--hist-min", "12", "--hist-max", "12"])
+        (out_dir / "cli_table_B12.txt").write_text(table)
+        if rc != 0 or len(rows_b) != 12 or not all(r["ok"] for r in rows_b):
+            raise AssertionError(f"cli --runs 3 at B=12: exit {rc}\n{table[-3000:]}")
+        for r in rows_b:
+            emit("cli_row", bytes=data.size, runs=3, **{k: r[k] for k in (
+                "name", "ratio", "encode_MiBps", "decode_max_MiBps", "decode_avg_MiBps", "decode_min_MiBps",
+                "decode_sigma_pct")}, launches=r["launches"])
+        emit("cli_table", rows=len(rows_b), table_s=time.perf_counter() - t0)
+
+    # (e) the card's busy share under torch.profiler: one 64 MiB tpx decode,
+    #     one mt dev round trip (each warmed once, untraced)
+    blob = tpx_encode_torch(data, 12, device="cuda")
+    if tpx_decode_torch(blob, device="cuda") != data.tobytes():
+        raise AssertionError("cli trace: tpx decode does not return the input")
+    mt_blob = mt_encode_torch(data, 12, device="cuda")
+    if mt_decode_torch(mt_blob, 12, 64, device="cuda") != data.tobytes():
+        raise AssertionError("cli trace: the mt dev round trip does not return the input")
+    shares = {}
+    for name, fn in (("tpx_decode_64MiB", lambda: tpx_decode_torch(blob, device="cuda")),
+                     ("mt_dev_round_trip_64MiB",
+                      lambda: mt_decode_torch(mt_encode_torch(data, 12, device="cuda"), 12, 64, device="cuda"))):
+        with trace(out_dir / "traces") as t:
+            back = fn()
+        if back != data.tobytes():
+            raise AssertionError(f"cli trace {name}: the traced call does not return the input")
+        busy = device_busy(t.path)
+        shares[name] = {"window_s": t.wall_s, "device_busy_s": busy["busy_us"] / 1e6,
+                        "busy_share": busy["busy_us"] / 1e6 / t.wall_s, "kernel_s": busy["kernel_us"] / 1e6,
+                        "memcpy_s": busy["gpu_memcpy_us"] / 1e6, "memset_s": busy["gpu_memset_us"] / 1e6,
+                        "device_events": busy["events"], "trace_span_s": busy["span_us"] / 1e6,
+                        "trace": str(t.path.relative_to(repo))}
+        if not busy["events"]:
+            raise AssertionError(f"cli trace {name}: torch.profiler recorded no device activity")
+    emit("cli_trace", **shares)
+    return launches
+
+
 def main() -> int:
     global CARD, OPS_PER_S
     if not torch.cuda.is_available():
@@ -1936,12 +2097,21 @@ def main() -> int:
         emit("round_trip", case=name, bytes=data.size, ratio=len(blob) / data.size, cpu_tier_encode_s=cpu_s)
         return blob
 
-    # 1. probe: build the kernels from this checkout's sources and load them
+    # 1. probe: build the kernels from this checkout's sources and load them,
+    #    and the native host codecs (g++) meanwhile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hsrans_tpu_torch.runtime import native
+
     t0 = time.perf_counter()
-    build.load()
+    with ThreadPoolExecutor(1) as host_build:
+        native_built = host_build.submit(timed_s, native.load)
+        build.load()
+        native_s = native_built.result()[1]
     ptxas = [ln.strip() for ln in build.build_log().splitlines() if "Used" in ln or "entry function" in ln]
     emit("probe", banner=banner(), torch=torch.__version__, cuda=torch.version.cuda,
-         build_s=build.build_seconds, load_s=time.perf_counter() - t0, ptxas=ptxas, int32_ops_per_s=OPS_PER_S)
+         build_s=build.build_seconds, load_s=time.perf_counter() - t0, ptxas=ptxas, int32_ops_per_s=OPS_PER_S,
+         native_load_s=native_s, native_library=native.library_path().name)
 
     # 2. each kernel against its plain version on the main path's operands
     #    (64 MiB enwik8-like text, bench.py's seed and size: four 16 MiB megas
@@ -2045,6 +2215,10 @@ def main() -> int:
     #     and the n=16 round trip at 64 MiB, the split over two devices
     scan_rows, scan_launches = scan_phases(repo, dev, ctx, data, blob)
 
+    # 13. the CLI (`python -m hsrans_tpu_torch.cli`): --test over B 10-15 on
+    #     the card, the B=12 table, its kernels, the tiers' blobs, a trace
+    cli_launches = cli_phases(repo, data)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsrans_tpu"))
     if foreign:
         raise AssertionError(f"the run loaded modules of JAX or of the JAX package: {foreign}")
@@ -2100,6 +2274,8 @@ def main() -> int:
                    **{k: per_bits[12][name][k] for k in (*keys, "launch_ms", "link_us") if k in per_bits[12][name]}}
             edges = {"tpx_decode": tpx_edge_rows, "tpx_concat": wire_rows["tpx_concat"]}.get(name, [])
             row["max_abs_err"] = max([row["max_abs_err"], *(r["max_abs_err"] for r in edges)])
+        if name in cli_launches:
+            row["cli_launches"] = cli_launches[name]  # phase 13 (a): the CLI's --test, every depth
         summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, **row,
                         "library_ms": library_ms})
     print(json.dumps({"kernels": summary}))

@@ -1,4 +1,4 @@
-"""Byte-frequency model of the tpx wire: observe, normalize to 2^B, and
+"""Byte-frequency model of the wires: observe, normalize to 2^B, and
 rebuild cumul from wire freqs.
 
 The port's copy of `hsrans_tpu/models/histogram.py` (and of
@@ -113,6 +113,12 @@ def normalize_hist(hist: np.ndarray, data_bytes: int, total_symbol_count_bits: i
     cumul = np.zeros(256, dtype=np.uint16)
     cumul[1:] = np.cumsum(capped[:-1].astype(np.uint64)).astype(np.uint16)
     return Hist(symbol_count=capped, cumul=cumul, total_symbol_count_bits=total_symbol_count_bits)
+
+
+def make_hist(data: np.ndarray | bytes, total_symbol_count_bits: int) -> Hist:
+    """observe + normalize (hist.cpp:217-222)."""
+    arr = np.frombuffer(data, dtype=np.uint8) if isinstance(data, (bytes, bytearray, memoryview)) else data
+    return normalize_hist(observe_hist(arr), int(np.asarray(arr).size), total_symbol_count_bits)
 
 
 def complete_hist(symbol_count: np.ndarray, total_symbol_count_bits: int) -> Hist | None:

@@ -3,8 +3,9 @@
 The port's copy of the host tier of `hsrans_tpu/ops/mt.py` (the wire format
 is documented there): `block_index`, the O(blocks) walk of the header chain
 that the decoder starts from, `mt_encode_py`, the numpy encoder that is the
-wire authority, and `mt_decode_py`, its sequential decoder (the host step of
-`parallel/sharded.py::mt_decode_device`).  The port loads no module of the JAX package;
+wire authority, `mt_decode_py`, its sequential decoder, and `mt_encode` and
+`mt_decode` on the native C++ codec of `runtime/native.py` (the decode also
+the host step of `parallel/sharded.py::mt_decode_device`).  The port loads no module of the JAX package;
 `tests/test_torch_mt_decode.py` holds each function here equal to its
 original.
 
@@ -22,7 +23,9 @@ import numpy as np
 
 from ..models.histogram import complete_hist
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX, INV_IDX2IDX
-from .planner import BlockPlan, plan_blocks_mt
+from ..runtime import native
+from .block import native_takes
+from .planner import BlockPlan, plan_blocks_py
 from .reference import _as_array, decode_full_groups, decode_tail_group, encode_groups
 
 _U32 = np.uint32
@@ -47,6 +50,19 @@ def _lane_groups(arr, start, end, length, n):
     return padded[pos], (start + pos) < length
 
 
+def mt_encode(data: bytes | np.ndarray, bits: int, n: int, plan: list[BlockPlan] | None = None) -> bytes:
+    """mt encode on the native codec (its own planner, the same bytes), or
+    the numpy encoder with a given `plan` or where the native one takes no
+    such call (`ops/block.py::native_takes`), as the original."""
+    arr = _as_array(data)
+    if plan is None and native_takes(arr.size, bits, n):
+        out = native.mt_encode(arr, bits, n)
+        if out is None:
+            raise RuntimeError("native mt encode refused a call it takes")
+        return out
+    return mt_encode_py(arr, bits, n, plan)
+
+
 def mt_encode_py(data: bytes | np.ndarray, bits: int, n: int, plan: list[BlockPlan] | None = None) -> bytes:
     """numpy mt encode (the wire authority): blocks encoded last to first
     with carried states; each coded block stores the states its decoder
@@ -54,7 +70,7 @@ def mt_encode_py(data: bytes | np.ndarray, bits: int, n: int, plan: list[BlockPl
     arr = _as_array(data)
     length = arr.size
     if plan is None:
-        plan = plan_blocks_mt(arr, bits, n)
+        plan = plan_blocks_py(arr, bits, "mt", n)
 
     states = np.full(n, DECODE_CONSUME_POINT_16, dtype=_U32)
     parts: list[bytes] = [b""] * len(plan)
@@ -152,6 +168,16 @@ def block_index(blob: bytes | np.ndarray, n: int) -> tuple[int, np.ndarray, list
         if blocks[-1].is_last:
             break
     return length, stream, blocks
+
+
+def mt_decode(blob: bytes | np.ndarray, bits: int, n: int) -> bytes | None:
+    """mt decode on the native codec (the blocks fanned out to its thread
+    pool) at n = 32 and 64, the numpy decoder at any other n (the native one
+    refuses it, and its -1 must not read as a malformed blob); None on
+    malformed input."""
+    if n in (32, 64):
+        return native.mt_decode(blob, bits, n)
+    return mt_decode_py(blob, bits, n)
 
 
 def mt_decode_py(blob: bytes | np.ndarray, bits: int, n: int) -> bytes | None:

@@ -4,9 +4,11 @@ the lane-group encode and decode steps that the mt wire chains per block.
 The port's copy of the pieces of `hsrans_tpu/ops/reference.py` that the mt
 codec runs (`encode_groups` for the host encoder, `decode_full_groups` and
 `decode_tail_group` for the reference decode and the trailing partial lane
-group) and of its raw 16w wire (`raw_encode_16w`, `raw_decode_16w`), so that
-the port loads no module of the JAX package; `tests/test_torch_mt_decode.py`
-and `tests/test_torch_raw_scan.py` hold each equal to its original, the raw
+group) and of its raw 16w wire (`raw_encode_16w`, `raw_decode_16w`, the numpy
+authority; `raw_encode`, `raw_decode` on the native C++ codec of
+`runtime/native.py`), so that the port loads no module of the JAX package;
+`tests/test_torch_mt_decode.py`, `tests/test_torch_raw_scan.py` and
+`tests/test_torch_host_codecs.py` hold each equal to its original, the raw
 wire also to the C++ reference's golden blobs.
 
 Raw wire format: u64 rawLength | u64 compressedLength | 256*u16 freq |
@@ -24,8 +26,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..models.histogram import Hist, complete_hist, make_cumul_inv
+from ..models.histogram import Hist, complete_hist, make_cumul_inv, make_hist
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX, INV_IDX2IDX, encode_emit_point_16
+from ..runtime import native
 
 _U32 = np.uint32
 _HDR_FIXED = 16 + 512  # two u64 + 256 u16 freqs
@@ -157,6 +160,24 @@ def decode_tail_group(
     w = stream[read_pos + offs].astype(_U32)
     states = np.where(consume, (states_t << _U32(16)) | w, states_t)
     return np.where(v, sym, 0), states, read_pos + int(consume.sum())
+
+
+def raw_encode(data: bytes | np.ndarray, bits: int, n_lanes: int) -> bytes:
+    """Raw encode with a whole-input histogram on the native codec; the
+    numpy encoder where the native one takes no such call (B outside
+    10..15, n outside 16, 32, 64), as the original."""
+    arr = _as_array(data)
+    if 10 <= bits <= 15 and n_lanes in IDX2IDX:
+        out = native.raw_encode(arr, bits, n_lanes)
+        if out is None:
+            raise RuntimeError("native raw encode refused a call it takes")
+        return out
+    return raw_encode_16w(arr, make_hist(arr, bits), n_lanes)
+
+
+def raw_decode(blob: bytes | np.ndarray, bits: int, n_lanes: int) -> bytes | None:
+    """Raw decode on the native codec; None on malformed input."""
+    return native.raw_decode(blob, bits, n_lanes)
 
 
 def raw_encode_16w(data: bytes | np.ndarray, hist: Hist, n_lanes: int) -> bytes:

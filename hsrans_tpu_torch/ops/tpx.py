@@ -114,12 +114,12 @@ def tpx_plan_geometry(arr: np.ndarray, bits: int) -> list[MegaGeom]:
       >= 256 KiB          256 KiB      256 x 8
       else                128 KiB      128 x 8
     """
-    from .planner import plan_blocks_mt
+    from .planner import plan_blocks_py
 
     length = arr.size
     if length == 0:
         return [MegaGeom(0, 8, 4, 1)]
-    plan = plan_blocks_mt(arr, bits)
+    plan = plan_blocks_py(arr, bits, "mt", 64)
 
     def geom_of(block_size: int) -> tuple[int, int]:
         if block_size >= 4 << 20:

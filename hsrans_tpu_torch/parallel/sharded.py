@@ -2,8 +2,8 @@
 `hsrans_tpu/parallel/sharded.py`.
 
 `mt_decode_device` keeps the JAX package's chain step for step: the mt
-decode kernel (`mt_decode_torch`), then the host decode where the native
-library would take the blob, then every coded block batched through the
+decode kernel (`mt_decode_torch`), then the native host decode
+(`runtime/native.py`), then every coded block batched through the
 scan decode kernel (`kernels/scan.py`) on the shared word stream.
 `mt_encode_device` encodes every coded block from fresh states through
 `kernels/mt_encode.py::encode_plan`: the mt encode kernel at n = 32 and 64,
@@ -29,10 +29,11 @@ from ..kernels.mt_encode import encode_plan
 from ..kernels.scan import decode_section_kernel
 from ..models.histogram import complete_hist
 from ..models.tables import make_dec3
-from ..ops.mt import MtBlock, _as_array, block_index, mt_decode_py
-from ..ops.planner import BlockPlan, plan_blocks_mt
+from ..ops.mt import MtBlock, _as_array, block_index
+from ..ops.planner import BlockPlan, plan_blocks_py
 from ..ops.tpx import make_tile_hist
 from ..rans import IDX2IDX, INV_IDX2IDX
+from ..runtime import native
 from ..runtime.device import resolve_all, shares
 
 def uniform_plan(data: np.ndarray, bits: int, n: int, block_size: int = 1 << 16) -> list[BlockPlan]:
@@ -62,7 +63,7 @@ def device_plan(data: np.ndarray, bits: int, n: int = 64, max_block: int = 32 <<
     oversized coded block into 512-aligned pieces; consecutive piece pairs
     share one histogram taken over their joint span."""
     out: list[BlockPlan] = []
-    for r in plan_blocks_mt(data, bits, n):
+    for r in plan_blocks_py(data, bits, "mt", n):
         if r.is_single or r.size <= max_block:
             out.append(r)
             continue
@@ -178,18 +179,6 @@ def scan_decode_blob(blob: bytes | np.ndarray, bits: int, n: int, devices: list[
     return out.tobytes()
 
 
-def _native_takes(blob: bytes | np.ndarray, bits: int, n: int) -> bool:
-    """Whether the JAX package's native mt decode would start on the blob
-    (native/hsrans_codec.cpp::hsr_mt_decode's first guards and its ctypes
-    wrapper's): 10 <= B <= 15, n of 32 or 64, the header's blob size at most
-    the blob's, a length of at most 2^40."""
-    buf = _as_array(blob)
-    if not 10 <= bits <= 15 or n not in (32, 64) or buf.size < 16:
-        return False
-    length = int.from_bytes(buf[0:8].tobytes(), "little")
-    return int.from_bytes(buf[8:16].tobytes(), "little") <= buf.size and length <= 1 << 40
-
-
 def mt_decode_device(
     blob: bytes | np.ndarray,
     bits: int,
@@ -201,8 +190,8 @@ def mt_decode_device(
     `devices`; `hsrans_tpu.parallel.sharded.mt_decode_device`'s chain:
 
       (a) n of 32 or 64 and B <= 15: `mt_decode_torch`, if it gives bytes;
-      (b) where the native library would take the blob (`_native_takes`):
-          the host decode `mt_decode_py`, if it gives bytes;
+      (b) the native host decode (`runtime/native.py::mt_decode`, which
+          refuses n = 16 and B outside 10..15), if it gives bytes;
       (c) `scan_decode_blob`: every coded block batched through the scan
           decode kernel.
 
@@ -214,13 +203,9 @@ def mt_decode_device(
         fast = mt_decode_torch(blob, bits, n, devices=devs)
         if fast is not None:
             return fast
-    if _native_takes(blob, bits, n):
-        try:
-            host = mt_decode_py(blob, bits, n)
-        except IndexError:  # a corrupt chain read past the stream, where the native decode returns its -1
-            host = None
-        if host is not None:
-            return host
+    host = native.mt_decode(blob, bits, n)
+    if host is not None:
+        return host
     return scan_decode_blob(blob, bits, n, devs)
 
 
@@ -246,5 +231,5 @@ def mt_encode_device(
         raise ValueError("mt encode needs n in (16, 32, 64) and 1 <= bits <= 15")
     arr = _as_array(data)
     if plan is None:
-        plan = uniform_plan(arr, bits, n, uniform_block) if uniform_block else plan_blocks_mt(arr, bits, n)
+        plan = uniform_plan(arr, bits, n, uniform_block) if uniform_block else plan_blocks_py(arr, bits, "mt", n)
     return encode_plan(arr, plan, bits, n, "section", devs)

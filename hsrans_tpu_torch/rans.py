@@ -1,8 +1,8 @@
-"""Core rANS constants and the lane-interleave permutations of the mt wire.
+"""Core rANS constants and the lane-interleave permutations of the wires.
 
-The port's copy of `hsrans_tpu/rans.py` (the parts the mt codec runs), so
-that the port loads no module of the JAX package; `tests/test_torch_mt_decode.py`
-holds it equal to the original.  `IDX2IDX[n][j]` is the byte offset, within
+The port's copy of `hsrans_tpu/rans.py`, so that the port loads no module
+of the JAX package; `tests/test_torch_mt_decode.py` and
+`tests/test_torch_host_codecs.py` hold it equal to the original.  `IDX2IDX[n][j]` is the byte offset, within
 a group of n input bytes, of the symbol that lane j codes (the reference's
 idx2idx tables, part of the wire).
 """
@@ -11,13 +11,23 @@ from __future__ import annotations
 
 import numpy as np
 
-# a decode state below this shifts in one 16-bit renormalization word
+# a decode state below this shifts in one renormalization word (16-bit, or
+# 8-bit for the 32blk 8w wire)
 DECODE_CONSUME_POINT_16 = 1 << 15
+DECODE_CONSUME_POINT_8 = 1 << 23
+
+# the histogram depths (TotalSymbolCountBits) the wires support
+HIST_BITS_RANGE = range(10, 16)
 
 
 def encode_emit_point_16(total_symbol_count_bits: int) -> int:
     """A lane emits its low 16 bits iff state >= emit_point * freq."""
     return (DECODE_CONSUME_POINT_16 >> total_symbol_count_bits) << 16
+
+
+def encode_emit_point_8(total_symbol_count_bits: int) -> int:
+    """The same threshold for 8-bit-word renormalization."""
+    return (DECODE_CONSUME_POINT_8 >> total_symbol_count_bits) << 8
 
 
 def _interleave_perm(n: int) -> np.ndarray:

@@ -559,3 +559,25 @@ def test_tpx_split_on_the_card(cuda):
     for devices in ([cuda], [cuda, cuda], [cuda] * 3):
         assert ptpx.tpx_encode_device(data, p=p, devices=devices) == blob
         assert ptpx.tpx_decode_device(blob, devices=devices) == data.tobytes()
+
+
+def test_cli_cuda_tier_on_the_card(cuda, tmp_path):
+    """`python -m hsrans_tpu_torch.cli <file> --test` at B=12 on the card:
+    every row OK, the tpx and mt dev rows through their kernels, the host
+    rows through none, and every row's blob equal to the torch tier's."""
+    from hsrans_tpu_torch import cli
+
+    data = text_like(np.random.default_rng(13), (1 << 20) + 77)
+    path = tmp_path / "t.bin"
+    data.tofile(path)
+    rc, rows, table = chip_smoke.cli_run([str(path), "--test", "--hist-min", "12", "--hist-max", "12"])
+    assert rc == 0 and len(rows) == 12 and all(r["ok"] for r in rows), table
+    for r in rows:
+        kind = chip_smoke.cli_row_kind(r["name"])
+        assert chip_smoke.CLI_ROW_KERNELS[kind] <= set(r["launches"]) if kind else not r["launches"], r
+    argv = [str(path), "--test", "--hist-min", "12", "--hist-max", "12", "--backend"]
+    card = cli._build_codecs(cli.parse_args(argv + ["device"]))
+    cpu = {c["name"]: c for c in cli._build_codecs(cli.parse_args(argv + ["interpret"]))}
+    head = data[: 1 << 18]
+    for c in card:
+        assert c["enc"](head) == cpu[c["name"]]["enc"](head), c["name"]

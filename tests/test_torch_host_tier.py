@@ -99,7 +99,7 @@ def _corpus_cases():
 def test_planner_and_geometry_equal_original(bits):
     for name, arr in _corpus_cases().items():
         want = jplan.plan_blocks(arr, bits, "mt", 64)
-        got = pplan.plan_blocks_mt(arr, bits)
+        got = pplan.plan_blocks_py(arr, bits, "mt", 64)
         assert [(b.start, b.size, b.is_single, b.symbol) for b in got] == [
             (b.start, b.size, b.is_single, b.symbol) for b in want
         ], name

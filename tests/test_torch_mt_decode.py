@@ -74,10 +74,10 @@ def _slices():
 @pytest.mark.parametrize("n", (32, 64))
 @pytest.mark.parametrize("bits", (10, 12, 15))
 def test_planner_mt_equals_original(bits, n):
-    """plan_blocks_mt(n) == plan_blocks_py(..., "mt", n), freqs included."""
+    """The port's plan_blocks_py(..., "mt", n) == the original's, freqs included."""
     for name, arr in _slices().items():
         want = jplan.plan_blocks_py(arr, bits, "mt", n)
-        assert _plan_rows(pplan.plan_blocks_mt(arr, bits, n)) == _plan_rows(want), name
+        assert _plan_rows(pplan.plan_blocks_py(arr, bits, "mt", n)) == _plan_rows(want), name
 
 
 @pytest.mark.parametrize("bits", (10, 12, 15))

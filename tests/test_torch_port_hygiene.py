@@ -19,8 +19,11 @@ PORT = REPO / "hsrans_tpu_torch"
 def test_import_and_cpu_round_trip_without_jax():
     """With jax and every module of `hsrans_tpu` unimportable, the port
     imports and round-trips (tpx plain v2 and adaptive v3, mt, the raw wire,
-    mt at n=16 and the device splits) on the CPU, and its blobs equal the
+    mt at n=16, the device splits, and the CLI's host codecs: the block and
+    32blk wires on the native loader) on the CPU, and its blobs equal the
     JAX package's encoders."""
+    from hsrans_tpu.ops.blk32 import blk32_encode_host
+    from hsrans_tpu.ops.block import block_encode
     from hsrans_tpu.ops.mt import mt_encode_py
     from hsrans_tpu.ops.tpx import tpx_encode, tpx_encode_adaptive
     from hsrans_tpu.parallel.sharded import mt_encode_device, uniform_plan
@@ -52,6 +55,12 @@ def test_import_and_cpu_round_trip_without_jax():
         "assert mt_decode_device(blob16, 12, 16, devices=['cpu', 'cpu']) == data.tobytes()\n"
         "from hsrans_tpu_torch.parallel.tpx_sharded import tpx_decode_device, tpx_encode_device\n"
         "assert tpx_decode_device(tpx_encode_device(data, devices=['cpu'] * 3), device='cpu') == data.tobytes()\n"
+        "from hsrans_tpu_torch import cli\n"
+        "assert cli.parse_args(['f', '--test'])['blk32']\n"
+        "for blob in (h.block_encode(data, 12, 64), h.blk32_encode_host(data, 12, 16)):\n"
+        "    print(hashlib.sha256(blob).hexdigest())\n"
+        "assert h.block_decode(h.block_encode(data, 12, 64), 12, 64) == data.tobytes()\n"
+        "assert h.blk32_decode_host(h.blk32_encode_host(data, 12, 16), 12, 16) == data.tobytes()\n"
         "assert not any(m.split('.')[0] in ('jax', 'hsrans_tpu') for m, v in sys.modules.items() if v is not None)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
@@ -61,6 +70,8 @@ def test_import_and_cpu_round_trip_without_jax():
     want.append(hashlib.sha256(mt_encode_py(data, 12, 64)).hexdigest())
     want.append(hashlib.sha256(mt_encode_device(data, 12, 64, plan=uniform_plan(data, 12, 64, 4096))).hexdigest())
     want.append(hashlib.sha256(mt_encode_device(data, 12, 32)).hexdigest())
+    want.append(hashlib.sha256(block_encode(data, 12, 64)).hexdigest())
+    want.append(hashlib.sha256(blk32_encode_host(data, 12, 16)).hexdigest())
     assert res.stdout.split() == want
 
 
@@ -72,7 +83,8 @@ def test_no_port_source_imports_jax(package):
     files = [*PORT.rglob("*.py"), REPO / "chip_smoke.py", REPO / "chip_ab.py"]
     assert len(files) >= 10 and PORT / "models" / "device_hist.py" in files
     assert {PORT / "kernels" / "scan.py", PORT / "ops" / "raw_scan.py", PORT / "models" / "tables.py",
-            PORT / "parallel" / "tpx_sharded.py"} <= set(files)
+            PORT / "parallel" / "tpx_sharded.py", PORT / "cli.py", PORT / "ops" / "blk32.py", PORT / "ops" / "block.py",
+            PORT / "runtime" / "native.py", PORT / "utils" / "profiling.py"} <= set(files)
     for f in files:
         for line in f.read_text().splitlines():
             words = line.split()
