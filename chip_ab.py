@@ -50,6 +50,17 @@ tpx encode (the same text, B=12), REPS calls each by the host's clock
 after one warm call, and one more call of each split by layer; then the
 tree's histogram wrappers on the histogram kernels' cases, by CUDA events.
 The trees' blobs, freqs and cumuls must be equal.
+
+    python3 chip_ab.py NAME=DIR [NAME=DIR ...] --blk32 REPS [--out FILE]
+
+times the trees' native 32blk decoders on the host instead: each tree's
+own `runtime/native.py` builds its native library (in a process of its
+own, all trees at once), and this process loads every library and calls
+each `hsr_blk32_decode` on the CLI table's B=12 rows (64 MiB of
+enwik8-like text, seed 8, 16w and 8w, the blobs of this checkout's native
+encoder), each call on the same input and output buffers, REPS rounds in
+turns (each tree, then back in reverse order); every call must return the
+input.
 """
 
 from __future__ import annotations
@@ -694,6 +705,51 @@ def end_to_end(trees: dict[str, str], reps: int, sink) -> None:
         raise AssertionError(f"the trees' blobs differ: {blobs}")
 
 
+def blk32_library(root: Path) -> str:
+    """The path of `root`'s native library, built by `root`'s own loader."""
+    code = "import sys; sys.path.insert(0, sys.argv[1]); from hsrans_tpu_torch.runtime import native; " \
+           "native.load(); print(native.library_path())"
+    r = subprocess.run([sys.executable, "-c", code, str(root)], capture_output=True, text=True, check=False, cwd=root)
+    if r.returncode:
+        raise RuntimeError(f"{root}: native build failed: {r.stderr[-3000:]}")
+    return r.stdout.strip().splitlines()[-1]
+
+
+def run_blk32(trees: dict[str, str], reps: int, sink) -> None:
+    """Each tree's native 32blk decode in turns (see the module's doc)."""
+    import time
+
+    from hsrans_tpu_torch.ops.blk32 import blk32_encode_host
+    from tools.gen_inputs import text_like
+
+    with ThreadPoolExecutor(len(trees)) as pool:
+        paths = dict(zip(trees, pool.map(lambda d: blk32_library(Path(d).resolve()), trees.values())))
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    libs = {}
+    for k, path in paths.items():
+        lib = ctypes.CDLL(path)
+        lib.hsr_blk32_decode.restype = ctypes.c_int64
+        lib.hsr_blk32_decode.argtypes = [u8p, ctypes.c_uint64, u8p, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32]
+        libs[k] = lib.hsr_blk32_decode
+    sink({"phase": "blk32_build", "trees": trees, "libraries": paths})
+    data = text_like(np.random.default_rng(8), 64 * MIB)
+    for wb in (16, 8):
+        src = np.frombuffer(blk32_encode_host(data, 12, wb), np.uint8)
+        dst = np.zeros(data.size, np.uint8)
+        secs = {k: [] for k in libs}
+        for i in range(reps):
+            for k in (libs if i % 2 == 0 else reversed(libs)):
+                dst[:] = 0
+                t0 = time.perf_counter()
+                got = libs[k](src.ctypes.data_as(u8p), src.size, dst.ctypes.data_as(u8p), dst.size, 12, wb)
+                secs[k].append(time.perf_counter() - t0)
+                if got != data.size or not np.array_equal(dst, data):
+                    raise AssertionError(f"{k}: the 32blk {wb}w decode does not return the input")
+        sink({"phase": "blk32_decode", "word_bits": wb, "bits": 12, "bytes": data.size, "reps": reps,
+              **{k: {"s": v, "median_s": statistics.median(v), "min_s": min(v),
+                     "MiBps": data.size / MIB / statistics.median(v)} for k, v in secs.items()}})
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", metavar="NAME=DIR", help="a name and a directory holding hsrans_tpu_torch/")
@@ -701,6 +757,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--e2e", type=int, metavar="REPS", help="time the entry points end to end, REPS calls each")
     ap.add_argument("--mt-decode", action="store_true", help="time the mt decode kernels only (both routes)")
     ap.add_argument("--scan", action="store_true", help="time the scan kernels only (csrc/scan.cu)")
+    ap.add_argument("--blk32", type=int, metavar="REPS", help="time the trees' native 32blk decodes, REPS rounds")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -711,9 +768,6 @@ def main(argv: list[str] | None = None) -> int:
         ((root,),) = [trees.values()]
         print(json.dumps(e2e_worker(Path(root).resolve(), args.e2e)))
         return 0
-    builds = {k: load_tree(k, Path(d).resolve()) for k, d in trees.items()}
-    with ThreadPoolExecutor(len(builds)) as pool:  # nvcc runs in subprocesses: the trees build at once
-        libs = dict(zip(builds, pool.map(lambda b: b.load(), builds.values())))
     card = chip_smoke.card()
     log = open(args.out, "a") if args.out else None
 
@@ -723,6 +777,16 @@ def main(argv: list[str] | None = None) -> int:
         if log:
             log.write(line + "\n")
 
+    if args.blk32:
+        try:
+            run_blk32(trees, args.blk32, sink)
+        finally:
+            if log:
+                log.close()
+        return 0
+    builds = {k: load_tree(k, Path(d).resolve()) for k, d in trees.items()}
+    with ThreadPoolExecutor(len(builds)) as pool:  # nvcc runs in subprocesses: the trees build at once
+        libs = dict(zip(builds, pool.map(lambda b: b.load(), builds.values())))
     try:
         if args.e2e:
             end_to_end(trees, args.e2e, sink)

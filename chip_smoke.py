@@ -60,6 +60,13 @@ the port's two paths through their public entry points:
     JSON line a row), and `utils/profiling.trace` (`torch.profiler`)
     around one 64 MiB tpx decode and one mt dev round trip: the card's
     busy share of each window;
+  * the host tier on the card's machine (phase 14): the card's 64 MiB tpx
+    blob and a v3 blob held against the port's numpy tpx codec (an
+    encoder the card's kernels share no code with), both decoded by it on
+    both lookup routes, the CLI's `--backend numpy` tpx rows on that codec,
+    300 corrupted 32blk blobs a word width through the native decoder
+    built for that machine's CPU under two heap fills (equal to the numpy
+    decoder), and the native 32blk decodes of the CLI's B=12 rows timed;
   * the mt decode and encode kernels' shared-memory windows at their edges
     (`DECODE_EDGES`, `ENCODE_EDGES`; the annotated route's two kernels on
     `DECODE_EDGES` too), and the two wire writers, tpx and
@@ -2068,6 +2075,159 @@ def cli_phases(repo: Path, data: np.ndarray) -> dict[str, int]:
     return launches
 
 
+BLK32_FUZZ = 300  # corrupted 32blk blobs a word width (the CPU test's fuzz)
+BLK32_TIME_REPS = 7  # 64 MiB 32blk decodes a word width, in turns
+
+
+def numpy_tpx(kind: str, src, arg):
+    """One call of the port's numpy tpx codec and its seconds (in a worker):
+    "encode" and "adaptive" take the data and the depth, "decode" the blob
+    and `use_rank_tables`."""
+    from hsrans_tpu_torch.ops import tpx
+
+    torch.set_num_threads(1)
+    fn = {"encode": lambda: tpx.tpx_encode(src, arg), "adaptive": lambda: tpx.tpx_encode_adaptive(src, arg),
+          "decode": lambda: tpx.tpx_decode(src, use_rank_tables=arg)}[kind]
+    return timed_s(fn)
+
+
+def lanes_past_blob(blob: bytes) -> bool:
+    """A 32blk header whose 31 lane sizes put the last lane's start past the
+    blob's end: the native decoder refuses it, the numpy one decodes it
+    zero-padded (ROADMAP queue 3)."""
+    return 780 + int(np.frombuffer(blob[656:780], "<u4").astype(np.int64).sum()) > len(blob)
+
+
+def blk32_fuzz(word_bits: int, lo: int, hi: int) -> dict:
+    """Blobs lo..hi-1 of the 32blk fuzz (40,000 bytes of text, seed 21, B=12,
+    each blob one byte XORed at a position, then a value, from
+    default_rng(50)) through the port's native decoder on this host's CPU,
+    copied into a buffer filled with 0x00, then 0xFF, past its end, right
+    after a block of that fill was freed, against its numpy decoder (in a
+    worker)."""
+    from hsrans_tpu_torch.models.histogram import make_hist
+    from hsrans_tpu_torch.ops import blk32
+    from tools.gen_inputs import text_like
+
+    data = text_like(np.random.default_rng(21), 40_000)
+    blob = blk32.blk32_encode(data, make_hist(data, 12), word_bits)
+    rng = np.random.default_rng(50)
+    res = {"blobs": 0, "equal": 0, "refused_lanes_past_blob": 0, "bytes_not_the_input": 0, "mismatch": []}
+    for i in range(hi):
+        pos, val = int(rng.integers(0, len(blob))), int(rng.integers(1, 256))
+        if i < lo:
+            continue
+        b = bytearray(blob)
+        b[pos] ^= val
+        b = bytes(b)
+        want = blk32.blk32_decode(b, 12, word_bits)
+        for fill in (0x00, 0xFF):
+            buf = np.full(len(b) + 4096, fill, np.uint8)
+            buf[: len(b)] = np.frombuffer(b, np.uint8)
+            junk = np.full(400_000, fill, np.uint8)
+            del junk
+            got = blk32.blk32_decode_host(buf[: len(b)], 12, word_bits)
+            if got == want:
+                res["equal"] += 1
+            elif got is None and lanes_past_blob(b):
+                res["refused_lanes_past_blob"] += 1
+            else:
+                res["mismatch"].append([i, fill])
+        res["blobs"] += 1
+        res["bytes_not_the_input"] += want is not None and want != data.tobytes()
+    return res
+
+
+def host_phases(repo: Path, data: np.ndarray, blob: bytes, corpus: np.ndarray, blob3: bytes) -> None:
+    """Phase 14, the port's host tier on the card's machine: (a) the card's
+    64 MiB B=12 tpx blob and its v3 corpus blob equal the numpy
+    `tpx_encode` / `tpx_encode_adaptive`'s, and the numpy `tpx_decode`
+    returns their inputs on both lookup routes; (b) the 32blk fuzz of
+    corrupted blobs through the native decoder built for this host's CPU,
+    under two heap fills, equal to the numpy decoder's bytes but the
+    recorded class; (c) the CLI's `--backend numpy` tpx rows on an 8 MiB
+    prefix, run by the numpy codec (no kernel launch) with the cuda tier's
+    blobs; (d) the native 32blk 16w and 8w decodes of the 64 MiB text at
+    B=12 (the CLI table's rows), in turns.  (a) and (b) run in worker
+    processes, (c) meanwhile."""
+    import tempfile
+
+    from hsrans_tpu_torch import cli
+    from hsrans_tpu_torch.ops import blk32
+
+    t_phase = time.perf_counter()
+    spawn = multiprocessing.get_context("spawn")
+    chunks = [(wb, lo, min(lo + 50, BLK32_FUZZ)) for wb in (16, 8) for lo in range(0, BLK32_FUZZ, 50)]
+    with ProcessPoolExecutor(max_workers=6, mp_context=spawn) as pool:
+        tpx_runs = {"encode": pool.submit(numpy_tpx, "encode", data, 12),
+                    "decode": pool.submit(numpy_tpx, "decode", blob, False),
+                    "decode_rank_tables": pool.submit(numpy_tpx, "decode", blob, True),
+                    "adaptive_v3": pool.submit(numpy_tpx, "adaptive", corpus, 12),
+                    "decode_v3": pool.submit(numpy_tpx, "decode", blob3, False),
+                    "decode_v3_rank_tables": pool.submit(numpy_tpx, "decode", blob3, True)}
+        fuzz_runs = [pool.submit(blk32_fuzz, *c) for c in chunks]
+
+        # (c) the numpy tier's tpx rows, in this process meanwhile
+        (repo / "build").mkdir(exist_ok=True)
+        (repo / "chiprun_out").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=repo / "build") as tmp:
+            path = Path(tmp) / "text_8mib.bin"
+            head = data[: 8 * MIB]
+            head.tofile(path)
+            only_tpx = ["--test", "--hist-min", "12", "--hist-max", "12", "--exclude-raw", "--exclude-32blk",
+                        "--exclude-mt", "--exclude-block"]
+            rc, rows, table = cli_run([str(path), *only_tpx, "--backend", "numpy"])
+            (repo / "chiprun_out" / "cli_numpy_tpx_table.txt").write_text(table)
+            if rc != 0 or [r["name"] for r in rows] != ["tpx rANS32x128x1024 12", "tpx adaptive (v3) 12"]:
+                raise AssertionError(f"cli --backend numpy tpx rows: exit {rc}\n{table[-3000:]}")
+            if not all(r["ok"] for r in rows) or any(r["launches"] for r in rows):
+                raise AssertionError(f"cli --backend numpy tpx rows: not OK or launched a kernel: {rows}")
+            numpy_rows = cli._build_codecs(cli.parse_args([str(path), *only_tpx, "--backend", "numpy"]))
+            card_rows = cli._build_codecs(cli.parse_args([str(path), *only_tpx]))
+            for n_row, c_row in zip(numpy_rows, card_rows):
+                if n_row["enc"](head) != c_row["enc"](head):
+                    raise AssertionError(f"cli {n_row['name']}: the numpy tier's blob differs from the cuda tier's")
+            emit("cli_numpy_tpx", bytes=head.size, rows=[{k: r[k] for k in (
+                "name", "ok", "ratio", "encode_MiBps", "decode_avg_MiBps", "s", "launches")} for r in rows],
+                 blobs_equal_cuda_tier=True, banner=table.splitlines()[0])
+
+        # (a) the card's tpx blobs against the numpy codec
+        got = {k: f.result() for k, f in tpx_runs.items()}
+        checks = {"encode": got["encode"][0] == blob, "decode": got["decode"][0] == data.tobytes(),
+                  "decode_rank_tables": got["decode_rank_tables"][0] == data.tobytes(),
+                  "adaptive_v3": got["adaptive_v3"][0] == blob3, "decode_v3": got["decode_v3"][0] == corpus.tobytes(),
+                  "decode_v3_rank_tables": got["decode_v3_rank_tables"][0] == corpus.tobytes()}
+        if not all(checks.values()):
+            raise AssertionError(f"the card's tpx blobs against the numpy codec: {checks}")
+        emit("tpx_numpy", bytes=data.size, v3_bytes=corpus.size, equal=checks,
+             seconds={k: v[1] for k, v in got.items()},
+             MiBps={k: (corpus.size if "v3" in k else data.size) / MIB / v[1] for k, v in got.items()})
+
+        # (b) the 32blk fuzz on this host
+        fuzz = {wb: {"blobs": 0, "equal": 0, "refused_lanes_past_blob": 0, "bytes_not_the_input": 0, "mismatch": []}
+                for wb in (16, 8)}
+        for (wb, _, _), f in zip(chunks, fuzz_runs):
+            for k, v in f.result().items():
+                fuzz[wb][k] += v
+    for wb, r in fuzz.items():
+        if r["mismatch"] or r["blobs"] != BLK32_FUZZ or r["equal"] + r["refused_lanes_past_blob"] != 2 * BLK32_FUZZ:
+            raise AssertionError(f"32blk fuzz {wb}w: the native decoder differs from the numpy one: {r}")
+    emit("blk32_fuzz", fills=["0x00", "0xFF"], **{f"{wb}w": r for wb, r in fuzz.items()})
+
+    # (d) the native 32blk decodes of the CLI's B=12 rows, 64 MiB, in turns
+    blobs = {wb: blk32.blk32_encode_host(data, 12, wb) for wb in (16, 8)}
+    secs = {wb: [] for wb in blobs}
+    for i in range(BLK32_TIME_REPS):
+        for wb in (blobs if i % 2 == 0 else reversed(blobs)):
+            back, s = timed_s(lambda: blk32.blk32_decode_host(blobs[wb], 12, wb))
+            if back != data.tobytes():
+                raise AssertionError(f"32blk {wb}w: the native decode does not return the 64 MiB input")
+            secs[wb].append(s)
+    emit("blk32_decode_times", bytes=data.size, bits=12, reps=BLK32_TIME_REPS,
+         **{f"{wb}w": {"s": v, "median_s": statistics.median(v), "MiBps": data.size / MIB / statistics.median(v)}
+            for wb, v in secs.items()}, phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     global CARD, OPS_PER_S
     if not torch.cuda.is_available():
@@ -2218,6 +2378,11 @@ def main() -> int:
     # 13. the CLI (`python -m hsrans_tpu_torch.cli`): --test over B 10-15 on
     #     the card, the B=12 table, its kernels, the tiers' blobs, a trace
     cli_launches = cli_phases(repo, data)
+
+    # 14. the host tier on this machine: the card's tpx blobs against the
+    #     numpy tpx codec, the 32blk fuzz on the native build for this CPU,
+    #     the CLI's numpy tpx rows, the native 32blk decode times
+    host_phases(repo, data, blob, corpus, b3)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hsrans_tpu"))
     if foreign:

@@ -16,7 +16,8 @@ use) behind plain functions on bytes, each with an explicit `device`:
   * `parallel.sharded.mt_decode_device`, `mt_encode_device` (the mt wire
     at n = 16, 32 and 64, the decode with the JAX package's fallback chain)
     and `parallel.tpx_sharded.tpx_decode_device`, `tpx_encode_device`, each
-    split over a list of devices with `devices=`
+    split over a list of devices with `devices=` (flat, or a nested list of
+    hosts x cards for the JAX package's two-level mesh axis)
 
 `device="cuda"` runs the kernels and raises where there is no card;
 `device="cpu"` runs their plain PyTorch versions.  The JAX package's
@@ -28,13 +29,13 @@ The host codecs, as in the JAX package: the raw (`raw_encode`,
 (`block_encode`, `block_decode`) and mt (`mt_encode`, `mt_decode`) wires on
 the native C++ runtime (`runtime/native.py`, built by `g++` at first use),
 and their numpy authorities (`raw_encode_16w`, `raw_decode_16w`,
-`blk32_encode`, `blk32_decode`, and `ops.block`'s and `ops.mt`'s `*_py`
-functions); the histogram model (`Hist`, `make_hist`, `normalize_hist`,
-`observe_hist`).  The host tier of the wires is a numpy copy of the JAX
-package's in `ops/`, `models/` and `parallel/`, held equal to it by the
-tests, so the port imports neither jax nor any module of `hsrans_tpu`.
-The JAX package's numpy tpx codec (`tpx_encode`, `tpx_decode`) has no copy
-here: the tpx wire runs on the kernels or their plain versions.
+`blk32_encode`, `blk32_decode`, `tpx_encode`, `tpx_decode`, and
+`ops.block`'s and `ops.mt`'s `*_py` functions); the histogram model
+(`Hist`, `make_hist`, `normalize_hist`, `observe_hist`).  The host tier of
+the wires is a numpy copy of the JAX package's in `ops/`, `models/` and
+`parallel/`, and the native runtime a copy of its C++ in `csrc/host/`, each
+held equal to the original by the tests, so the port imports neither jax
+nor any module of `hsrans_tpu`.
 
 `python -m hsrans_tpu_torch.cli <file> --test` is the hsrans-compatible CLI.
 """
@@ -49,14 +50,14 @@ from .ops.block import block_decode, block_encode
 from .ops.mt import mt_decode, mt_encode
 from .ops.raw_scan import raw_decode_torch, raw_encode_torch
 from .ops.reference import raw_decode, raw_decode_16w, raw_encode, raw_encode_16w
-from .ops.tpx import TpxParams
+from .ops.tpx import TpxParams, tpx_decode, tpx_encode
 from .runtime.device import banner, detect
 
 __all__ = [
     "Hist", "make_hist", "normalize_hist", "observe_hist",
     "raw_encode", "raw_decode", "raw_encode_16w", "raw_decode_16w",
     "blk32_encode", "blk32_decode", "blk32_encode_host", "blk32_decode_host",
-    "block_encode", "block_decode", "mt_encode", "mt_decode", "TpxParams",
+    "block_encode", "block_decode", "mt_encode", "mt_decode", "TpxParams", "tpx_encode", "tpx_decode",
     "mt_decode_torch", "mt_encode_torch", "raw_decode_torch", "raw_encode_torch", "tpx_decode_torch",
     "tpx_encode_torch", "tpx_encode_adaptive_torch", "banner", "detect",
 ]

@@ -22,9 +22,8 @@ codes (the reference binary's interface, main.cpp:367-399):
                         device: the CUDA kernels on the card (auto means
                         device; without a card the CLI exits 2);
                         interpret: the kernels' plain PyTorch versions on
-                        the CPU; numpy: the numpy host codecs, and the tpx
-                        rows on the plain PyTorch versions (the port keeps
-                        no numpy tpx codec)
+                        the CPU; numpy: the numpy host codecs, the tpx
+                        rows on the numpy tpx codec
     --no-sleep / --low-mem    accepted for flag parity
     --cpu-core N        pin the process to core N
 
@@ -33,8 +32,9 @@ The raw, 32blk, block and mt rows run on the host: the native C++ codecs
 rows and the mt dev row run the port's entry points (`tpx_encode_torch`,
 `tpx_encode_adaptive_torch`, `tpx_decode_torch`; `mt_encode_torch` in
 uniform 4096-byte blocks and `mt_decode_torch` at n=64) on the card, or on
-the CPU at the interpret tier.  The mt dev row has no host fallback: a
-decode that gives None is a MISMATCH.
+the CPU at the interpret tier; at the numpy tier the tpx rows run the
+numpy tpx codec (`ops/tpx.py`) and there is no mt dev row.  The mt dev
+row has no host fallback: a decode that gives None is a MISMATCH.
 
 Output mirrors the reference's table: ratio, encode MiB/s (best run),
 decode max/avg/min MiB/s and per-run σ (main.cpp:72-118's stat set).
@@ -59,7 +59,7 @@ def _build_codecs(args) -> list[dict]:
     from .kernels.tpx_decode import tpx_decode_torch
     from .kernels.tpx_encode import tpx_encode_adaptive_torch, tpx_encode_torch
     from .models.histogram import make_hist
-    from .ops import blk32, block, mt, reference
+    from .ops import blk32, block, mt, reference, tpx
 
     bits_range = range(args["hist_min"], args["hist_max"] + 1)
     codecs = []
@@ -120,9 +120,16 @@ def _build_codecs(args) -> list[dict]:
                     bits,
                 )
         if args["tpx"]:
-            dec = lambda c: tpx_decode_torch(c, device=dev)  # noqa: E731
-            add("tpx rANS32x128x1024", (lambda b: lambda d: tpx_encode_torch(d, b, device=dev))(bits), dec, bits)
-            add("tpx adaptive (v3)", (lambda b: lambda d: tpx_encode_adaptive_torch(d, b, device=dev))(bits), dec, bits)
+            if scalar:
+                dec = tpx.tpx_decode
+                enc = (lambda b: lambda d: tpx.tpx_encode(d, b))(bits)
+                enc_a = (lambda b: lambda d: tpx.tpx_encode_adaptive(d, b))(bits)
+            else:
+                dec = lambda c: tpx_decode_torch(c, device=dev)  # noqa: E731
+                enc = (lambda b: lambda d: tpx_encode_torch(d, b, device=dev))(bits)
+                enc_a = (lambda b: lambda d: tpx_encode_adaptive_torch(d, b, device=dev))(bits)
+            add("tpx rANS32x128x1024", enc, dec, bits)
+            add("tpx adaptive (v3)", enc_a, dec, bits)
     return codecs
 
 
@@ -250,10 +257,7 @@ def main(argv: list[str] | None = None, on_row=None) -> int:
             print(f"warning: --cpu-core {core} not applied: {e}", file=sys.stderr)
     cap = detect() if tier == "cuda" else dataclasses.replace(detect(), platform="cpu", device_kind="cpu",
                                                              num_devices=1)
-    line = banner(dataclasses.replace(cap, tier=tier))
-    if tier == "numpy" and args["tpx"]:
-        line += " (tpx rows: tier 'torch' on the CPU, the port has no numpy tpx codec)"
-    print(line)
+    print(banner(dataclasses.replace(cap, tier=tier)))
 
     data = np.fromfile(args["file"], dtype=np.uint8)
     want = data.tobytes()

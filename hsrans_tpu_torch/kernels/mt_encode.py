@@ -34,7 +34,7 @@ from ..ops.mt import _as_array
 from ..ops.planner import BlockPlan
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
 from ..runtime import build
-from ..runtime.device import layer_clock, resolve, shares
+from ..runtime.device import layer_clock, resolve_all, shares
 from .scan import encode_section_kernel
 from .tpx_decode import from_u32, to_u32
 
@@ -515,8 +515,10 @@ def mt_encode_torch(
     plan: list[BlockPlan] | None = None,
     device: str | torch.device = "cuda",
     layers: dict[str, float] | None = None,
+    devices: list | None = None,
 ) -> bytes:
-    """Encode to the mt_rANS32x64 16w wire on `device`; equal to the JAX
+    """Encode to the mt_rANS32x64 16w wire on `device`, or with the blocks
+    split over `devices` (flat, or nested hosts x cards); equal to the JAX
     package's `mt64_encode_tpu(data, bits, block_size, plan=plan)`.
 
     Without `plan`: uniform `block_size` blocks (a multiple of 512, and of
@@ -530,8 +532,8 @@ def mt_encode_torch(
     boundary."""
     if plan is None and not _kernel_block_ok(block_size):
         raise ValueError("block_size must be a multiple of 512 (of 8192 above 8 KiB)")
-    dev = resolve(device)
+    devs = resolve_all(device, devices)
     arr = _as_array(data)
     if plan is None:
         plan = uniform_rows(arr.size, block_size)
-    return encode_plan(arr, plan, bits, 64, "groups", [dev], layers)
+    return encode_plan(arr, plan, bits, 64, "groups", devs, layers)

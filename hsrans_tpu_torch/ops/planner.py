@@ -7,8 +7,8 @@ The port's copy of `hsrans_tpu/ops/planner.py`, so that the port loads no
 module of the JAX package: `plan_blocks_py`, the pure-Python planner (the
 per-B HistReplaceMul and MinBlockSize tables of each mode; mt adds the
 2^25 block cap and the header-amortization bias), and `plan_blocks`, the
-same plan from native/hsrans_native.cpp:hsr_plan_blocks on the port's
-native loader.  `tests/test_torch_host_tier.py`,
+same plan from hsr_plan_blocks of the port's native runtime
+(`csrc/host/hsrans_native.cpp`, `runtime/native.py`).  `tests/test_torch_host_tier.py`,
 `tests/test_torch_mt_decode.py` and `tests/test_torch_host_codecs.py` hold
 the plans equal to the original's.
 """

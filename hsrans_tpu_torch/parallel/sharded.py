@@ -8,7 +8,9 @@ scan decode kernel (`kernels/scan.py`) on the shared word stream.
 `mt_encode_device` encodes every coded block from fresh states through
 `kernels/mt_encode.py::encode_plan`: the mt encode kernel at n = 32 and 64,
 the scan encode kernel at n = 16, one placement of the wire for both.
-`shard_map` over a mesh axis becomes `devices=`, a list of torch devices:
+`shard_map` over a mesh axis becomes `devices=`, a list of torch devices,
+or a nested list of hosts x cards for the JAX package's two-level ("dcn",
+"ici") axis, flattened host-major (`runtime/device.py::flatten_devices`):
 the block batch is padded to a multiple of its length, each device takes
 its contiguous share and runs the same kernels, and the outputs are
 gathered in order, so the bytes are the same for every device count.
@@ -34,7 +36,16 @@ from ..ops.planner import BlockPlan, plan_blocks_py
 from ..ops.tpx import make_tile_hist
 from ..rans import IDX2IDX, INV_IDX2IDX
 from ..runtime import native
-from ..runtime.device import resolve_all, shares
+from ..runtime.device import flatten_devices, resolve_all, shares
+
+
+def axis_size(devices) -> int:
+    """The number of devices a call splits over: 1 for None or an empty
+    list, else the length of the flat list or of the nested hosts x cards
+    one flattened (the JAX package's `axis_size` over one mesh axis name or
+    a ("dcn", "ici") tuple)."""
+    return len(flatten_devices(devices)) or 1
+
 
 def uniform_plan(data: np.ndarray, bits: int, n: int, block_size: int = 1 << 16) -> list[BlockPlan]:
     """Fixed-size segmentation: every coded block has the same size, the

@@ -4,7 +4,9 @@ port of `hsrans_tpu/parallel/tpx_sharded.py`.
 tpx megablocks are self-contained (own state snapshots, per-tile
 histograms, rows' own streams), so where the JAX package shards the mega
 axis over a mesh with `shard_map`, `tpx_encode_torch` and `tpx_decode_torch`
-take `devices=`: each device takes a contiguous share of the megas
+take `devices=` (a flat list, or a nested list of hosts x cards for the JAX
+package's ("dcn", "ici") axis tuple, flattened host-major): each device
+takes a contiguous share of the megas
 (`runtime/device.py::shares`) through the same one-launch kernels, and the
 sections and the decoded bytes are gathered in order, so the bytes are the
 same for every device count.  The functions here keep the JAX package's

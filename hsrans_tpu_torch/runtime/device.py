@@ -6,9 +6,9 @@ Counterpart of `hsrans_tpu/runtime/device.py`.  Tiers:
   torch  — their plain PyTorch versions on the CPU (the analog of Pallas
            interpret mode)
 
-The numpy tier stays in the JAX package (`hsrans_tpu.ops.tpx`).  Asking for
-`cuda` where there is no card raises: nothing here degrades silently to
-another tier.
+The numpy tier is the host codecs of `ops/` (`ops/tpx.py` for the tpx
+wire), reached by their own names.  Asking for `cuda` where there is no
+card raises: nothing here degrades silently to another tier.
 """
 
 from __future__ import annotations
@@ -57,12 +57,24 @@ def resolve(device: str | torch.device) -> torch.device:
     return dev
 
 
+def flatten_devices(devices) -> list:
+    """`devices=` as one flat list: a flat list as it is, a nested list of
+    hosts x cards host-major (host 0's cards, then host 1's, ...), so that
+    consecutive shares land on one host, as the JAX package's ("dcn",
+    "ici") axis tuple shards its outer name slowest."""
+    out = []
+    for d in devices or ():
+        out.extend(flatten_devices(d) if isinstance(d, (list, tuple)) else [d])
+    return out
+
+
 def resolve_all(device: str | torch.device, devices=None) -> list[torch.device]:
-    """The devices a call splits its batch over: each of `devices`
-    resolved, or `[resolve(device)]` when it is None or empty (the
-    counterpart of a mesh axis; a list may name one device more than
-    once)."""
-    return [resolve(d) for d in devices] if devices else [resolve(device)]
+    """The devices a call splits its batch over: each of `devices` (flat, or
+    nested hosts x cards, `flatten_devices`) resolved, or
+    `[resolve(device)]` when it names none (the counterpart of a mesh axis;
+    a list may name one device more than once)."""
+    flat = flatten_devices(devices)
+    return [resolve(d) for d in flat] if flat else [resolve(device)]
 
 
 def shares(devices: list[torch.device], count: int) -> list[tuple[torch.device, int, int]]:

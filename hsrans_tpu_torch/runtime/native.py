@@ -1,17 +1,20 @@
 """Build-on-demand of the native host runtime and its ctypes bindings.
 
-The port's loader for the C++ host codecs of `native/` (`hsrans_native.cpp`,
-the block planner; `hsrans_codec.cpp`, the raw, 32blk, block and mt codecs
-on AVX-512), the counterpart of `hsrans_tpu/runtime/native.py`.  It binds
-only what the port's host rows run: `hsr_plan_blocks` and the `hsr_raw_*`,
-`hsr_blk32_*`, `hsr_block_*` and `hsr_mt_*` codecs.
+The port's loader for its own copy of the JAX package's C++ host runtime,
+`csrc/host/` (`hsrans_native.cpp`: histograms, normalization, the block
+planner, FNV-1a; `hsrans_codec.cpp`: the raw, 32blk, block and mt codecs on
+AVX-512), the counterpart of `hsrans_tpu/runtime/native.py` with the same
+functions and signatures.  The copy differs from the original in one place:
+`hsr_blk32_decode` reads every word past a lane's payload as 0, as the
+numpy 32blk decoder does, where the original reads uninitialized slack
+(`tests/test_torch_host_codecs.py` holds the rest of both files equal).
 
-`g++` builds both sources with `native/Makefile`'s flags, at first use
+`g++` builds both sources with the original's Makefile flags, at first use
 (never at import), into the same directory as the CUDA library
-(`runtime/build.py::build_dir`, `build/hsrans_tpu_torch/` in a checkout),
-never into `native/`.  The library's name carries a hash of the sources,
-the flags, the compiler's version and what `-march=native` expands to on
-this host, so an edit or another CPU rebuilds.  The build runs under an
+(`runtime/build.py::build_dir`, `build/hsrans_tpu_torch/` in a checkout).
+The library's name carries a hash of the sources, the flags, the
+compiler's version and what `-march=native` expands to on this host, so
+an edit or another CPU rebuilds.  The build runs under an
 `fcntl` lock beside the library, so concurrent processes (the workers of a
 test run) link it once and none loads a half-written file.  A missing
 compiler or a failed build raises: nothing here falls back to the numpy
@@ -51,8 +54,8 @@ class PlanRow(ctypes.Structure):
 
 
 def source_dir() -> Path:
-    """`native/` of the checkout the package sits in."""
-    return Path(__file__).resolve().parent.parent.parent / "native"
+    """The package's own copy of the C++ host runtime, `csrc/host/`."""
+    return Path(__file__).resolve().parent.parent / "csrc" / "host"
 
 
 def _cxx() -> str:
@@ -93,6 +96,17 @@ def _compile(so: Path) -> None:
 
 def _bind(lib) -> None:
     u8p = ctypes.POINTER(ctypes.c_uint8)
+    u16p = ctypes.POINTER(ctypes.c_uint16)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.hsr_fnv1a.restype = ctypes.c_uint64
+    lib.hsr_fnv1a.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
+    lib.hsr_observe_hist.restype = None
+    lib.hsr_observe_hist.argtypes = [u8p, ctypes.c_uint64, u32p]
+    lib.hsr_normalize_hist.restype = None
+    lib.hsr_normalize_hist.argtypes = [u32p, ctypes.c_uint64, ctypes.c_uint32, u16p, u16p]
+    lib.hsr_hist_blocks.restype = None
+    lib.hsr_hist_blocks.argtypes = [u8p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int64, u16p, u16p,
+                                    ctypes.c_int32]
     lib.hsr_plan_blocks.restype = ctypes.c_int64
     lib.hsr_plan_blocks.argtypes = [u8p, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64,
                                     ctypes.POINTER(PlanRow), ctypes.c_int64]
@@ -128,10 +142,51 @@ def _u8p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 
 
+def _u16p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16))
+
+
+def _u32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
+
+
 def _as_u8(data) -> np.ndarray:
     if isinstance(data, (bytes, bytearray, memoryview)):
         return np.frombuffer(data, dtype=np.uint8)
     return np.ascontiguousarray(data, dtype=np.uint8)
+
+
+def fnv1a(data: bytes) -> int:
+    """64-bit FNV-1a of `data`."""
+    return int(load().hsr_fnv1a(bytes(data), len(data)))
+
+
+def observe_hist(data: np.ndarray) -> np.ndarray:
+    """Byte counts, u32[256]."""
+    data = _as_u8(data)
+    out = np.zeros(256, dtype=np.uint32)
+    load().hsr_observe_hist(_u8p(data), data.size, _u32p(out))
+    return out
+
+
+def normalize_hist(hist: np.ndarray, data_bytes: int, bits: int) -> tuple[np.ndarray, np.ndarray]:
+    """(freq u16[256], cumul u16[256]) of counts normalized to 2^bits."""
+    hist = np.ascontiguousarray(hist, dtype=np.uint32)
+    freq = np.zeros(256, dtype=np.uint16)
+    cumul = np.zeros(256, dtype=np.uint16)
+    load().hsr_normalize_hist(_u32p(hist), data_bytes, bits, _u16p(freq), _u16p(cumul))
+    return freq, cumul
+
+
+def hist_blocks(data: np.ndarray, block_size: int, bits: int, n_blocks: int, threads: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Observe and normalize uniform blocks on the library's threads:
+    (freq u16[n_blocks, 256], cumul u16[n_blocks, 256]); the last block
+    takes the remainder, blocks past the data the 1-symbol histogram."""
+    data = _as_u8(data)
+    freq = np.zeros((n_blocks, 256), dtype=np.uint16)
+    cumul = np.zeros((n_blocks, 256), dtype=np.uint16)
+    load().hsr_hist_blocks(_u8p(data), data.size, block_size, bits, n_blocks, _u16p(freq), _u16p(cumul), threads)
+    return freq, cumul
 
 
 def plan_blocks(data: np.ndarray, bits: int, mode: str, state_count: int) -> list[dict] | None:
@@ -159,6 +214,13 @@ def _encode(fn_name: str, data, bits: int, n: int, capacity: int) -> bytes | Non
     out = np.zeros(capacity, dtype=np.uint8)
     got = getattr(lib, fn_name)(_u8p(data), data.size, _u8p(out), out.size, bits, n)
     return out[:got].tobytes() if got >= 0 else None
+
+
+def codec_call_len(fn_name: str, src: np.ndarray, dst: np.ndarray, bits: int, n: int, *extra) -> int:
+    """One codec call on caller-owned buffers, reused across timed runs
+    (the reference bench preallocates both): the native return value, no
+    copy of the output."""
+    return int(getattr(load(), fn_name)(_u8p(src), src.size, _u8p(dst), dst.size, bits, n, *extra))
 
 
 def _decode(fn_name: str, blob, bits: int, n: int, *extra) -> bytes | None:

@@ -1,8 +1,8 @@
 """The port's CLI (`hsrans_tpu_torch/cli.py`) against the JAX package's
 (`hsrans_tpu/cli.py`): the same parse for the same argv, the same rows and
-the same bytes row for row, its two deliberate differences (no card means
-no table; the tpx rows of the numpy tier run the plain PyTorch versions),
-the mt dev row without a host fallback, and the profiler
+the same bytes row for row, its deliberate differences (no card means no
+table; the mt dev row without a host fallback), the numpy tier's tpx rows
+on the numpy tpx codec as the JAX CLI's, and the profiler
 (`utils/profiling.py`)."""
 
 import json
@@ -103,24 +103,28 @@ def test_no_card_exits_nonzero_without_a_table(small_file, backend, capsys):
 
 
 def test_numpy_tier_runs_tpx_rows_on_the_torch_tier(small_file, monkeypatch, capsys):
-    """Deliberate difference: the port keeps no numpy tpx codec, so at the
-    numpy tier the tpx rows run the plain PyTorch versions on the CPU, and
-    the banner says so; the host rows run the numpy codecs, not native."""
+    """No longer a difference (the name is kept): at the numpy tier the tpx
+    rows run the port's numpy tpx codec, as the JAX CLI's run its own
+    (`hsrans_tpu/cli.py:110-117`), never the torch tier, and the banner
+    carries no note; the host rows run the numpy codecs, not native."""
     from hsrans_tpu_torch.kernels import tpx_decode, tpx_encode
-    from hsrans_tpu_torch.ops import reference
+    from hsrans_tpu_torch.ops import reference, tpx
     from hsrans_tpu_torch.runtime import native
 
-    devices = []
+    calls = []
     for mod, name in ((tpx_encode, "tpx_encode_torch"), (tpx_encode, "tpx_encode_adaptive_torch"),
                       (tpx_decode, "tpx_decode_torch")):
-        real = getattr(mod, name)
-        monkeypatch.setattr(mod, name, lambda *a, real=real, **kw: devices.append(kw["device"]) or real(*a, **kw))
+        monkeypatch.setattr(mod, name, lambda *a, **kw: pytest.fail("a tpx row ran the torch tier at the numpy tier"))
+    for name in ("tpx_encode", "tpx_encode_adaptive", "tpx_decode"):
+        real = getattr(tpx, name)
+        monkeypatch.setattr(tpx, name, lambda *a, real=real, name=name, **kw: calls.append(name) or real(*a, **kw))
     monkeypatch.setattr(native, "load", lambda: pytest.fail("the numpy tier loaded the native library"))
     monkeypatch.setattr(reference, "raw_encode", lambda *a: pytest.fail("native raw row at the numpy tier"))
     assert pcli.main([str(small_file), "--test", "--backend", "numpy", "--hist-min", "12", "--hist-max", "12"]) == 0
     out = capsys.readouterr().out
-    assert "tier 'numpy'" in out and "tpx rows: tier 'torch' on the CPU" in out
-    assert devices == ["cpu"] * 4 and "dev 12" not in out
+    assert "tier 'numpy'" in out and "tpx rows" not in out and "torch" not in out.splitlines()[0]
+    assert sorted(calls) == ["tpx_decode", "tpx_decode", "tpx_encode", "tpx_encode_adaptive"]
+    assert "dev 12" not in out and "tpx rANS32x128x1024 12" in out and "tpx adaptive (v3) 12" in out
 
 
 def test_mt_dev_row_has_no_host_fallback(small_file, monkeypatch, capsys):

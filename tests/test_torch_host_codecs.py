@@ -109,27 +109,107 @@ def test_blk32_edge_lengths(word_bits):
     assert pb.blk32_encode_host(empty, 12, word_bits) == jb.blk32_encode_host(empty, 12, word_bits)
 
 
+def _decode_host_over_heap(blob: bytes, word_bits: int, fill: int) -> bytes | None:
+    """The port's native 32blk decode of `blob` copied into a buffer filled
+    with `fill` past its end, right after a `fill`-filled block the size of
+    the decoder's lane buffer was freed (so the heap it allocates from is
+    likely to hold `fill`)."""
+    buf = np.full(len(blob) + 4096, fill, np.uint8)
+    buf[: len(blob)] = np.frombuffer(blob, np.uint8)
+    junk = np.full(400_000, fill, np.uint8)
+    del junk
+    return pb.blk32_decode_host(buf[: len(blob)], 12, word_bits)
+
+
+def _lanes_past_the_blob(blob: bytes) -> bool:
+    """The header's 31 lane sizes put lane 31's start past the blob's end
+    (the native decoder's refusal, ROADMAP queue 3)."""
+    sizes = np.frombuffer(blob[656:780], "<u4").astype(np.int64)
+    return 780 + int(sizes.sum()) > len(blob)
+
+
 @pytest.mark.parametrize("word_bits", (16, 8))
 def test_blk32_malformed_equals_original(word_bits):
     """Short blobs, truncations and byte flips: the port's numpy decoder
-    gives what the JAX package's gives, None or the same bytes, and so does
-    its native decoder on the short and truncated blobs.  On a flipped
-    payload the native decoder (both packages' build of one source) reads
-    the renormalization slack it leaves uninitialized on purpose
-    (native/hsrans_codec.cpp::hsr_blk32_decode), so its bytes there depend
-    on the heap, not on the blob: only the outcome and its length are held."""
+    gives what the JAX package's gives, None or the same bytes, and the
+    port's native decoder gives the numpy decoder's bytes, under a heap
+    filled with 0x00 and with 0xFF: its copy of the C++ reads every word
+    past a lane's payload as 0, as the numpy decoder's zero-padded lanes
+    do, where the original reads slack it leaves uninitialized."""
     for short in (b"\0" * 10, b"\0" * 2000):
         assert pb.blk32_decode(short, 12, word_bits) is None is jb.blk32_decode(short, 12, word_bits)
         assert pb.blk32_decode_host(short, 12, word_bits) == jb.blk32_decode_host(short, 12, word_bits)
     data = text_like(np.random.default_rng(21), 40_000)
     blob = pb.blk32_encode(data, ph.make_hist(data, 12), word_bits)
     variants = _malformed()(blob, 34 + word_bits)
+    outcomes = set()
     for i, b in enumerate(variants):
-        assert pb.blk32_decode(b, 12, word_bits) == jb.blk32_decode(b, 12, word_bits)
-        got, want = pb.blk32_decode_host(b, 12, word_bits), jn.blk32_decode(b, 12, word_bits)
+        want = pb.blk32_decode(b, 12, word_bits)
+        assert want == jb.blk32_decode(b, 12, word_bits)
+        for fill in (0x00, 0xFF):
+            assert _decode_host_over_heap(b, word_bits, fill) == want, (i, fill)
         if i < 11:  # the truncations
-            assert got == want
-        assert (got is None) == (want is None) and (got is None or len(got) == len(want))
+            assert jn.blk32_decode(b, 12, word_bits) == want
+        outcomes.add(None if want is None else want == data.tobytes())
+    assert outcomes >= {None, False}  # refusals and bytes that differ from the input
+
+
+@pytest.mark.parametrize("word_bits", (16, 8))
+def test_blk32_corrupted_blob_decodes_to_bytes_of_the_blob_alone(word_bits):
+    """300 blobs, each one byte XORed (position, then value, from
+    `default_rng(50)`): the port's native decoder gives the numpy decoder's
+    bytes under both heap fills.  The one class that differs is recorded in
+    ROADMAP queue 3 and held here: lane sizes that run past the blob, which
+    the native decoder refuses and the numpy one decodes as zero-padded."""
+    data = text_like(np.random.default_rng(21), 40_000)
+    blob = pb.blk32_encode(data, ph.make_hist(data, 12), word_bits)
+    rng = np.random.default_rng(50)
+    refused = differ = 0
+    for i in range(300):
+        b = bytearray(blob)
+        b[int(rng.integers(0, len(blob)))] ^= int(rng.integers(1, 256))
+        b = bytes(b)
+        want = pb.blk32_decode(b, 12, word_bits)
+        for fill in (0x00, 0xFF):
+            got = _decode_host_over_heap(b, word_bits, fill)
+            if got is None and want is not None and _lanes_past_the_blob(b):
+                refused += 1
+                continue
+            assert got == want, (i, fill)
+        differ += want is not None and want != data.tobytes()
+    assert refused == 2 and differ > 100
+
+
+def test_blk32_header_residue_against_numpy():
+    """Corrupted 32blk headers where the native decoders (both packages')
+    and the numpy ones (both packages') part, ROADMAP queue 3: lane sizes
+    past the blob (native None, numpy bytes); a compressed length below the
+    blob's (the native decoders read the last lane to the blob's end and
+    give the input back, the numpy ones stop it at the header's length);
+    an odd lane size on the 16w wire (native None, numpy raises
+    ValueError, a fault of the reference's numpy decoder)."""
+    data = text_like(np.random.default_rng(21), 40_000)
+    for word_bits in (16, 8):
+        blob = pb.blk32_encode(data, ph.make_hist(data, 12), word_bits)
+        past = bytearray(blob)
+        past[779] ^= 0x40  # lane 30's size + 2^30
+        assert _lanes_past_the_blob(bytes(past))
+        short = bytearray(blob)
+        short[8] ^= 6  # the compressed length 2 or 6 bytes short
+        for b, native_want, numpy_first_diff in ((past, None, None), (short, data.tobytes(), 39_807)):
+            b = bytes(b)
+            assert pb.blk32_decode_host(b, 12, word_bits) == jn.blk32_decode(b, 12, word_bits) == native_want
+            got = pb.blk32_decode(b, 12, word_bits)
+            assert got == jb.blk32_decode(b, 12, word_bits) and len(got) == data.size
+            if numpy_first_diff is not None:
+                diff = np.nonzero(np.frombuffer(got, np.uint8) != data)[0]
+                assert diff[0] == numpy_first_diff
+    odd = bytearray(pb.blk32_encode(data, ph.make_hist(data, 12), 16))
+    odd[700] ^= 1  # lane 11's size odd
+    assert pb.blk32_decode_host(bytes(odd), 12, 16) is None is jn.blk32_decode(bytes(odd), 12, 16)
+    for decode in (pb.blk32_decode, jb.blk32_decode):
+        with pytest.raises(ValueError):
+            decode(bytes(odd), 12, 16)
 
 
 @pytest.mark.parametrize("tag,n,bits_list", [("block64", 64, (10, 12, 15)), ("block32", 32, (12,))])
@@ -260,6 +340,106 @@ def test_native_library_is_built_beside_the_kernels_not_in_native():
     assert sorted(p.name for p in (REPO / "native").iterdir()) == before
     for flag in ("-O3", "-march=native", "-std=c++20", "-fPIC", "-fno-exceptions", "-fno-rtti"):
         assert flag in (REPO / "native" / "Makefile").read_text() and flag in pn.CXX_FLAGS
+
+
+# The one change of the port's copy of the C++ host runtime: in
+# hsr_blk32_decode, every word past a lane's payload reads as 0 (the scalar
+# loop's read clamped; a vector-loop decode that consumed past a lane
+# restarts in the scalar loop).  (original text, the copy's text) pairs.
+BLK32_HUNKS = (
+    ("""  // lane's end stay in-bounds on malformed input.  Deliberately left
+  // UNINITIALIZED outside the copied payload (a zero-fill pass measured
+  // ~10% of decode); slack reads yield garbage bytes, never UB.  16w keeps
+  // u16 words; 8w keeps a tight byte mirror (the vector path's scale-1
+  // gather needs 4 real bytes per fetch).
+""", """  // lane's end stay in-bounds on malformed input.  The slack is left
+  // uninitialized (a zero-fill pass measured ~10% of decode), and no word
+  // of it is ever decoded: a read past a lane's payload yields 0, as the
+  // numpy decoder's zero-padded lanes do, so a corrupted blob decodes to
+  // bytes of the blob alone.  The scalar loop clamps each read; the vector
+  // loop reads unbounded, so a lane that consumed past its payload there
+  // sends the whole decode through the scalar loop (a valid blob never
+  // does).  16w keeps u16 words; 8w keeps a tight byte mirror (the vector
+  // path's scale-1 gather needs 4 real bytes per fetch).
+"""),
+    ("""    for (uint32_t j = 0; j < N32; j++) r[j] = r32[j];
+    g0 = full;
+  }
+""", """    bool past = false;
+    for (uint32_t j = 0; j < N32; j++) past |= r32[j] > lane_len[j];
+    if (past) {
+      memcpy(st, blob + 16 + 512, 4 * N32);  // start over, scalar
+    } else {
+      for (uint32_t j = 0; j < N32; j++) r[j] = r32[j];
+      g0 = full;
+    }
+  }
+"""),
+    ("""        const uint64_t at = lane_off[j] + r[j]++;
+        s = (s << shift) | (word_bits == 16 ? lanes16[at] : (uint16_t)lanes8[at]);
+""", """        const uint64_t k = r[j]++;
+        const uint64_t at = lane_off[j] + k;
+        const uint32_t w = k >= lane_len[j] ? 0u : word_bits == 16 ? lanes16[at] : (uint32_t)lanes8[at];
+        s = (s << shift) | w;
+"""),
+)
+
+
+def test_native_builds_from_the_packages_own_sources():
+    """The loader compiles only `hsrans_tpu_torch/csrc/host/`, which
+    pyproject.toml ships as package data, and names no file outside the
+    package in its build command."""
+    import tomllib
+
+    src = pn.source_dir()
+    assert src.is_relative_to(REPO / "hsrans_tpu_torch") and src.name == "host"
+    assert sorted(p.name for p in src.glob("*.cpp")) == sorted(pn._SOURCES)
+    shipped = tomllib.loads((REPO / "pyproject.toml").read_text())["tool"]["setuptools"]["package-data"]
+    assert "csrc/host/*.cpp" in shipped["hsrans_tpu_torch"]
+    pn.load()
+    cmd = pn.library_path().with_suffix(".log").read_text().splitlines()[0]
+    assert all(str(src / name) in cmd for name in pn._SOURCES) and str(REPO / "native") not in cmd
+
+
+def test_native_copy_equals_original_but_the_blk32_hunk():
+    """`csrc/host/hsrans_native.cpp` is `native/hsrans_native.cpp`, and
+    `hsrans_codec.cpp` is the original with `BLK32_HUNKS` applied, each
+    once: any other drift fails."""
+    host = REPO / "hsrans_tpu_torch" / "csrc" / "host"
+    assert (host / "hsrans_native.cpp").read_text() == (REPO / "native" / "hsrans_native.cpp").read_text()
+    text = (REPO / "native" / "hsrans_codec.cpp").read_text()
+    for old, new in BLK32_HUNKS:
+        assert text.count(old) == 1 and "hsr_blk32_decode" in text[: text.index(old)]
+        text = text.replace(old, new)
+    assert (host / "hsrans_codec.cpp").read_text() == text
+    assert not (host / "micro_decode.cpp").exists()
+
+
+@pytest.mark.parametrize("bits", (10, 12, 15))
+def test_native_hist_bindings_equal_original(bits):
+    """`fnv1a`, `observe_hist`, `normalize_hist`, `hist_blocks` (threads 1
+    and all, a remainder block and blocks past the data) and
+    `codec_call_len` equal the JAX package's bindings of the original."""
+    data = text_like(np.random.default_rng(bits), 50_001)
+    for chunk in (b"", b"a", data[:1000].tobytes(), data.tobytes()):
+        assert pn.fnv1a(chunk) == jn.fnv1a(chunk)
+    hist = pn.observe_hist(data)
+    assert hist.dtype == np.uint32 and np.array_equal(hist, jn.observe_hist(data))
+    assert np.array_equal(pn.observe_hist(data[:0]), jn.observe_hist(data[:0]))
+    for h, size in ((hist, data.size), (np.eye(1, 256, 7, dtype=np.uint32)[0] * 5, 5)):
+        got, want = pn.normalize_hist(h, size, bits), jn.normalize_hist(h, size, bits)
+        assert all(np.array_equal(g, w) and g.dtype == np.uint16 for g, w in zip(got, want))
+        assert int(got[0].sum()) == 1 << bits
+    for threads in (1, 0):
+        got, want = pn.hist_blocks(data, 4096, bits, 15, threads), jn.hist_blocks(data, 4096, bits, 15, threads)
+        assert got[0].shape == (15, 256) and all(np.array_equal(g, w) for g, w in zip(got, want))
+    blob = pr.raw_encode(data, bits, 32)
+    for fn, src, dst in (("hsr_raw_encode", data, np.zeros(data.size * 2, np.uint8)),
+                         ("hsr_raw_decode", np.frombuffer(blob, np.uint8), np.zeros(data.size, np.uint8))):
+        other = dst.copy()
+        got = pn.codec_call_len(fn, src, dst, bits, 32)
+        assert got == jn.codec_call_len(fn, src, other, bits, 32) and np.array_equal(dst, other)
+    assert got == data.size and np.array_equal(dst, data)
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -236,3 +236,67 @@ def test_mt_decode_torch_split_puts_each_share_in_place(k):
     for n in (32, 64):
         blob = mt_encode_py(data, 12, n, plan)
         assert mt_decode_torch(blob, 12, n, devices=["cpu"] * k) == port_mt.mt_decode_py(blob, 12, n) == data.tobytes()
+
+
+NESTED = [["cpu"] * 2] * 2  # 2 hosts x 2 cards
+
+
+def test_nested_devices_flatten_host_major():
+    """A nested hosts x cards list flattens host 0's cards first, so
+    consecutive shares land on one host (the JAX package's ("dcn", "ici")
+    axis tuple, outer name slowest); `axis_size` counts the flat list as
+    the JAX function counts a mesh's axes."""
+    from hsrans_tpu_torch.runtime.device import flatten_devices, shares
+
+    hosts = [["h0c0", "h0c1"], ["h1c0", "h1c1"]]
+    assert flatten_devices(hosts) == ["h0c0", "h0c1", "h1c0", "h1c1"]
+    assert flatten_devices(["a", "b"]) == ["a", "b"] and flatten_devices(None) == []
+    assert [d for d, _, _ in shares(flatten_devices(hosts), 8)][:2] == ["h0c0", "h0c1"]
+    assert shares(flatten_devices(hosts), 8) == [("h0c0", 0, 2), ("h0c1", 2, 4), ("h1c0", 4, 6), ("h1c1", 6, 8)]
+
+    class Mesh:
+        shape = {"dcn": 2, "ici": 3}
+
+    assert psh.axis_size([["cpu"] * 3] * 2) == jsh.axis_size(Mesh, ("dcn", "ici")) == 6
+    assert psh.axis_size(["cpu"] * 3) == jsh.axis_size(Mesh, "ici") == 3
+    assert psh.axis_size(None) == psh.axis_size([]) == jsh.axis_size(None, None) == 1
+    assert [d.type for d in psh.resolve_all("cpu", NESTED)] == ["cpu"] * 4
+
+
+def test_nested_devices_keep_the_flat_bytes_mt():
+    """`__graft_entry__.py`'s two-level mesh checks for mt on 2 x 2 CPU
+    devices: `mt_encode_device` gives the flat list's (and the JAX
+    package's) bytes, `mt_decode_device` and `mt_decode_torch` (the
+    `mt64_decode_tpu` check) return the input, and `mt_encode_torch` gives
+    one device's bytes."""
+    rng = np.random.default_rng(42)
+    block = 1 << 12
+    data = np.minimum(rng.geometric(0.11, 4 * 2 * block + 37) - 1, 255).astype(np.uint8)
+    plan = psh.uniform_plan(data, 12, 64, block)
+    flat = psh.mt_encode_device(data, 12, 64, plan=plan, devices=["cpu"] * 4)
+    assert flat == jsh.mt_encode_device(data, 12, 64, plan=jsh.uniform_plan(data, 12, 64, block))
+    assert psh.mt_encode_device(data, 12, 64, plan=plan, devices=NESTED) == flat
+    assert psh.mt_decode_device(flat, 12, 64, devices=NESTED) == data.tobytes()
+    mdata = np.minimum(rng.geometric(0.2, 4 * 3 * 4096 + 55) - 1, 255).astype(np.uint8)
+    mblob = mt_encode_py(mdata, 12, 64, psh.uniform_plan(mdata, 12, 64, 4096))
+    from hsrans_tpu_torch.kernels.mt_decode import mt_decode_torch
+    from hsrans_tpu_torch.kernels.mt_encode import mt_encode_torch
+
+    assert mt_decode_torch(mblob, 12, 64, devices=NESTED) == mdata.tobytes()
+    assert mt_encode_torch(mdata, 12, devices=NESTED) == mt_encode_torch(mdata, 12, device="cpu")
+
+
+def test_nested_devices_keep_the_flat_bytes_tpx():
+    """The same checks for tpx: `tpx_encode_device` on 2 x 2 gives the flat
+    list's bytes (the numpy authority's), `tpx_decode_device` returns the
+    input, and so do the `tpx_*_torch` functions they call."""
+    from hsrans_tpu_torch.kernels.tpx_decode import tpx_decode_torch
+    from hsrans_tpu_torch.kernels.tpx_encode import tpx_encode_torch
+
+    tdata = np.minimum(np.random.default_rng(42).geometric(0.17, 4 * SMALL.mega_bytes + 99) - 1, 255).astype(np.uint8)
+    flat = ptpx.tpx_encode_device(tdata, p=SMALL, devices=["cpu"] * 4)
+    assert flat == tpx_encode(tdata, p=SMALL)
+    assert ptpx.tpx_encode_device(tdata, p=SMALL, devices=NESTED) == flat
+    assert ptpx.tpx_decode_device(flat, devices=NESTED) == tdata.tobytes()
+    assert tpx_encode_torch(tdata, p=SMALL, devices=NESTED) == flat
+    assert tpx_decode_torch(flat, devices=NESTED) == tdata.tobytes()
