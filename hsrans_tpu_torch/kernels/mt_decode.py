@@ -35,7 +35,7 @@ from ..ops.mt import MtBlock, _as_array, block_index
 from ..ops.reference import decode_tail_group
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
 from ..runtime import build
-from ..runtime.device import layer_clock, resolve_all, shares
+from ..runtime.device import entry_span, layer_clock, resolve_all, shares, span
 from .tpx_decode import from_u32, to_u32
 
 _M32 = 0xFFFFFFFF
@@ -377,6 +377,7 @@ def _decode_share(stream: np.ndarray, index, states, fc, *, bits: int, n: int, l
         return decode_blocks(*args, bits=bits, n=n, length=length)
 
 
+@entry_span
 def mt_decode_torch(
     blob: bytes | np.ndarray,
     bits: int,
@@ -414,15 +415,17 @@ def mt_decode_torch(
     if ops is None:
         return None
     index, states, fc = ops
-    out = np.zeros(length, dtype=np.uint8)
+    with span("host_alloc"):
+        out = np.zeros(length, dtype=np.uint8)
     for dev, lo, hi in shares(devs, len(index)):
         # the share's blocks write the bytes [first, end) of the output (block
         # outputs ascend and do not overlap): it decodes into a buffer of
         # that range on its device, copied back to its place
-        sub = index[lo:hi].copy()
-        first = int(sub[0, 2]) if hi > lo else 0
-        end = max(first, min(int(sub[:, 3].max()), length)) if hi > lo else 0
-        sub[:, 2:4] -= first
+        with span("host_shares"):
+            sub = index[lo:hi].copy()
+            first = int(sub[0, 2]) if hi > lo else 0
+            end = max(first, min(int(sub[:, 3].max()), length)) if hi > lo else 0
+            sub[:, 2:4] -= first
         out_t, fin_t, cursor_t = _decode_share(stream, sub, states[lo:hi], fc[lo:hi], bits=bits, n=n,
                                                length=end - first, dev=dev, layers=layers)
         with layer_clock(layers, "d2h", dev):
@@ -448,4 +451,7 @@ def mt_decode_torch(
             perm = IDX2IDX[n]
             sel = (tail_from + perm) < length
             out[tail_from + perm[sel]] = tail[np.arange(n)[sel]]
-        return out.tobytes()
+        res = out.tobytes()
+    with span("host_release"):  # the output's and the stream copy's pages, returned here rather than as the frame ends
+        del out, stream, blocks, indexed
+    return res

@@ -34,7 +34,7 @@ from ..ops.mt import _as_array
 from ..ops.planner import BlockPlan
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
 from ..runtime import build
-from ..runtime.device import layer_clock, resolve_all, shares
+from ..runtime.device import entry_span, layer_clock, resolve_all, shares, span
 from .scan import encode_section_kernel
 from .tpx_decode import from_u32, to_u32
 
@@ -508,6 +508,7 @@ def uniform_rows(length: int, block_size: int) -> list[BlockPlan]:
     return [BlockPlan(s, e - s, False, 0, None) for s, e in zip(starts, ends)]
 
 
+@entry_span
 def mt_encode_torch(
     data: bytes | np.ndarray,
     bits: int,
@@ -535,5 +536,6 @@ def mt_encode_torch(
     devs = resolve_all(device, devices)
     arr = _as_array(data)
     if plan is None:
-        plan = uniform_rows(arr.size, block_size)
+        with span("host_geometry"):
+            plan = uniform_rows(arr.size, block_size)
     return encode_plan(arr, plan, bits, 64, "groups", devs, layers)

@@ -34,7 +34,7 @@ from ..ops.tpx import (
     tpx_plan_geometry,
 )
 from ..runtime import build
-from ..runtime.device import layer_clock, resolve, resolve_all, shares
+from ..runtime.device import entry_span, layer_clock, resolve, resolve_all, shares, span
 from .mt_encode import _input_tensor, magic_tensor, shift_tensor
 from .tpx_decode import WARPS, ctas_of, desc_on, from_u32, to_u32
 
@@ -393,7 +393,10 @@ def _encode_megas(
         blob = blobs[0] if len(blobs) == 1 else np.concatenate(blobs)
         blob[: len(head)] = np.frombuffer(head, np.uint8)
         blob[16:24] = np.array([blob.size], "<u8").view(np.uint8)
-        return blob.tobytes()
+        res = blob.tobytes()
+    with span("host_release"):  # the blob's host pages, returned here rather than as the frame ends
+        del blob, blobs
+    return res
 
 
 def wire_w_slots(max_words: int) -> int:
@@ -402,6 +405,7 @@ def wire_w_slots(max_words: int) -> int:
     return max(128, -(-(-(-max_words // 2)) // 128) * 128)
 
 
+@entry_span
 def tpx_encode_torch(
     data: bytes | np.ndarray,
     bits: int = 12,
@@ -431,10 +435,12 @@ def tpx_encode_torch(
     p = p or TpxParams.auto(length, bits, goal)
     if p.lanes != L or p.steps % 4 or not 10 <= p.bits <= 15:
         raise ValueError("tpx encode requires lanes == 128, steps % 4 == 0 and 10 <= bits <= 15")
-    geoms = [(base, p.rows, p.steps, n_tiles, valid) for base, n_tiles, valid in _mega_layout(length, p)]
+    with span("host_geometry"):
+        geoms = [(base, p.rows, p.steps, n_tiles, valid) for base, n_tiles, valid in _mega_layout(length, p)]
     return _encode_megas(bytes(tpx_header(length, p)), arr, geoms, bits=p.bits, v3=False, devices=devs, layers=layers)
 
 
+@entry_span
 def tpx_encode_adaptive_torch(
     data: bytes | np.ndarray,
     bits: int = 12,
@@ -451,9 +457,10 @@ def tpx_encode_adaptive_torch(
         raise ValueError("tpx encode requires 10 <= bits <= 15")
     arr = _as_array(data)
     length = arr.size
-    geoms = tpx_plan_geometry(arr, bits)
-    g0 = geoms[0]
-    head = MAGIC3 + length.to_bytes(8, "little") + bytes(8)
-    head += b"".join(int(v).to_bytes(4, "little") for v in (bits, g0.rows, L, g0.steps, g0.n_tiles))
-    megas = [(g.base, g.rows, g.steps, g.n_tiles, max(0, min(length - g.base, g.span))) for g in geoms]
+    with span("host_geometry"):
+        geoms = tpx_plan_geometry(arr, bits)
+        g0 = geoms[0]
+        head = MAGIC3 + length.to_bytes(8, "little") + bytes(8)
+        head += b"".join(int(v).to_bytes(4, "little") for v in (bits, g0.rows, L, g0.steps, g0.n_tiles))
+        megas = [(g.base, g.rows, g.steps, g.n_tiles, max(0, min(length - g.base, g.span))) for g in geoms]
     return _encode_megas(head, arr, megas, bits=bits, v3=True, devices=[dev], layers=layers)

@@ -330,21 +330,21 @@ def segment_hists(
         counts = observe_segments_plain(data, starts, ends)
         return normalize_rows_plain(counts, torch.from_numpy(segment_divisors(starts, ends)), bits)
     dev = build.check_cuda("segment_hists", data, uint8=(0,))
-    with layer_clock(split, "checks", dev):
+    with layer_clock(split, "checks", dev, "hist_checks"):
         _check_segments("segment_hists", data, starts, ends)
         _check_bits("segment_hists", bits)
         divisors = segment_divisors(starts, ends)
         _check_divisors("segment_hists", divisors)
-    with layer_clock(split, "table", dev):
+    with layer_clock(split, "table", dev, "hist_table"):
         host = torch.empty((5, divisors.size), dtype=torch.int64, pin_memory=True)  # the table's 4 columns, divisors
         view = host.numpy()
         _, n_short, chunks = segment_table(starts, ends, view[:4])
         view[4] = divisors
-    with layer_clock(split, "h2d", dev):
+    with layer_clock(split, "h2d", dev, "hist_h2d"):
         both = host.to(dev, non_blocking=True)
-    with layer_clock(split, "count", dev):
+    with layer_clock(split, "count", dev, "hist_count"):
         counts = _count(data, both[:4], n_short, chunks)
-    with layer_clock(split, "normalize", dev):
+    with layer_clock(split, "normalize", dev, "hist_normalize"):
         return _normalize(counts, both[4], bits)
 
 

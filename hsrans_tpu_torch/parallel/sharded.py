@@ -36,7 +36,7 @@ from ..ops.planner import BlockPlan, plan_blocks_py
 from ..ops.tpx import make_tile_hist
 from ..rans import IDX2IDX, INV_IDX2IDX
 from ..runtime import native
-from ..runtime.device import flatten_devices, resolve_all, shares
+from ..runtime.device import entry_span, flatten_devices, resolve_all, shares, span
 
 
 def axis_size(devices) -> int:
@@ -65,6 +65,7 @@ def uniform_plan(data: np.ndarray, bits: int, n: int, block_size: int = 1 << 16)
     return rows
 
 
+@entry_span
 def device_plan(data: np.ndarray, bits: int, n: int = 64, max_block: int = 32 << 10) -> list[BlockPlan]:
     """The reference's greedy plan with coded blocks capped at `max_block`.
 
@@ -74,7 +75,9 @@ def device_plan(data: np.ndarray, bits: int, n: int = 64, max_block: int = 32 <<
     oversized coded block into 512-aligned pieces; consecutive piece pairs
     share one histogram taken over their joint span."""
     out: list[BlockPlan] = []
-    for r in plan_blocks_py(data, bits, "mt", n):
+    with span("plan_greedy"):
+        rows = plan_blocks_py(data, bits, "mt", n)
+    for r in rows:
         if r.is_single or r.size <= max_block:
             out.append(r)
             continue
@@ -85,11 +88,12 @@ def device_plan(data: np.ndarray, bits: int, n: int = 64, max_block: int = 32 <<
             continue
         starts = [r.start + i * base for i in range(n_pieces)]
         ends = starts[1:] + [r.start + r.size]
-        for p in range(0, n_pieces, 2):
-            s0, e_last = starts[p], ends[min(p + 1, n_pieces - 1)]
-            freq = make_tile_hist(data[s0:e_last], bits).symbol_count
-            for s, e in zip(starts[p : p + 2], ends[p : p + 2]):
-                out.append(BlockPlan(s, e - s, False, 0, freq))
+        with span("plan_hist"):
+            for p in range(0, n_pieces, 2):
+                s0, e_last = starts[p], ends[min(p + 1, n_pieces - 1)]
+                freq = make_tile_hist(data[s0:e_last], bits).symbol_count
+                for s, e in zip(starts[p : p + 2], ends[p : p + 2]):
+                    out.append(BlockPlan(s, e - s, False, 0, freq))
     return out
 
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import lru_cache, wraps
 
 import torch
 
@@ -88,18 +88,60 @@ def shares(devices: list[torch.device], count: int) -> list[tuple[torch.device, 
     return out or [(devices[0], 0, 0)]
 
 
+def profiling() -> bool:
+    """True while a `torch.profiler` records on this thread."""
+    return torch._C._autograd._profiler_enabled()
+
+
 @contextmanager
-def layer_clock(acc: dict[str, float] | None, key: str, dev: torch.device):
-    """Add the host-clock seconds of the block to `acc[key]`, the device
-    synchronized at both ends so the layer's device work falls inside it.
-    Does nothing, and adds no synchronization, when `acc` is None."""
-    if acc is None:
+def span(name: str):
+    """The block as the range `hsrans.<name>` while a profiler records, on
+    the same timeline and clock as the card's kernels and copies; without
+    a profiler, one check and nothing else.  Never waits for the card."""
+    if not profiling():
         yield
         return
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    yield
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+    with torch.profiler.record_function("hsrans." + name):
+        yield
+
+
+def entry_span(fn):
+    """`fn` as a root range `hsrans.<its name>` while a profiler records:
+    every range a call opens on its thread nests inside it, so the root
+    is the call's identifier and each range's parent is the one around
+    it.  Without a profiler, one check and the call."""
+    name = "hsrans." + fn.__name__
+
+    @wraps(fn)
+    def call(*args, **kwargs):
+        if not profiling():
+            return fn(*args, **kwargs)
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+
+    return call
+
+
+@contextmanager
+def layer_clock(acc: dict[str, float] | None, key: str, dev: torch.device, name: str | None = None):
+    """One layer of a call.  While a profiler records, the block is the
+    range `hsrans.<name>` (`name` defaults to `key`), with no
+    synchronization: the card's work it launches is linked to it through
+    the trace's correlation ids.  With `acc`, also adds the host-clock
+    seconds of the block to `acc[key]`, the device synchronized at both
+    ends so the layer's device work falls inside it.  With neither, one
+    check and nothing else."""
+    if acc is None and not profiling():
+        yield
+        return
+    with span(name or key):
+        if acc is None:
+            yield
+            return
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0

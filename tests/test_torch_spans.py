@@ -1,0 +1,141 @@
+"""The port's profiler ranges (`runtime/device.py::layer_clock`, `span`,
+`entry_span`).  Under `torch.profiler` each public call leaves one root
+range `hsrans.<entry point>` with every `hsrans.*` range of the call inside
+it and a range `hsrans.<key>` for each key that `layers=` reports, and the
+card is never synchronized; with no profiler and no `layers=`, no range is
+entered.  All on the CPU tier."""
+
+import json
+from functools import cache
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from hsrans_tpu_torch import mt_decode_torch, mt_encode_torch, tpx_decode_torch, tpx_encode_adaptive_torch
+from hsrans_tpu_torch import tpx_encode_torch
+from hsrans_tpu_torch.parallel.sharded import device_plan
+from hsrans_tpu_torch.runtime.device import layer_clock
+
+
+@cache
+def data() -> bytes:
+    """Text-like bytes: the greedy planner's coded rows are longer than
+    `MAX_BLOCK`, so `device_plan` cuts them and takes the pieces'
+    histograms."""
+    rng = np.random.default_rng(19)
+    return (rng.zipf(1.3, 60_000).clip(1, 60).astype(np.uint8) + 32).tobytes()
+
+
+MAX_BLOCK = 4096
+
+
+@cache
+def plan():
+    return device_plan(np.frombuffer(data(), np.uint8), 12, 64, MAX_BLOCK)
+
+
+@cache
+def tpx_blob() -> bytes:
+    return tpx_encode_torch(data(), 12, device="cpu")
+
+
+@cache
+def mt_blob() -> bytes:
+    return mt_encode_torch(data(), 12, plan=plan(), device="cpu")
+
+
+def rows(plan) -> list[tuple]:
+    """A plan's rows as comparable tuples."""
+    return [(r.start, r.size, r.is_single, r.symbol, None if r.freq is None else r.freq.tolist()) for r in plan]
+
+
+# each entry point on the CPU tier, with `layers` where it takes them
+CALLS = {
+    "tpx_encode_torch": lambda layers: tpx_encode_torch(data(), 12, device="cpu", layers=layers),
+    "tpx_encode_adaptive_torch": lambda layers: tpx_encode_adaptive_torch(data(), 12, device="cpu", layers=layers),
+    "tpx_decode_torch": lambda layers: tpx_decode_torch(tpx_blob(), device="cpu", layers=layers),
+    "mt_encode_torch": lambda layers: mt_encode_torch(data(), 12, plan=plan(), device="cpu", layers=layers),
+    "mt_decode_torch": lambda layers: mt_decode_torch(mt_blob(), 12, 64, device="cpu", layers=layers),
+    "device_plan": lambda layers: rows(device_plan(np.frombuffer(data(), np.uint8), 12, 64, MAX_BLOCK)),
+}
+# ranges a call must open beside the keys `layers=` reports
+MORE = {"device_plan": {"hsrans.plan_greedy", "hsrans.plan_hist"},
+        "tpx_encode_adaptive_torch": {"hsrans.host_geometry"}}
+
+
+def expected(name: str):
+    """The call's answer with no profiler (its operands made first, outside
+    any profiler)."""
+    return CALLS[name](None)
+
+
+def ranges(prof) -> list[tuple[str, float, float]]:
+    """The `hsrans.*` ranges the profiler recorded: (name, start, end)."""
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events() if e.name.startswith("hsrans.")]
+
+
+def profiled(name: str, layers):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = CALLS[name](layers)
+    return out, ranges(prof)
+
+
+def boom(*args, **kwargs):
+    raise RuntimeError("not to be called here")
+
+
+@pytest.mark.parametrize("name", list(CALLS))
+def test_one_root_holds_every_range_and_each_layer(name):
+    want, layers = expected(name), {}
+    out, got = profiled(name, layers)
+    assert out == want
+    roots = [r for r in got if not any(o is not r and o[1] <= r[1] and r[2] <= o[2] for o in got)]
+    assert [r[0] for r in roots] == [f"hsrans.{name}"]
+    assert len(got) > 1
+    names = {r[0] for r in got}
+    assert {f"hsrans.{k}" for k in layers} | MORE.get(name, set()) <= names
+    if name != "device_plan":
+        assert layers
+
+
+@pytest.mark.parametrize("name", list(CALLS))
+def test_profiled_call_never_synchronizes(name, monkeypatch):
+    want = expected(name)
+    _, with_clocks = profiled(name, {})
+    monkeypatch.setattr(torch.cuda, "synchronize", boom)
+    out, got = profiled(name, None)
+    assert out == want
+    assert sorted({r[0] for r in got}) == sorted({r[0] for r in with_clocks})
+
+
+def test_layer_clock_under_the_profiler_never_waits_for_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", boom)
+    card = torch.device("cuda", 0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with layer_clock(None, "d2h", card):
+            pass
+        with layer_clock(None, "count", card, "hist_count"):
+            pass
+    assert [r[0] for r in ranges(prof)] == ["hsrans.d2h", "hsrans.hist_count"]
+    with pytest.raises(RuntimeError, match="not to be called"), layer_clock({}, "d2h", card):
+        pass  # the `layers=` split synchronizes, so the patch above is live
+
+
+@pytest.mark.parametrize("name", list(CALLS))
+def test_no_range_without_the_profiler(name, monkeypatch):
+    want = expected(name)
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", boom)
+    assert CALLS[name](None) == want
+
+
+def test_the_profiling_scope_writes_the_ranges(tmp_path):
+    from hsrans_tpu_torch.utils.profiling import trace
+
+    want = expected("tpx_decode_torch")
+    with trace(tmp_path) as t:
+        assert CALLS["tpx_decode_torch"](None) == want
+    names = {e.get("name") for e in json.loads(t.path.read_text())["traceEvents"] if e.get("cat") == "user_annotation"}
+    assert {"hsrans.tpx_decode_torch", "hsrans.host_parse", "hsrans.d2h", "hsrans.host_release"} <= names
