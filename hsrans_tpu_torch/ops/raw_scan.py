@@ -8,7 +8,9 @@ tensors' device, or their plain versions where the tensors lie on the CPU.
 and `raw_encode_jax`: the same host checks and the same bytes, the wire's
 lane groups gathered, coded and compacted on the card.  A raw blob is one
 stream, so its decode and its encode are each one chain of ceil(length / n)
-links (csrc/scan.cu).
+links (csrc/scan.cu).  Both open their root range and their layers'
+ranges under a profiler (`runtime/device.py`), the kernel's as
+`kernel_scan`; `SCAN_COUNTS` counts what the two sections ran.
 """
 
 from __future__ import annotations
@@ -22,10 +24,23 @@ from ..kernels.scan import decode_section_kernel, encode_section_kernel
 from ..models.histogram import Hist, complete_hist
 from ..models.tables import make_dec3
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX, INV_IDX2IDX
-from ..runtime.device import resolve
+from ..runtime.device import entry_span, layer_clock, resolve, span
 from .reference import _as_array
 
 _STORAGE = {torch.uint32: torch.int32, torch.uint16: torch.int16}
+
+# The scan kernels' runs through `decode_section` and `encode_section` in
+# this process, by operation: the calls, the streams and the chain links
+# (num_steps x streams).  A raw blob's decode or encode is 1 call, 1 stream
+# and ceil(length / n) links.
+SCAN_COUNTS: dict[str, dict[str, int]] = {op: {"calls": 0, "streams": 0, "links": 0} for op in ("decode", "encode")}
+
+
+def _count(op: str, streams: int, num_steps: int) -> None:
+    c = SCAN_COUNTS[op]
+    c["calls"] += 1
+    c["streams"] += streams
+    c["links"] += streams * num_steps
 
 
 def _tensor(x) -> torch.Tensor:
@@ -63,6 +78,7 @@ def decode_section(states, stream, read_pos, tab_sym, tab_freq, tab_cumul, valid
     st = _tensor(states)
     dev, lead, n = st.device, tuple(st.shape[:-1]), st.shape[-1]
     nb = math.prod(lead)
+    _count("decode", nb, num_steps)
     syms, fin, pos = decode_section_kernel(
         st.to(torch.int32).reshape(nb, n).contiguous(),
         _rows(stream, lead, nb, dev),
@@ -88,6 +104,7 @@ def encode_section(states, group_bytes, valid, freq_tab, cumul_tab, *, bits: int
     st = _tensor(states)
     dev, lead, n = st.device, tuple(st.shape[:-1]), st.shape[-1]
     nb = math.prod(lead)
+    _count("encode", nb, num_steps)
     words, emits, fin = encode_section_kernel(
         st.to(torch.int32).reshape(nb, n).contiguous(),
         _tensor(group_bytes).to(dev).reshape(nb, num_steps, n).contiguous(),
@@ -104,13 +121,11 @@ def _is_u32(x) -> bool:
     return x.dtype == torch.uint32 if isinstance(x, torch.Tensor) else np.asarray(x).dtype == np.uint32
 
 
-def raw_decode_operands(blob: bytes | np.ndarray, bits: int, n: int, dev: torch.device):
-    """The scan decode's operands of a raw 16w blob on `dev`, with the JAX
-    decoder's host checks: None below 16 + 512 + 4n bytes, where the
-    header's size exceeds the blob's, or where the freqs do not sum to
-    2^bits; else (length, (states [1, n], the word stream padded with 2n
-    zero words, an odd last byte dropped, read_pos, the three shared
-    slot-indexed tables, valid count [1]) or None where length is 0)."""
+def raw_parse(blob: bytes | np.ndarray, bits: int, n: int):
+    """The header of a raw 16w blob, with the JAX decoder's host checks:
+    None below 16 + 512 + 4n bytes, where the header's size exceeds the
+    blob's, or where the freqs do not sum to 2^bits; else (length, hist,
+    the n states u32, the blob as u8)."""
     buf = _as_array(blob)
     if buf.size < 16 + 512 + 4 * n:
         return None
@@ -121,66 +136,122 @@ def raw_decode_operands(blob: bytes | np.ndarray, bits: int, n: int, dev: torch.
     hist = complete_hist(buf[16:528].view("<u2"), bits)
     if hist is None:
         return None
-    states = buf[528 : 528 + 4 * n].view("<u4").astype(np.uint32)
+    return length, hist, buf[528 : 528 + 4 * n].view("<u4").astype(np.uint32), buf
+
+
+def raw_host_operands(length: int, hist: Hist, states: np.ndarray, buf: np.ndarray, n: int) -> tuple[np.ndarray, ...]:
+    """The scan decode's operands on the host: states [1, n], the word stream
+    padded with 2n zero words (an odd last byte dropped), read_pos, the
+    three shared slot-indexed tables, valid count [1]."""
     word_bytes = (buf.size - 528 - 4 * n) // 2 * 2
     stream = np.zeros(word_bytes // 2 + 2 * n, dtype=np.uint16)
     stream[: word_bytes // 2] = buf[528 + 4 * n : 528 + 4 * n + word_bytes].view("<u2")
-    if length == 0:
-        return length, None
     tab = make_dec3(hist)
-    host = (states.view(np.int32)[None], stream.view(np.int16), np.zeros(1, np.int32), tab["sym"],
+    return (states.view(np.int32)[None], stream.view(np.int16), np.zeros(1, np.int32), tab["sym"],
             tab["freq"].astype(np.uint16).view(np.int16), tab["cumul"].astype(np.uint16).view(np.int16),
             np.array([length], np.int32))
-    return length, tuple(torch.from_numpy(a).to(dev) for a in host)
 
 
-def raw_decode_torch(blob: bytes | np.ndarray, bits: int, n_lanes: int, device: str | torch.device = "cuda") -> bytes | None:
+def raw_decode_operands(blob: bytes | np.ndarray, bits: int, n: int, dev: torch.device):
+    """The scan decode's operands of a raw 16w blob on `dev`: None where
+    `raw_parse` gives None, else (length, `raw_host_operands` on `dev`, or
+    None where length is 0)."""
+    parsed = raw_parse(blob, bits, n)
+    if parsed is None:
+        return None
+    length, hist, states, buf = parsed
+    if length == 0:
+        return length, None
+    return length, tuple(torch.from_numpy(a).to(dev) for a in raw_host_operands(length, hist, states, buf, n))
+
+
+@entry_span
+def raw_decode_torch(blob: bytes | np.ndarray, bits: int, n_lanes: int, device: str | torch.device = "cuda",
+                     layers: dict[str, float] | None = None) -> bytes | None:
     """Decode a raw 16w wire blob on `device`; None on malformed input,
     exactly where `hsrans_tpu.ops.raw_jax.raw_decode_jax` gives None, and
     its bytes everywhere else: one scan decode of the whole blob, one
-    stream of ceil(length / n) groups with its tail masked."""
+    stream of ceil(length / n) groups with its tail masked.
+
+    With `layers`, adds the seconds of each layer of this call to it
+    (host_parse, host_tables, h2d, kernel_scan, gather, d2h,
+    host_assemble), the device synchronized at each boundary."""
     dev = resolve(device)
-    got = raw_decode_operands(blob, bits, n_lanes, dev)
-    if got is None:
+    with layer_clock(layers, "host_parse", dev):
+        parsed = raw_parse(blob, bits, n_lanes)
+    if parsed is None:
         return None
-    length, ops = got
-    if ops is None:
+    length, hist, states, buf = parsed
+    if length == 0:
         return b""
-    syms, _, _ = decode_section_kernel(*ops, bits=bits, num_steps=-(-length // n_lanes), tail=True)
-    inv = torch.from_numpy(INV_IDX2IDX[n_lanes]).to(dev)
-    return syms[0][:, inv].reshape(-1)[:length].cpu().numpy().tobytes()
+    with layer_clock(layers, "host_tables", dev):
+        host = raw_host_operands(length, hist, states, buf, n_lanes)
+    with layer_clock(layers, "h2d", dev):
+        ops = tuple(torch.from_numpy(a).to(dev) for a in host)
+        inv = torch.from_numpy(INV_IDX2IDX[n_lanes]).to(dev)
+    with layer_clock(layers, "kernel_scan", dev):
+        syms, _, _ = decode_section(*ops, bits=bits, num_steps=-(-length // n_lanes), tail=True)
+    with layer_clock(layers, "gather", dev):
+        got = syms[0][:, inv].reshape(-1)[:length]
+    with span("host_alloc"):
+        out = np.empty(length, dtype=np.uint8)
+    with layer_clock(layers, "d2h", dev):
+        torch.from_numpy(out).copy_(got)
+    with layer_clock(layers, "host_assemble", dev):
+        res = out.tobytes()
+    with span("host_release"):  # the output's pages, returned here rather than as the frame ends
+        del out
+    return res
 
 
-def raw_encode_torch(data: bytes | np.ndarray, hist: Hist, n_lanes: int, device: str | torch.device = "cuda") -> bytes:
+@entry_span
+def raw_encode_torch(data: bytes | np.ndarray, hist: Hist, n_lanes: int, device: str | torch.device = "cuda",
+                     layers: dict[str, float] | None = None) -> bytes:
     """Encode one buffer with a static histogram on `device`; the bytes of
     `hsrans_tpu.ops.raw_jax.raw_encode_jax` and of the reference's scalar
     encoder.  The lane groups are gathered on the device, coded by one
-    `encode_section`, and their emitted words compacted there."""
+    `encode_section`, and their emitted words compacted there.
+
+    With `layers`, adds the seconds of each layer of this call to it
+    (host_layout, h2d, gather: the lane groups and the compaction,
+    kernel_scan, d2h, host_mux), the device synchronized at each
+    boundary."""
     dev = resolve(device)
-    arr = _as_array(data)
     n = n_lanes
-    length = arr.size
-    bits = hist.total_symbol_count_bits
-    total = -(-length // n) if length else 0
-    states = torch.full((n,), DECODE_CONSUME_POINT_16, dtype=torch.int32, device=dev)
+    with layer_clock(layers, "host_layout", dev):
+        arr = _as_array(data)
+        length = arr.size
+        bits = hist.total_symbol_count_bits
+        total = -(-length // n) if length else 0
+        tabs = (hist.symbol_count.astype(np.uint16), hist.cumul.astype(np.uint16))
     if total:
-        padded = torch.zeros(total * n, dtype=torch.uint8, device=dev)
-        padded[:length] = torch.from_numpy(arr).to(dev)
-        perm = torch.from_numpy(IDX2IDX[n]).to(dev)
-        valid = torch.arange(total, device=dev)[:, None] * n + perm[None, :] < length
-        words, emits, states = encode_section(
-            states, padded.view(total, n)[:, perm], valid,
-            torch.from_numpy(hist.symbol_count.astype(np.uint16)), torch.from_numpy(hist.cumul.astype(np.uint16)),
-            bits=bits, num_steps=total,
-        )
-        stream = torch.masked_select(words.view(torch.int16), emits).cpu().numpy()
+        with layer_clock(layers, "h2d", dev):
+            src = torch.from_numpy(arr).to(dev)
+            perm = torch.from_numpy(IDX2IDX[n]).to(dev)
+            freq, cumul = (torch.from_numpy(t).to(dev) for t in tabs)
+        with layer_clock(layers, "gather", dev):
+            padded = torch.zeros(total * n, dtype=torch.uint8, device=dev)
+            padded[:length] = src
+            valid = torch.arange(total, device=dev)[:, None] * n + perm[None, :] < length
+            groups = padded.view(total, n)[:, perm]
+            states = torch.full((n,), DECODE_CONSUME_POINT_16, dtype=torch.int32, device=dev)
+        with layer_clock(layers, "kernel_scan", dev):
+            words, emits, states = encode_section(states, groups, valid, freq, cumul, bits=bits, num_steps=total)
+        with layer_clock(layers, "gather", dev):
+            kept = torch.masked_select(words.view(torch.int16), emits)
+        with layer_clock(layers, "d2h", dev):
+            stream = kept.cpu().numpy()
+            fin = states.cpu().numpy()
     else:
         stream = np.zeros(0, dtype=np.int16)
-    out = bytearray()
-    out += int(length).to_bytes(8, "little")
-    out += b"\0" * 8
-    out += hist.symbol_count.astype("<u2").tobytes()
-    out += states.cpu().numpy().astype("<i4").tobytes()
-    out += stream.astype("<i2").tobytes()
-    out[8:16] = len(out).to_bytes(8, "little")
-    return bytes(out)
+        fin = np.full(n, DECODE_CONSUME_POINT_16, dtype=np.int32)
+    with layer_clock(layers, "host_mux", dev):
+        out = bytearray()
+        out += int(length).to_bytes(8, "little")
+        out += b"\0" * 8
+        out += hist.symbol_count.astype("<u2").tobytes()
+        out += fin.astype("<i4").tobytes()
+        out += stream.astype("<i2").tobytes()
+        out[8:16] = len(out).to_bytes(8, "little")
+        res = bytes(out)
+    return res

@@ -13,8 +13,9 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from hsrans_tpu_torch import mt_decode_torch, mt_encode_torch, tpx_decode_torch, tpx_encode_adaptive_torch
-from hsrans_tpu_torch import tpx_encode_torch
+from hsrans_tpu_torch import make_hist, mt_decode_torch, mt_encode_torch, raw_decode_torch, raw_encode_torch
+from hsrans_tpu_torch import raw_decode_16w, raw_encode_16w, tpx_decode_torch, tpx_encode_adaptive_torch, tpx_encode_torch
+from hsrans_tpu_torch.ops import raw_scan
 from hsrans_tpu_torch.parallel.sharded import device_plan
 from hsrans_tpu_torch.runtime.device import layer_clock
 
@@ -46,6 +47,22 @@ def mt_blob() -> bytes:
     return mt_encode_torch(data(), 12, plan=plan(), device="cpu")
 
 
+def raw_data() -> bytes:
+    """The raw calls' input: a short prefix, since the plain scan runs one
+    group of torch ops a link, each recorded under the profiler."""
+    return data()[:6000]
+
+
+@cache
+def hist():
+    return make_hist(np.frombuffer(raw_data(), np.uint8), 12)
+
+
+@cache
+def raw_blob() -> bytes:
+    return raw_encode_torch(raw_data(), hist(), 64, device="cpu")
+
+
 def rows(plan) -> list[tuple]:
     """A plan's rows as comparable tuples."""
     return [(r.start, r.size, r.is_single, r.symbol, None if r.freq is None else r.freq.tolist()) for r in plan]
@@ -59,10 +76,16 @@ CALLS = {
     "mt_encode_torch": lambda layers: mt_encode_torch(data(), 12, plan=plan(), device="cpu", layers=layers),
     "mt_decode_torch": lambda layers: mt_decode_torch(mt_blob(), 12, 64, device="cpu", layers=layers),
     "device_plan": lambda layers: rows(device_plan(np.frombuffer(data(), np.uint8), 12, 64, MAX_BLOCK)),
+    "raw_encode_torch": lambda layers: raw_encode_torch(raw_data(), hist(), 64, device="cpu", layers=layers),
+    "raw_decode_torch": lambda layers: raw_decode_torch(raw_blob(), 12, 64, device="cpu", layers=layers),
 }
 # ranges a call must open beside the keys `layers=` reports
 MORE = {"device_plan": {"hsrans.plan_greedy", "hsrans.plan_hist"},
-        "tpx_encode_adaptive_torch": {"hsrans.host_geometry"}}
+        "tpx_encode_adaptive_torch": {"hsrans.host_geometry"},
+        "raw_decode_torch": {"hsrans.host_alloc", "hsrans.host_release"}}
+# the layers each raw entry point reports, and so the ranges it opens
+RAW_LAYERS = {"raw_encode_torch": {"host_layout", "h2d", "gather", "kernel_scan", "d2h", "host_mux"},
+              "raw_decode_torch": {"host_parse", "host_tables", "h2d", "kernel_scan", "gather", "d2h", "host_assemble"}}
 
 
 def expected(name: str):
@@ -139,3 +162,43 @@ def test_the_profiling_scope_writes_the_ranges(tmp_path):
         assert CALLS["tpx_decode_torch"](None) == want
     names = {e.get("name") for e in json.loads(t.path.read_text())["traceEvents"] if e.get("cat") == "user_annotation"}
     assert {"hsrans.tpx_decode_torch", "hsrans.host_parse", "hsrans.d2h", "hsrans.host_release"} <= names
+
+
+@pytest.mark.parametrize("name", list(RAW_LAYERS))
+def test_raw_entry_points_report_their_layers(name):
+    """`layers={}` gets exactly the raw layers; under the profiler the call
+    opens its root, a range for each of them and its gaps, and no other."""
+    layers = {}
+    CALLS[name](layers)
+    assert set(layers) == RAW_LAYERS[name]
+    _, got = profiled(name, None)
+    want = {f"hsrans.{k}" for k in RAW_LAYERS[name]} | MORE.get(name, set()) | {f"hsrans.{name}"}
+    assert {r[0] for r in got} == want
+
+
+@pytest.mark.parametrize("length", [1, 64, 65, 4097])
+def test_scan_counts_count_one_chain_a_call(length):
+    """Each raw call runs its scan kernel once: 1 call, 1 stream and
+    ceil(length / 64) links."""
+    payload = data()[:length]
+    h = make_hist(np.frombuffer(payload, np.uint8), 12)
+    before = {op: dict(c) for op, c in raw_scan.SCAN_COUNTS.items()}
+    blob = raw_encode_torch(payload, h, 64, device="cpu")
+    assert raw_decode_torch(blob, 12, 64, device="cpu", layers={}) == payload
+    links = -(-length // 64)
+    for op in ("encode", "decode"):
+        c = raw_scan.SCAN_COUNTS[op]
+        assert {k: c[k] - before[op][k] for k in c} == {"calls": 1, "streams": 1, "links": links}
+
+
+@pytest.mark.parametrize("n", [16, 32, 64])
+def test_raw_bytes_unchanged_without_profiler_or_layers(n, monkeypatch):
+    """With no profiler and `layers=None` the raw entry points enter no
+    range and give the numpy wire's bytes."""
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", boom)
+    payload = np.frombuffer(data()[: 3001 + n], np.uint8)
+    h = make_hist(payload, 12)
+    blob = raw_encode_torch(payload, h, n, device="cpu")
+    assert blob == raw_encode_16w(payload, h, n)
+    assert raw_decode_torch(blob, 12, n, device="cpu") == raw_decode_16w(blob, 12, n) == payload.tobytes()
