@@ -35,7 +35,7 @@ from ..ops.mt import MtBlock, _as_array, block_index
 from ..ops.reference import decode_tail_group
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
 from ..runtime import build
-from ..runtime.device import entry_span, layer_clock, resolve_all, shares, span
+from ..runtime.device import entry_span, fresh_output, layer_clock, resolve_all, shares, span, zero_outside
 from .tpx_decode import from_u32, to_u32
 
 _M32 = 0xFFFFFFFF
@@ -415,43 +415,49 @@ def mt_decode_torch(
     if ops is None:
         return None
     index, states, fc = ops
-    with span("host_alloc"):
-        out = np.zeros(length, dtype=np.uint8)
-    for dev, lo, hi in shares(devs, len(index)):
-        # the share's blocks write the bytes [first, end) of the output (block
-        # outputs ascend and do not overlap): it decodes into a buffer of
-        # that range on its device, copied back to its place
-        with span("host_shares"):
-            sub = index[lo:hi].copy()
-            first = int(sub[0, 2]) if hi > lo else 0
-            end = max(first, min(int(sub[:, 3].max()), length)) if hi > lo else 0
-            sub[:, 2:4] -= first
-        out_t, fin_t, cursor_t = _decode_share(stream, sub, states[lo:hi], fc[lo:hi], bits=bits, n=n,
-                                               length=end - first, dev=dev, layers=layers)
-        with layer_clock(layers, "d2h", dev):
-            torch.from_numpy(out[first:end]).copy_(out_t)
-    # the trailing partial group (fewer than n bytes) continues the chain of
-    # the last block, where that block is coded; fin_t and cursor_t are the
-    # last share's
-    tail_from = int(index[-1, 2] + index[-1, 4] * n) if not blocks[-1].is_single else length
-    with layer_clock(layers, "d2h", dev):
-        if tail_from < length:
-            fin = fin_t[-1].cpu().numpy().view(np.uint32)
-            read_pos = int(index[-1, 0]) + int(cursor_t[-1])
     with layer_clock(layers, "host_assemble", dev):
-        for b in blocks:
-            if b.is_single:
-                out[b.out_start : b.out_start + b.size] = b.symbol
-        if tail_from < length:
-            words = np.zeros(n, np.uint16)  # read as 0 past the block's words
-            got = stream[read_pos : min(read_pos + n, int(index[-1, 1]))]
-            words[: got.size] = got
-            hist = complete_hist((fc[-1] & 0xFFFF).astype(np.uint16), bits)
-            tail, _, _ = decode_tail_group(fin, words, 0, hist, n, tail_from, length)
-            perm = IDX2IDX[n]
-            sel = (tail_from + perm) < length
-            out[tail_from + perm[sel]] = tail[np.arange(n)[sel]]
-        res = out.tobytes()
-    with span("host_release"):  # the output's and the stream copy's pages, returned here rather than as the frame ends
-        del out, stream, blocks, indexed
+        res, out = fresh_output(length)
+    try:
+        written = []
+        for dev, lo, hi in shares(devs, len(index)):
+            # the share's blocks write the bytes [first, end) of the output (block
+            # outputs ascend and do not overlap): it decodes into a buffer of
+            # that range on its device, copied back to its place
+            with span("host_shares"):
+                sub = index[lo:hi].copy()
+                first = int(sub[0, 2]) if hi > lo else 0
+                end = max(first, min(int(sub[:, 3].max()), length)) if hi > lo else 0
+                sub[:, 2:4] -= first
+            out_t, fin_t, cursor_t = _decode_share(stream, sub, states[lo:hi], fc[lo:hi], bits=bits, n=n,
+                                                   length=end - first, dev=dev, layers=layers)
+            with layer_clock(layers, "d2h", dev):
+                torch.from_numpy(out[first:end]).copy_(out_t)
+            written.append((first, end))
+        # the trailing partial group (fewer than n bytes) continues the chain of
+        # the last block, where that block is coded; fin_t and cursor_t are the
+        # last share's
+        tail_from = int(index[-1, 2] + index[-1, 4] * n) if not blocks[-1].is_single else length
+        with layer_clock(layers, "d2h", dev):
+            if tail_from < length:
+                fin = fin_t[-1].cpu().numpy().view(np.uint32)
+                read_pos = int(index[-1, 0]) + int(cursor_t[-1])
+        with layer_clock(layers, "host_assemble", dev):
+            for b in blocks:
+                if b.is_single:
+                    out[b.out_start : b.out_start + b.size] = b.symbol
+                    written.append((b.out_start, b.out_start + b.size))
+            if tail_from < length:
+                words = np.zeros(n, np.uint16)  # read as 0 past the block's words
+                got = stream[read_pos : min(read_pos + n, int(index[-1, 1]))]
+                words[: got.size] = got
+                hist = complete_hist((fc[-1] & 0xFFFF).astype(np.uint16), bits)
+                tail, _, _ = decode_tail_group(fin, words, 0, hist, n, tail_from, length)
+                perm = IDX2IDX[n]
+                sel = (tail_from + perm) < length
+                out[tail_from + perm[sel]] = tail[np.arange(n)[sel]]
+                written.append((tail_from, tail_from + n))
+            zero_outside(out, written)
+    finally:
+        with span("host_release"):  # the stream copy's pages, returned here rather than as the frame ends
+            del out, stream, blocks, indexed
     return res

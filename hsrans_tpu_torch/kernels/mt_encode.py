@@ -34,7 +34,7 @@ from ..ops.mt import _as_array
 from ..ops.planner import BlockPlan
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
 from ..runtime import build
-from ..runtime.device import entry_span, layer_clock, resolve_all, shares, span
+from ..runtime.device import entry_span, fresh_output, layer_clock, resolve_all, shares, span
 from .scan import encode_section_kernel
 from .tpx_decode import from_u32, to_u32
 
@@ -449,7 +449,8 @@ def encode_plan(
     each, their histograms and one encode launch, by the mt encode kernel
     at n = 32 and 64 (`encode_blocks`) and by the scan encode kernel at
     n = 16 (`encode_blocks_scan`); the words, counts and states are gathered
-    in order on the first device, which writes the blob (`place_blocks`).
+    in order on the first device, which writes the blob (`place_blocks`),
+    copied from it once, into the `bytes` returned (`fresh_output`).
     The bytes do not depend on the split.  With `layers`, the host's walk
     of the plan counts as host_index and those histograms as
     kernel_hist."""
@@ -485,10 +486,14 @@ def encode_plan(
         place_t = torch.from_numpy(place).to(dev)
     with layer_clock(layers, "kernel_place", dev):
         blob_t = place_blocks(words_t, index_t, count_t, fin_t, freqs_t, place_t, n=n, out_u16=out_u16)
-    with layer_clock(layers, "d2h", dev):
-        blob = blob_t.cpu().numpy()
     with layer_clock(layers, "host_mux", dev):
-        return blob.tobytes()
+        res, blob = fresh_output(2 * out_u16)
+    try:
+        with layer_clock(layers, "d2h", dev):
+            torch.from_numpy(blob).copy_(blob_t)
+    finally:
+        del blob
+    return res
 
 
 def _kernel_block_ok(size: int) -> bool:
@@ -529,7 +534,7 @@ def mt_encode_torch(
 
     With `layers`, adds the seconds of each layer of this call to it
     (host_index, h2d, kernel_hist, kernel_encode, host_layout,
-    kernel_place, d2h, host_mux), the device synchronized at each
+    kernel_place, host_mux, d2h), the device synchronized at each
     boundary."""
     if plan is None and not _kernel_block_ok(block_size):
         raise ValueError("block_size must be a multiple of 512 (of 8192 above 8 KiB)")

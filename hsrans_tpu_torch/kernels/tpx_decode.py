@@ -17,7 +17,7 @@ import torch
 from ..ops.mt import _as_array
 from ..ops.tpx import L, TpxMega, tpx_parse
 from ..runtime import build
-from ..runtime.device import entry_span, layer_clock, resolve_all, shares, span
+from ..runtime.device import entry_span, fresh_output, layer_clock, resolve_all, shares, span, zero_outside
 
 _M32 = 0xFFFFFFFF
 WARPS = 4  # rows (one warp each) of a CTA: csrc/tpx_common.cuh kWarps
@@ -226,30 +226,33 @@ def tpx_decode_torch(
         return None
     with layer_clock(layers, "host_tables", dev):
         tabs = dec_tables(np.concatenate([m.freqs for m in megas]), p.bits)
+        tab0 = np.cumsum([0] + [m.n_tiles for m in megas])
     if tabs is None:
         return None
-    with span("host_alloc"):
-        tab0 = np.cumsum([0] + [m.n_tiles for m in megas])
-        out = np.zeros(length, dtype=np.uint8)
-    for d, lo, hi in shares(devs, len(megas)):
-        with layer_clock(layers, "host_tables", d):
-            # the share's megas that hold data, their output from its first byte
-            desc, row_start, states = decode_operands(megas[lo:hi], length)
-        if not len(desc):
-            continue
-        with span("host_shares"):
-            base = int(desc[0, 9])
-            desc[:, 9] -= base
-            n_out = int(desc[:, 10].sum())
-        with layer_clock(layers, "h2d", d):
-            share_tabs = (t[tab0[lo] : tab0[hi]] for t in tabs)
-            ops = [torch.from_numpy(a).to(d) for a in (buf, row_start, states.view(np.int32), *share_tabs)]
-        with layer_clock(layers, "kernel", d):
-            got = decode_mega(ops[0], desc, *ops[1:], bits=p.bits, out_len=-(-n_out // 4) * 4)
-        with layer_clock(layers, "d2h", d):
-            torch.from_numpy(out[base : base + n_out]).copy_(got[:n_out])
     with layer_clock(layers, "host_assemble", dev):
-        res = out.tobytes()
-    with span("host_release"):  # the output's pages, returned here rather than as the frame ends
+        res, out = fresh_output(length)
+    try:
+        written = []
+        for d, lo, hi in shares(devs, len(megas)):
+            with layer_clock(layers, "host_tables", d):
+                # the share's megas that hold data, their output from its first byte
+                desc, row_start, states = decode_operands(megas[lo:hi], length)
+            if not len(desc):
+                continue
+            with span("host_shares"):
+                base = int(desc[0, 9])
+                desc[:, 9] -= base
+                n_out = int(desc[:, 10].sum())
+            with layer_clock(layers, "h2d", d):
+                share_tabs = (t[tab0[lo] : tab0[hi]] for t in tabs)
+                ops = [torch.from_numpy(a).to(d) for a in (buf, row_start, states.view(np.int32), *share_tabs)]
+            with layer_clock(layers, "kernel", d):
+                got = decode_mega(ops[0], desc, *ops[1:], bits=p.bits, out_len=-(-n_out // 4) * 4)
+            with layer_clock(layers, "d2h", d):
+                torch.from_numpy(out[base : base + n_out]).copy_(got[:n_out])
+            written.append((base, base + n_out))
+        with layer_clock(layers, "host_assemble", dev):
+            zero_outside(out, written)
+    finally:
         del out
     return res

@@ -34,7 +34,7 @@ from ..ops.tpx import (
     tpx_plan_geometry,
 )
 from ..runtime import build
-from ..runtime.device import entry_span, layer_clock, resolve, resolve_all, shares, span
+from ..runtime.device import entry_span, fresh_output, layer_clock, resolve, resolve_all, shares, span
 from .mt_encode import _input_tensor, magic_tensor, shift_tensor
 from .tpx_decode import WARPS, ctas_of, desc_on, from_u32, to_u32
 
@@ -367,9 +367,10 @@ def _encode_megas(
     steps.  The megas are split over `devices` (`shares`: each a contiguous
     run); on each, one launch of each histogram kernel, of the encode and
     of the wire writer for its share, and the shares' sections follow one
-    another in mega order.  Bytes equal
+    another in mega order, each copied from its device once, into its
+    place in the `bytes` returned (`fresh_output`).  Bytes equal
     `hsrans_tpu.ops.tpx._encode_mega_into`'s mega by mega."""
-    blobs = []
+    sections = []
     for dev, lo, hi in shares(devices, len(geoms)):
         first = geoms[lo][0]
         end = max(base + valid for base, *_, valid in geoms[lo:hi])
@@ -385,17 +386,21 @@ def _encode_megas(
             row_words = torch.cat([torch.clamp(c, max=L).sum(dim=2).reshape(-1) for _, c, _ in views]).cpu().numpy()
             wdesc, row_at, out_u16 = wire_layout(desc, row_words.astype(np.int64), v3=v3, base=len(head) // 2)
         with layer_clock(layers, "kernel_concat", dev):
-            blob_t = write_wire(win, cnt, states, freqs_t, wdesc, row_at, v3=v3, out_u16=out_u16)
-        with layer_clock(layers, "d2h", dev):
-            # every share's sections are written after a head's room; the first keeps it
-            blobs.append(blob_t[len(head) if blobs else 0 :].cpu().numpy())
+            # every share's sections are written after a head's room
+            sections.append(write_wire(win, cnt, states, freqs_t, wdesc, row_at, v3=v3, out_u16=out_u16)[len(head) :])
     with layer_clock(layers, "host_mux", devices[0]):
-        blob = blobs[0] if len(blobs) == 1 else np.concatenate(blobs)
+        total = len(head) + sum(t.numel() for t in sections)
+        res, blob = fresh_output(total)
         blob[: len(head)] = np.frombuffer(head, np.uint8)
-        blob[16:24] = np.array([blob.size], "<u8").view(np.uint8)
-        res = blob.tobytes()
-    with span("host_release"):  # the blob's host pages, returned here rather than as the frame ends
-        del blob, blobs
+        blob[16:24] = np.array([total], "<u8").view(np.uint8)
+    try:
+        at = len(head)
+        for t in sections:
+            with layer_clock(layers, "d2h", t.device):
+                torch.from_numpy(blob[at : at + t.numel()]).copy_(t)
+            at += t.numel()
+    finally:
+        del blob
     return res
 
 
@@ -427,7 +432,7 @@ def tpx_encode_torch(
     package's host and device tables give the same bytes, and the port
     has only the device's.  With `layers`, adds the seconds of each layer
     of this call to it (h2d, kernel_hist, kernel_encode, host_layout,
-    kernel_concat, d2h, host_mux), the device synchronized at each
+    kernel_concat, host_mux, d2h), the device synchronized at each
     boundary."""
     devs = resolve_all(device, devices)
     arr = _as_array(data)

@@ -24,7 +24,7 @@ from ..kernels.scan import decode_section_kernel, encode_section_kernel
 from ..models.histogram import Hist, complete_hist
 from ..models.tables import make_dec3
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX, INV_IDX2IDX
-from ..runtime.device import entry_span, layer_clock, resolve, span
+from ..runtime.device import entry_span, fresh_output, layer_clock, resolve, span
 from .reference import _as_array
 
 _STORAGE = {torch.uint32: torch.int32, torch.uint16: torch.int16}
@@ -193,14 +193,14 @@ def raw_decode_torch(blob: bytes | np.ndarray, bits: int, n_lanes: int, device: 
         syms, _, _ = decode_section(*ops, bits=bits, num_steps=-(-length // n_lanes), tail=True)
     with layer_clock(layers, "gather", dev):
         got = syms[0][:, inv].reshape(-1)[:length]
-    with span("host_alloc"):
-        out = np.empty(length, dtype=np.uint8)
-    with layer_clock(layers, "d2h", dev):
-        torch.from_numpy(out).copy_(got)
     with layer_clock(layers, "host_assemble", dev):
-        res = out.tobytes()
-    with span("host_release"):  # the output's pages, returned here rather than as the frame ends
-        del out
+        res, out = fresh_output(length)
+    try:
+        with layer_clock(layers, "d2h", dev):
+            torch.from_numpy(out).copy_(got)
+    finally:
+        with span("host_release"):  # the padded word stream's pages, returned here rather than as the frame ends
+            del out, host
     return res
 
 

@@ -13,12 +13,23 @@ card raises: nothing here degrades silently to another tier.
 
 from __future__ import annotations
 
+import ctypes
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 from functools import lru_cache, wraps
 
+import numpy as np
 import torch
+
+# outputs `fresh_output` made: how many, and their bytes
+OUTPUT_COUNTS = {"in_place": 0, "in_place_bytes": 0}
+
+# the C API's own constructor and payload pointer, bound privately (the
+# interpreter's lock held), so no other user of ctypes.pythonapi is touched
+_new_bytes = ctypes.PYFUNCTYPE(ctypes.py_object, ctypes.c_char_p, ctypes.c_ssize_t)(
+    ("PyBytes_FromStringAndSize", ctypes.pythonapi))
+_bytes_payload = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.py_object)(("PyBytes_AsString", ctypes.pythonapi))
 
 
 @dataclass(frozen=True)
@@ -145,3 +156,43 @@ def layer_clock(acc: dict[str, float] | None, key: str, dev: torch.device, name:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+
+
+class _Payload:
+    """The payload of a `bytes` as a numpy array interface; the array made
+    from it holds this object, and so the `bytes`, alive."""
+
+    def __init__(self, obj: bytes):
+        self.obj = obj
+        self.__array_interface__ = {
+            "shape": (len(obj),), "typestr": "|u1", "data": (_bytes_payload(obj), False), "version": 3,
+        }
+
+
+def fresh_output(n: int) -> tuple[bytes, np.ndarray]:
+    """A call's output, written once where it is returned: a new `bytes` of
+    `n` bytes whose contents are undefined, and a writable uint8 view of
+    its payload.  The caller writes every byte through the view, then drops
+    the view before it returns the `bytes`, on an error path too; nothing
+    may hash, share or return the `bytes` before it is full.  Nothing here
+    fills the payload (CPython writes only the object's header and the
+    trailing NUL), so the caller's copy is the first to touch its pages."""
+    OUTPUT_COUNTS["in_place"] += 1
+    OUTPUT_COUNTS["in_place_bytes"] += n
+    if n == 0:
+        return b"", np.zeros(0, np.uint8)
+    obj = _new_bytes(None, n)
+    return obj, np.asarray(_Payload(obj))
+
+
+def zero_outside(view: np.ndarray, ranges) -> None:
+    """Write 0 to every byte of `view` that none of `ranges` ([start, end)
+    pairs, each clipped to the view) covers, and to no other byte: a fresh
+    output holds zeros where nothing else writes, as a zeroed buffer
+    would, without a pass over the bytes that are written."""
+    reach = 0  # every byte below it is covered by a range or zeroed
+    for start, end in sorted(ranges):
+        if start > reach:
+            view[reach:start] = 0
+        reach = max(reach, end)
+    view[reach:] = 0

@@ -312,6 +312,23 @@ def test_entry_points_take_bytes_or_arrays():
     assert tpx_decode_torch(np.frombuffer(tpx_encode_torch(data, device="cpu"), np.uint8), device="cpu") == data.tobytes()
 
 
+def test_entry_points_write_their_output_once():
+    """The five benchmarked entry points take their output from
+    `fresh_output` and make no second host copy of it (`tobytes`) on the
+    way out; tpx and mt encode through `_encode_megas` and `encode_plan`."""
+    import inspect
+
+    from hsrans_tpu_torch.kernels import mt_decode, mt_encode, tpx_decode, tpx_encode
+    from hsrans_tpu_torch.ops import raw_scan
+
+    for fn in (tpx_decode.tpx_decode_torch, mt_decode.mt_decode_torch, raw_scan.raw_decode_torch,
+               tpx_encode._encode_megas, mt_encode.encode_plan):
+        src = inspect.getsource(fn)
+        assert "fresh_output(" in src and "tobytes" not in src, fn.__name__
+    for fn in (tpx_encode.tpx_encode_torch, mt_encode.mt_encode_torch):
+        assert "tobytes" not in inspect.getsource(fn), fn.__name__
+
+
 def test_layer_split_leaves_the_result_alone():
     """`layers=` adds each layer's seconds and changes no byte."""
     from hsrans_tpu_torch import mt_encode_torch, tpx_decode_torch, tpx_encode_torch

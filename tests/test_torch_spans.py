@@ -82,7 +82,7 @@ CALLS = {
 # ranges a call must open beside the keys `layers=` reports
 MORE = {"device_plan": {"hsrans.plan_greedy", "hsrans.plan_hist"},
         "tpx_encode_adaptive_torch": {"hsrans.host_geometry"},
-        "raw_decode_torch": {"hsrans.host_alloc", "hsrans.host_release"}}
+        "raw_decode_torch": {"hsrans.host_release"}}
 # the layers each raw entry point reports, and so the ranges it opens
 RAW_LAYERS = {"raw_encode_torch": {"host_layout", "h2d", "gather", "kernel_scan", "d2h", "host_mux"},
               "raw_decode_torch": {"host_parse", "host_tables", "h2d", "kernel_scan", "gather", "d2h", "host_assemble"}}
@@ -161,7 +161,7 @@ def test_the_profiling_scope_writes_the_ranges(tmp_path):
     with trace(tmp_path) as t:
         assert CALLS["tpx_decode_torch"](None) == want
     names = {e.get("name") for e in json.loads(t.path.read_text())["traceEvents"] if e.get("cat") == "user_annotation"}
-    assert {"hsrans.tpx_decode_torch", "hsrans.host_parse", "hsrans.d2h", "hsrans.host_release"} <= names
+    assert {"hsrans.tpx_decode_torch", "hsrans.host_parse", "hsrans.d2h", "hsrans.host_assemble"} <= names
 
 
 @pytest.mark.parametrize("name", list(RAW_LAYERS))

@@ -274,8 +274,8 @@ def test_device_tables_layers():
     host, dev = {}, {}
     assert pt.tpx_encode_torch(data, device="cpu", layers=host) == pt.tpx_encode_torch(
         data, device="cpu", layers=dev, device_tables=True) == tpx_encode(data)
-    assert list(dev) == list(host) == ["h2d", "kernel_hist", "kernel_encode", "host_layout", "kernel_concat", "d2h",
-                                       "host_mux"]
+    assert list(dev) == list(host) == ["h2d", "kernel_hist", "kernel_encode", "host_layout", "kernel_concat",
+                                       "host_mux", "d2h"]
     v3 = {}
     assert pt.tpx_encode_adaptive_torch(data, device="cpu", layers=v3, device_tables=True) == tpx_encode_adaptive(data)
     assert set(v3) == set(dev)
