@@ -509,9 +509,10 @@ def scan_cases(dev: torch.device) -> list[tuple[str, str, tuple, dict]]:
     from hsrans_tpu_torch.kernels.mt_encode import mt_encode_torch, plan_freqs, plan_rows, scan_operands
     from hsrans_tpu_torch.models.histogram import normalize_hist, observe_hist
     from hsrans_tpu_torch.ops.mt import block_index
-    from hsrans_tpu_torch.ops.raw_scan import raw_decode_operands
+    from hsrans_tpu_torch.ops.raw_scan import raw_host_operands, raw_parse
     from hsrans_tpu_torch.parallel import sharded as psh
     from hsrans_tpu_torch.rans import DECODE_CONSUME_POINT_16, IDX2IDX
+    from hsrans_tpu_torch.runtime.device import to_card
     from tools.gen_inputs import text_like
 
     def mt_decode_case(name: str, blob: bytes, bits: int, n: int) -> tuple:
@@ -551,7 +552,7 @@ def scan_cases(dev: torch.device) -> list[tuple[str, str, tuple, dict]]:
                            torch.from_numpy(hist.cumul.astype(np.uint16).view(np.int16)).to(dev)),
                           {"bits": bits, "num_steps": total}))
         blob = raw_encode_torch(text, hist, n, device=dev)
-        cases.append((raw, "decode", raw_decode_operands(blob, bits, n, dev)[1],
+        cases.append((raw, "decode", tuple(to_card(a, dev) for a in raw_host_operands(*raw_parse(blob, bits, n), n)),
                       {"bits": bits, "num_steps": total, "tail": True, "input": text}))
     return cases
 

@@ -1739,12 +1739,13 @@ def scan_phases(repo: Path, dev: torch.device, ctx: dict, tpx_data: np.ndarray, 
     from hsrans_tpu_torch.kernels import scan
     from hsrans_tpu_torch.kernels.mt_encode import plan_freqs, plan_rows, scan_operands
     from hsrans_tpu_torch.models.histogram import normalize_hist, observe_hist
-    from hsrans_tpu_torch.ops.raw_scan import raw_decode_operands
+    from hsrans_tpu_torch.ops.raw_scan import raw_host_operands, raw_parse
     from hsrans_tpu_torch.ops.tpx import TpxParams
     from hsrans_tpu_torch.ops.mt import block_index, mt_encode_py
     from hsrans_tpu_torch.parallel import sharded as psh
     from hsrans_tpu_torch.parallel.tpx_sharded import tpx_decode_device, tpx_encode_device
     from hsrans_tpu_torch.runtime import build
+    from hsrans_tpu_torch.runtime.device import to_card
     from tools.gen_inputs import text_like
 
     # 1. each kernel against its plain version on SCAN_EDGES
@@ -1783,7 +1784,7 @@ def scan_phases(repo: Path, dev: torch.device, ctx: dict, tpx_data: np.ndarray, 
                 raise AssertionError(f"raw n={n}: launches {raw_launches[n]}, one of each scan kernel expected")
             # the decode's launch alone: one chain of the whole blob
             steps = -(-data.size // n)
-            dargs = raw_decode_operands(blob, 12, n, dev)[1]
+            dargs = tuple(to_card(a, dev) for a in raw_host_operands(*raw_parse(blob, 12, n), n))
             outs = (torch.empty((1, steps, n), dtype=torch.uint8, device=dev),
                     torch.empty((1, n), dtype=torch.int32, device=dev), torch.empty(1, dtype=torch.int32, device=dev))
             dec_ms = once_ms(lambda: scan.launch_decode(*dargs[:6], 0, dargs[6], *outs, bits=12, tail=True))

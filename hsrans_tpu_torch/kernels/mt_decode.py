@@ -35,7 +35,7 @@ from ..ops.mt import MtBlock, _as_array, block_index
 from ..ops.reference import decode_tail_group
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
 from ..runtime import build
-from ..runtime.device import entry_span, fresh_output, layer_clock, resolve_all, shares, span, zero_outside
+from ..runtime.device import Output, entry_span, layer_clock, resolve_all, shares, span, to_card
 from .tpx_decode import from_u32, to_u32
 
 _M32 = 0xFFFFFFFF
@@ -91,7 +91,7 @@ def decode_blocks_plain(stream, index, states, fctab, *, bits: int, n: int, leng
     out_limit = torch.clamp(out_limit, max=length)
     fc = to_u32(fctab)
     freq_of, cum_of = fc & 0xFFFF, fc >> 16
-    perm = torch.from_numpy(IDX2IDX[n]).to(dev)[None, :]
+    perm = to_card(IDX2IDX[n], dev)[None, :]
     mask = (1 << bits) - 1
     for g in range(int(index[:, 4].max())):
         active = g < num_groups
@@ -242,7 +242,7 @@ def decode_blocks_annotated_plain(ann, index, states, fctab, *, bits: int, n: in
     def rank_of(slot):
         return torch.gather(rank_of_sym, 1, torch.searchsorted(cum_of, slot, right=True) - 1)
 
-    perm = torch.from_numpy(IDX2IDX[n]).to(dev)[None, :]
+    perm = to_card(IDX2IDX[n], dev)[None, :]
     rank = rank_of(st & mask)
     for g in range(int(index[:, 4].max())):
         active = g < num_groups
@@ -355,8 +355,7 @@ def device_operands(stream: np.ndarray, index, states, fc, n: int, dev: torch.de
     """The kernel's operands on `dev`: the blob's word region (the block
     index's stream less its 2n + 4 padding words) as bytes, as it is."""
     nwords = stream.size - 2 * n - 4
-    arrays = (stream[:nwords].view(np.uint8), index, states.view(np.int32), fc.view(np.int32))
-    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+    return tuple(to_card(a, dev) for a in (stream[:nwords].view(np.uint8), index, states, fc))
 
 
 def _decode_share(stream: np.ndarray, index, states, fc, *, bits: int, n: int, length: int, dev: torch.device,
@@ -416,9 +415,8 @@ def mt_decode_torch(
         return None
     index, states, fc = ops
     with layer_clock(layers, "host_assemble", dev):
-        res, out = fresh_output(length)
-    try:
-        written = []
+        out = Output(length)
+    with out:
         for dev, lo, hi in shares(devs, len(index)):
             # the share's blocks write the bytes [first, end) of the output (block
             # outputs ascend and do not overlap): it decodes into a buffer of
@@ -431,8 +429,7 @@ def mt_decode_torch(
             out_t, fin_t, cursor_t = _decode_share(stream, sub, states[lo:hi], fc[lo:hi], bits=bits, n=n,
                                                    length=end - first, dev=dev, layers=layers)
             with layer_clock(layers, "d2h", dev):
-                torch.from_numpy(out[first:end]).copy_(out_t)
-            written.append((first, end))
+                out.put(first, out_t)
         # the trailing partial group (fewer than n bytes) continues the chain of
         # the last block, where that block is coded; fin_t and cursor_t are the
         # last share's
@@ -444,8 +441,7 @@ def mt_decode_torch(
         with layer_clock(layers, "host_assemble", dev):
             for b in blocks:
                 if b.is_single:
-                    out[b.out_start : b.out_start + b.size] = b.symbol
-                    written.append((b.out_start, b.out_start + b.size))
+                    out.part(b.out_start, b.out_start + b.size)[:] = b.symbol
             if tail_from < length:
                 words = np.zeros(n, np.uint16)  # read as 0 past the block's words
                 got = stream[read_pos : min(read_pos + n, int(index[-1, 1]))]
@@ -454,10 +450,8 @@ def mt_decode_torch(
                 tail, _, _ = decode_tail_group(fin, words, 0, hist, n, tail_from, length)
                 perm = IDX2IDX[n]
                 sel = (tail_from + perm) < length
-                out[tail_from + perm[sel]] = tail[np.arange(n)[sel]]
-                written.append((tail_from, tail_from + n))
-            zero_outside(out, written)
-    finally:
-        with span("host_release"):  # the stream copy's pages, returned here rather than as the frame ends
-            del out, stream, blocks, indexed
-    return res
+                out.part(tail_from, tail_from + n)[perm[sel]] = tail[np.arange(n)[sel]]
+            out.close()
+    with span("host_release"):  # the stream copy's pages, returned here rather than as the frame ends
+        del stream, blocks, indexed
+    return out.result

@@ -24,7 +24,6 @@ through the scan encode kernel of `kernels/scan.py` instead
 from __future__ import annotations
 
 import functools
-import warnings
 
 import numpy as np
 import torch
@@ -34,7 +33,7 @@ from ..ops.mt import _as_array
 from ..ops.planner import BlockPlan
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
 from ..runtime import build
-from ..runtime.device import entry_span, fresh_output, layer_clock, resolve_all, shares, span
+from ..runtime.device import Output, entry_span, layer_clock, resolve_all, shares, span, tensor_of, to_card
 from .scan import encode_section_kernel
 from .tpx_decode import from_u32, to_u32
 
@@ -97,13 +96,13 @@ def magic_table() -> np.ndarray:
 @functools.cache
 def magic_tensor(dev: torch.device) -> torch.Tensor:
     """magic_table() as int32 (u32 bits) on `dev`, made once per device."""
-    return torch.from_numpy(magic_table().view(np.int32)).to(dev)
+    return to_card(magic_table(), dev)
 
 
 @functools.cache
 def shift_tensor(dev: torch.device) -> torch.Tensor:
     """shift_table() on `dev`, made once per device."""
-    return torch.from_numpy(shift_table()).to(dev)
+    return to_card(shift_table(), dev)
 
 
 def encode_blocks_plain(data, index, freqs, *, bits: int, n: int, rule: str, words_cap: int):
@@ -129,7 +128,7 @@ def encode_blocks_plain(data, index, freqs, *, bits: int, n: int, rule: str, wor
     e_t, cum_t, d_t, m_t, l_t = encode_tables(freqs, bits, rule)
     in_start, num_groups, byte_limit, valid_limit, _ = (c[:, None] for c in index.unbind(1))
     byte_limit = torch.clamp(byte_limit, max=data.numel())
-    perm = torch.from_numpy(IDX2IDX[n]).to(dev)[None, :]
+    perm = to_card(IDX2IDX[n], dev)[None, :]
     src = data.to(torch.int64) if data.numel() else torch.zeros(1, dtype=torch.int64, device=dev)
     for g in range(int(index[:, 1].max()) - 1, -1, -1):
         pos = in_start + g * n + perm
@@ -199,7 +198,7 @@ def scan_operands(data, index, freqs, n: int):
     start, num_groups, byte_limit, valid_limit = (index[:, c, None, None] for c in range(4))
     steps = int(index[:, 1].max())
     g = torch.arange(steps, device=dev)[None, :, None]
-    pos = start + g * n + torch.from_numpy(IDX2IDX[n]).to(dev)[None, None, :]
+    pos = start + g * n + to_card(IDX2IDX[n], dev)[None, None, :]
     src = data if data.numel() else torch.zeros(1, dtype=torch.uint8, device=dev)
     inside = (pos >= 0) & (pos < torch.clamp(byte_limit, max=data.numel()))
     group_bytes = torch.where(inside, src[torch.clamp(pos, 0, src.numel() - 1)], 0).to(torch.uint8)
@@ -316,14 +315,6 @@ def place_blocks(words, index, count, fin, freqs, place, *, n: int, out_u16: int
     return fn(words, index, count, fin, freqs, place, n=n, out_u16=out_u16)
 
 
-def _input_tensor(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """The input on `dev`, without a host copy where it is contiguous; it is
-    only read, so a read-only buffer (bytes) is taken as it is."""
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
-
-
 def plan_rows(arr: np.ndarray, plan: list[BlockPlan], bits: int, n: int, rule: str):
     """The host's walk of the plan: (kinds int8 [rows]: 0 empty part, 1
     single-symbol indicator, 2 coded block; coded rows' plan positions int64
@@ -380,15 +371,15 @@ def plan_freqs(data_t: torch.Tensor, ks: np.ndarray, index: np.ndarray, given: n
     if miss.size and miss.size == given.size:
         freqs_t = found  # no given freqs to send
     else:
-        freqs_t = torch.from_numpy(freqs.view(np.int16)).to(dev)
+        freqs_t = to_card(freqs, dev)
         if miss.size:
-            freqs_t[torch.from_numpy(miss).to(dev)] = found
+            freqs_t[to_card(miss, dev)] = found
     # the partial last group of a non-final block: under "groups" its lanes
     # past byte_limit code the byte 0 up to the input's end (ops/mt.py::_lane_groups)
     start, num_groups, byte_limit, valid_limit = index[:, :4].T
     lanes = np.nonzero(byte_limit < np.minimum(start + num_groups * n, valid_limit))[0]
     if lanes.size:
-        zero = freqs_t[torch.from_numpy(lanes).to(freqs_t.device), 0].cpu().numpy() == 0
+        zero = freqs_t[to_card(lanes, freqs_t.device), 0].cpu().numpy() == 0
         if zero.any():
             raise ValueError(
                 f"plan row {int(ks[lanes[np.argmax(zero)]])}: its last group's lanes past the block's end code "
@@ -402,7 +393,7 @@ def plan_operands(arr: np.ndarray, plan: list[BlockPlan], bits: int, n: int, rul
     freqs uint16 [nb, 256], offset bias) of `plan_rows`, every coded row's
     freqs filled in on the CPU (`plan_freqs`, whose checks it makes)."""
     kinds, ks, index, given, freqs, bias = plan_rows(arr, plan, bits, n, rule)
-    freqs_t = plan_freqs(_input_tensor(arr, torch.device("cpu")), ks, index, given, freqs, bits, n)
+    freqs_t = plan_freqs(tensor_of(arr), ks, index, given, freqs, bits, n)
     return kinds, ks, index, freqs_t.numpy().view(np.uint16), bias
 
 
@@ -450,7 +441,7 @@ def encode_plan(
     at n = 32 and 64 (`encode_blocks`) and by the scan encode kernel at
     n = 16 (`encode_blocks_scan`); the words, counts and states are gathered
     in order on the first device, which writes the blob (`place_blocks`),
-    copied from it once, into the `bytes` returned (`fresh_output`).
+    copied from it once, into the `bytes` returned (`Output`).
     The bytes do not depend on the split.  With `layers`, the host's walk
     of the plan counts as host_index and those histograms as
     kernel_hist."""
@@ -468,8 +459,8 @@ def encode_plan(
         sub = index[lo:hi].copy()
         sub[:, 4] -= index[lo - 1, 4] if lo else 0
         with layer_clock(layers, "h2d", d):
-            data_t = _input_tensor(arr, d)
-            index_t = torch.from_numpy(sub).to(d)
+            data_t = to_card(arr, d)
+            index_t = to_card(sub, d)
         with layer_clock(layers, "kernel_hist", d):
             freqs_t = plan_freqs(data_t, ks[lo:hi], sub, given[lo:hi], freqs[lo:hi], bits, n)
         with layer_clock(layers, "kernel_encode", d):
@@ -478,22 +469,19 @@ def encode_plan(
     if len(outs) > 1:
         with layer_clock(layers, "gather", dev):
             freqs_t, words_t, count_t, fin_t = (torch.cat([o[i].to(dev) for o in outs]) for i in range(4))
-            index_t = torch.from_numpy(index).to(dev)
+            index_t = to_card(index, dev)
     else:
         freqs_t, words_t, count_t, fin_t = outs[0]
     with layer_clock(layers, "host_layout", dev):
         place, out_u16 = part_layout(plan, kinds, ks, bias, count_t.cpu().numpy(), n, length)
-        place_t = torch.from_numpy(place).to(dev)
+        place_t = to_card(place, dev)
     with layer_clock(layers, "kernel_place", dev):
         blob_t = place_blocks(words_t, index_t, count_t, fin_t, freqs_t, place_t, n=n, out_u16=out_u16)
     with layer_clock(layers, "host_mux", dev):
-        res, blob = fresh_output(2 * out_u16)
-    try:
-        with layer_clock(layers, "d2h", dev):
-            torch.from_numpy(blob).copy_(blob_t)
-    finally:
-        del blob
-    return res
+        out = Output(2 * out_u16)
+    with out, layer_clock(layers, "d2h", dev):
+        out.put(0, blob_t)
+    return out.result
 
 
 def _kernel_block_ok(size: int) -> bool:

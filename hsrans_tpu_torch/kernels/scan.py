@@ -22,6 +22,7 @@ import torch
 
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX, encode_emit_point_16
 from ..runtime import build
+from ..runtime.device import to_card
 from .tpx_decode import from_u32, to_u32
 
 _M32 = 0xFFFFFFFF
@@ -61,7 +62,7 @@ def magic_quotient(x: np.ndarray, d: np.ndarray) -> np.ndarray:
 @functools.cache
 def magic_tensor(dev: torch.device) -> torch.Tensor:
     """magic_table() as int32 (u32 bits) on `dev`, made once per device."""
-    return torch.from_numpy(magic_table().view(np.int32)).to(dev)
+    return to_card(magic_table(), dev)
 
 
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -108,7 +109,7 @@ def decode_section_plain(states, stream, read_pos, tab_sym, tab_freq, tab_cumul,
     freq_t = tab_freq.to(torch.int64) & 0xFFFF
     cum_t = tab_cumul.to(torch.int64) & 0xFFFF
     vc = valid_counts.to(torch.int64)[:, None]
-    perm = torch.from_numpy(IDX2IDX[n]).to(dev)[None, :]
+    perm = to_card(IDX2IDX[n], dev)[None, :]
     mask = (1 << bits) - 1
     syms = torch.zeros((nb, num_steps, n), dtype=torch.uint8, device=dev)
     for g in range(num_steps):

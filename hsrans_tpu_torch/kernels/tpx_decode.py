@@ -17,7 +17,7 @@ import torch
 from ..ops.mt import _as_array
 from ..ops.tpx import L, TpxMega, tpx_parse
 from ..runtime import build
-from ..runtime.device import entry_span, fresh_output, layer_clock, resolve_all, shares, span, zero_outside
+from ..runtime.device import Output, entry_span, layer_clock, resolve_all, shares, span, table_to_card, to_card
 
 _M32 = 0xFFFFFFFF
 WARPS = 4  # rows (one warp each) of a CTA: csrc/tpx_common.cuh kWarps
@@ -167,19 +167,13 @@ def decode_mega_cuda(blob, desc, row_start, states, symtab, fctab, *, bits: int,
     _check_desc("decode_mega_cuda", desc, out_len, states.shape[0], symtab.shape[0])
     out = torch.empty(out_len, dtype=torch.uint8, device=dev)  # the kernel writes every u32
     if len(desc):
-        launch_decode(blob, desc_on(desc, dev), row_start, states, symtab, fctab, out, bits=bits, ctas=ctas_of(desc))
+        launch_decode(blob, table_to_card(desc, dev), row_start, states, symtab, fctab, out, bits=bits, ctas=ctas_of(desc))
     return out
 
 
 def ctas_of(desc: np.ndarray) -> int:
     """CTAs of a one-launch tpx kernel: ceil(rows / WARPS) for each mega."""
     return int((-(-desc[:, 1] // WARPS)).sum())
-
-
-def desc_on(desc: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """The host's mega descriptors on the card, copied from pinned memory
-    so that the host does not wait for the card."""
-    return torch.from_numpy(desc).pin_memory().to(dev, non_blocking=True)
 
 
 def launch_decode(blob, desc_t, row_start, states, symtab, fctab, out, *, bits: int, ctas: int) -> None:
@@ -230,9 +224,8 @@ def tpx_decode_torch(
     if tabs is None:
         return None
     with layer_clock(layers, "host_assemble", dev):
-        res, out = fresh_output(length)
-    try:
-        written = []
+        out = Output(length)
+    with out:
         for d, lo, hi in shares(devs, len(megas)):
             with layer_clock(layers, "host_tables", d):
                 # the share's megas that hold data, their output from its first byte
@@ -245,14 +238,11 @@ def tpx_decode_torch(
                 n_out = int(desc[:, 10].sum())
             with layer_clock(layers, "h2d", d):
                 share_tabs = (t[tab0[lo] : tab0[hi]] for t in tabs)
-                ops = [torch.from_numpy(a).to(d) for a in (buf, row_start, states.view(np.int32), *share_tabs)]
+                ops = [to_card(a, d) for a in (buf, row_start, states, *share_tabs)]
             with layer_clock(layers, "kernel", d):
                 got = decode_mega(ops[0], desc, *ops[1:], bits=p.bits, out_len=-(-n_out // 4) * 4)
             with layer_clock(layers, "d2h", d):
-                torch.from_numpy(out[base : base + n_out]).copy_(got[:n_out])
-            written.append((base, base + n_out))
+                out.put(base, got[:n_out])
         with layer_clock(layers, "host_assemble", dev):
-            zero_outside(out, written)
-    finally:
-        del out
-    return res
+            out.close()
+    return out.result

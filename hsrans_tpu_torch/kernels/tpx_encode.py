@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models.device_hist import segment_hists
+from ..ops.planner import plan_blocks
 from ..ops.reference import _as_array
 from ..ops.tpx import (
     DECODE_CONSUME_POINT_16,
@@ -30,13 +31,13 @@ from ..ops.tpx import (
     L,
     TpxParams,
     _mega_layout,
+    tpx_geometry,
     tpx_header,
-    tpx_plan_geometry,
 )
 from ..runtime import build
-from ..runtime.device import entry_span, fresh_output, layer_clock, resolve, resolve_all, shares, span
-from .mt_encode import _input_tensor, magic_tensor, shift_tensor
-from .tpx_decode import WARPS, ctas_of, desc_on, from_u32, to_u32
+from ..runtime.device import Output, entry_span, layer_clock, resolve, resolve_all, shares, span, table_to_card, to_card
+from .mt_encode import magic_tensor, shift_tensor
+from .tpx_decode import WARPS, ctas_of, from_u32, to_u32
 
 _M32 = 0xFFFFFFFF
 # columns of the int64 per-mega descriptor; csrc/tpx_encode.cu::EncodeMega
@@ -140,7 +141,7 @@ def encode_mega_cuda(data, desc, fc, m, l, *, bits: int):
     cnt = torch.empty(n_cnt, dtype=torch.int32, device=dev)
     states = torch.empty(n_rows * L, dtype=torch.int32, device=dev)
     if len(desc):
-        launch_encode(data, desc_on(desc, dev), fc, m, l, win, cnt, states, bits=bits, ctas=ctas_of(desc))
+        launch_encode(data, table_to_card(desc, dev), fc, m, l, win, cnt, states, bits=bits, ctas=ctas_of(desc))
     return win, cnt, states
 
 
@@ -260,7 +261,7 @@ def write_wire_plain(win, cnt, states, freqs, wdesc: np.ndarray, row_at: np.ndar
         w = win[cnt_off * L : (cnt_off + n) * L].view(n_tiles, steps, rows, L).permute(0, 2, 1, 3)
         words = torch.masked_select(w, lane < c[..., None]) & 0xFFFF  # rows back to back, (step, lane) order within
         tot = tot.reshape(-1).to(torch.int64)
-        start = torch.from_numpy(row_at[row0 : row0 + n_tiles * rows]).to(dev) - (torch.cumsum(tot, 0) - tot)
+        start = to_card(row_at[row0 : row0 + n_tiles * rows], dev) - (torch.cumsum(tot, 0) - tot)
         out[torch.arange(words.numel(), device=dev) + torch.repeat_interleave(start, tot)] = words
     return out.to(torch.int16).view(torch.uint8)
 
@@ -274,7 +275,7 @@ def write_wire_cuda(win, cnt, states, freqs, wdesc: np.ndarray, row_at: np.ndarr
     ctas = _check_wire("write_wire_cuda", win, cnt, states, freqs, wdesc, row_at, v3=v3, out_u16=out_u16)
     out = torch.empty(out_u16, dtype=torch.int16, device=dev)  # the kernel writes every u16 of the sections
     if len(wdesc):
-        launch_wire(win, cnt, states, freqs, desc_on(wdesc, dev), desc_on(row_at, dev), out, v3=v3, ctas=ctas)
+        launch_wire(win, cnt, states, freqs, table_to_card(wdesc, dev), table_to_card(row_at, dev), out, v3=v3, ctas=ctas)
     return out.view(torch.uint8)
 
 
@@ -368,7 +369,7 @@ def _encode_megas(
     run); on each, one launch of each histogram kernel, of the encode and
     of the wire writer for its share, and the shares' sections follow one
     another in mega order, each copied from its device once, into its
-    place in the `bytes` returned (`fresh_output`).  Bytes equal
+    place in the `bytes` returned (`Output`).  Bytes equal
     `hsrans_tpu.ops.tpx._encode_mega_into`'s mega by mega."""
     sections = []
     for dev, lo, hi in shares(devices, len(geoms)):
@@ -376,7 +377,7 @@ def _encode_megas(
         end = max(base + valid for base, *_, valid in geoms[lo:hi])
         share = [(base - first, *rest) for base, *rest in geoms[lo:hi]]
         with layer_clock(layers, "h2d", dev):
-            data = _input_tensor(arr[first:end], dev)
+            data = to_card(arr[first:end], dev)
         with layer_clock(layers, "kernel_hist", dev):
             desc, freqs_t, fc, m, l = mega_operands(data, share, bits=bits)  # the freqs stay on the card for the writer
         with layer_clock(layers, "kernel_encode", dev):
@@ -390,18 +391,15 @@ def _encode_megas(
             sections.append(write_wire(win, cnt, states, freqs_t, wdesc, row_at, v3=v3, out_u16=out_u16)[len(head) :])
     with layer_clock(layers, "host_mux", devices[0]):
         total = len(head) + sum(t.numel() for t in sections)
-        res, blob = fresh_output(total)
-        blob[: len(head)] = np.frombuffer(head, np.uint8)
-        blob[16:24] = np.array([total], "<u8").view(np.uint8)
-    try:
+        out = Output(total)
+        out.part(0, len(head))[:] = np.frombuffer(head[:16] + total.to_bytes(8, "little") + head[24:], np.uint8)
+    with out:
         at = len(head)
         for t in sections:
             with layer_clock(layers, "d2h", t.device):
-                torch.from_numpy(blob[at : at + t.numel()]).copy_(t)
+                out.put(at, t)
             at += t.numel()
-    finally:
-        del blob
-    return res
+    return out.result
 
 
 def wire_w_slots(max_words: int) -> int:
@@ -454,7 +452,7 @@ def tpx_encode_adaptive_torch(
     device_tables: bool = False,
 ) -> bytes:
     """Encode to the v3 adaptive wire (per-megablock geometry from
-    `tpx_plan_geometry`) on `device`; equal to the JAX package's
+    `tpx_geometry` of the native planner's rows) on `device`; equal to the JAX package's
     `ops.tpx.tpx_encode_adaptive` and `kernels.tpx_encode.tpx_encode_adaptive_tpu`.
     `layers` and `device_tables` as in tpx_encode_torch."""
     dev = resolve(device)
@@ -463,7 +461,7 @@ def tpx_encode_adaptive_torch(
     arr = _as_array(data)
     length = arr.size
     with span("host_geometry"):
-        geoms = tpx_plan_geometry(arr, bits)
+        geoms = tpx_geometry(length, plan_blocks(arr, bits, "mt", 64))
         g0 = geoms[0]
         head = MAGIC3 + length.to_bytes(8, "little") + bytes(8)
         head += b"".join(int(v).to_bytes(4, "little") for v in (bits, g0.rows, L, g0.steps, g0.n_tiles))

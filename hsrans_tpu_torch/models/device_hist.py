@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..runtime import build
-from ..runtime.device import layer_clock
+from ..runtime.device import layer_clock, pinned_table, table_to_card
 
 # bytes of a long segment that one CTA of the count kernel reads: 64 tpx
 # tiles of 4 MiB fill the card 16 times over
@@ -111,9 +111,9 @@ def observe_segments_cuda(data: torch.Tensor, starts: np.ndarray, ends: np.ndarr
     for any other tensor."""
     dev = build.check_cuda("observe_segments_cuda", data, uint8=(0,))
     _check_segments("observe_segments_cuda", data, starts, ends)
-    host = torch.empty((4, len(starts)), dtype=torch.int64, pin_memory=True)
+    host = pinned_table((4, len(starts)))
     _, n_short, chunks = segment_table(starts, ends, host.numpy())
-    return _count(data, host.to(dev, non_blocking=True), n_short, chunks)
+    return _count(data, table_to_card(host, dev), n_short, chunks)
 
 
 def _count(data: torch.Tensor, table_t: torch.Tensor, n_short: int, chunks: int) -> torch.Tensor:
@@ -336,12 +336,12 @@ def segment_hists(
         divisors = segment_divisors(starts, ends)
         _check_divisors("segment_hists", divisors)
     with layer_clock(split, "table", dev, "hist_table"):
-        host = torch.empty((5, divisors.size), dtype=torch.int64, pin_memory=True)  # the table's 4 columns, divisors
+        host = pinned_table((5, divisors.size))  # the table's 4 columns, divisors
         view = host.numpy()
         _, n_short, chunks = segment_table(starts, ends, view[:4])
         view[4] = divisors
     with layer_clock(split, "h2d", dev, "hist_h2d"):
-        both = host.to(dev, non_blocking=True)
+        both = table_to_card(host, dev)
     with layer_clock(split, "count", dev, "hist_count"):
         counts = _count(data, both[:4], n_short, chunks)
     with layer_clock(split, "normalize", dev, "hist_normalize"):

@@ -24,10 +24,8 @@ from ..kernels.scan import decode_section_kernel, encode_section_kernel
 from ..models.histogram import Hist, complete_hist
 from ..models.tables import make_dec3
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX, INV_IDX2IDX
-from ..runtime.device import entry_span, fresh_output, layer_clock, resolve, span
+from ..runtime.device import Output, entry_span, layer_clock, resolve, span, tensor_of, to_card
 from .reference import _as_array
-
-_STORAGE = {torch.uint32: torch.int32, torch.uint16: torch.int16}
 
 # The scan kernels' runs through `decode_section` and `encode_section` in
 # this process, by operation: the calls, the streams and the chain links
@@ -43,20 +41,10 @@ def _count(op: str, streams: int, num_steps: int) -> None:
     c["links"] += streams * num_steps
 
 
-def _tensor(x) -> torch.Tensor:
-    """A tensor, a numpy array or scalar as a tensor, u32 and u16 as int32
-    and int16 storage of the same bits."""
-    if not isinstance(x, torch.Tensor):
-        a = np.asarray(x)
-        x = torch.from_numpy(a if a.flags.c_contiguous else np.ascontiguousarray(a))
-    t = x
-    return t.view(_STORAGE[t.dtype]) if t.dtype in _STORAGE else t
-
-
 def _rows(x, lead: tuple[int, ...], nb: int, dev: torch.device) -> torch.Tensor:
     """A stream or a table as the kernels take it: one row a stream where
     it has the states' leading axes ([..., T] -> [B, T]), else shared [T]."""
-    t = _tensor(x).to(dev)
+    t = to_card(x, dev)
     if t.dim() == len(lead) + 1:
         return t.reshape(nb, t.shape[-1]).contiguous()
     if t.dim() != 1:
@@ -75,16 +63,16 @@ def decode_section(states, stream, read_pos, tab_sym, tab_freq, tab_cumul, valid
     or shared, valid_counts int32 [...] (or broadcast to it); numpy arrays
     are taken too.  Runs on the states' device (the CUDA kernel, or its
     plain version on the CPU); the contract is kernels/scan.py's."""
-    st = _tensor(states)
+    st = tensor_of(states)
     dev, lead, n = st.device, tuple(st.shape[:-1]), st.shape[-1]
     nb = math.prod(lead)
     _count("decode", nb, num_steps)
     syms, fin, pos = decode_section_kernel(
         st.to(torch.int32).reshape(nb, n).contiguous(),
         _rows(stream, lead, nb, dev),
-        _tensor(read_pos).to(dev, torch.int32).reshape(nb).contiguous(),
+        to_card(read_pos, dev).to(torch.int32).reshape(nb).contiguous(),
         *(_rows(t, lead, nb, dev) for t in (tab_sym, tab_freq, tab_cumul)),
-        torch.broadcast_to(_tensor(valid_counts).to(dev, torch.int32), lead).reshape(nb).contiguous(),
+        torch.broadcast_to(to_card(valid_counts, dev).to(torch.int32), lead).reshape(nb).contiguous(),
         bits=bits, num_steps=num_steps, tail=tail,
     )
     fin = fin.reshape(*lead, n)
@@ -101,14 +89,14 @@ def encode_section(states, group_bytes, valid, freq_tab, cumul_tab, *, bits: int
     [..., 256]; numpy arrays are taken too.  Runs on the states' device; the
     contract is kernels/scan.py's.  The forward wire stream is
     words[emit]."""
-    st = _tensor(states)
+    st = tensor_of(states)
     dev, lead, n = st.device, tuple(st.shape[:-1]), st.shape[-1]
     nb = math.prod(lead)
     _count("encode", nb, num_steps)
     words, emits, fin = encode_section_kernel(
         st.to(torch.int32).reshape(nb, n).contiguous(),
-        _tensor(group_bytes).to(dev).reshape(nb, num_steps, n).contiguous(),
-        _tensor(valid).to(dev, torch.bool).reshape(nb, num_steps, n).contiguous(),
+        to_card(group_bytes, dev).reshape(nb, num_steps, n).contiguous(),
+        to_card(valid, dev).to(torch.bool).reshape(nb, num_steps, n).contiguous(),
         *(_rows(t, lead, nb, dev) for t in (freq_tab, cumul_tab)),
         bits=bits, num_steps=num_steps,
     )
@@ -147,22 +135,8 @@ def raw_host_operands(length: int, hist: Hist, states: np.ndarray, buf: np.ndarr
     stream = np.zeros(word_bytes // 2 + 2 * n, dtype=np.uint16)
     stream[: word_bytes // 2] = buf[528 + 4 * n : 528 + 4 * n + word_bytes].view("<u2")
     tab = make_dec3(hist)
-    return (states.view(np.int32)[None], stream.view(np.int16), np.zeros(1, np.int32), tab["sym"],
-            tab["freq"].astype(np.uint16).view(np.int16), tab["cumul"].astype(np.uint16).view(np.int16),
-            np.array([length], np.int32))
-
-
-def raw_decode_operands(blob: bytes | np.ndarray, bits: int, n: int, dev: torch.device):
-    """The scan decode's operands of a raw 16w blob on `dev`: None where
-    `raw_parse` gives None, else (length, `raw_host_operands` on `dev`, or
-    None where length is 0)."""
-    parsed = raw_parse(blob, bits, n)
-    if parsed is None:
-        return None
-    length, hist, states, buf = parsed
-    if length == 0:
-        return length, None
-    return length, tuple(torch.from_numpy(a).to(dev) for a in raw_host_operands(length, hist, states, buf, n))
+    return (states[None], stream, np.zeros(1, np.int32), tab["sym"], tab["freq"].astype(np.uint16),
+            tab["cumul"].astype(np.uint16), np.array([length], np.int32))
 
 
 @entry_span
@@ -187,21 +161,19 @@ def raw_decode_torch(blob: bytes | np.ndarray, bits: int, n_lanes: int, device: 
     with layer_clock(layers, "host_tables", dev):
         host = raw_host_operands(length, hist, states, buf, n_lanes)
     with layer_clock(layers, "h2d", dev):
-        ops = tuple(torch.from_numpy(a).to(dev) for a in host)
-        inv = torch.from_numpy(INV_IDX2IDX[n_lanes]).to(dev)
+        ops = tuple(to_card(a, dev) for a in host)
+        inv = to_card(INV_IDX2IDX[n_lanes], dev)
     with layer_clock(layers, "kernel_scan", dev):
         syms, _, _ = decode_section(*ops, bits=bits, num_steps=-(-length // n_lanes), tail=True)
     with layer_clock(layers, "gather", dev):
         got = syms[0][:, inv].reshape(-1)[:length]
     with layer_clock(layers, "host_assemble", dev):
-        res, out = fresh_output(length)
-    try:
-        with layer_clock(layers, "d2h", dev):
-            torch.from_numpy(out).copy_(got)
-    finally:
-        with span("host_release"):  # the padded word stream's pages, returned here rather than as the frame ends
-            del out, host
-    return res
+        out = Output(length)
+    with out, layer_clock(layers, "d2h", dev):
+        out.put(0, got)
+    with span("host_release"):  # the padded word stream's pages, returned here rather than as the frame ends
+        del host
+    return out.result
 
 
 @entry_span
@@ -226,9 +198,9 @@ def raw_encode_torch(data: bytes | np.ndarray, hist: Hist, n_lanes: int, device:
         tabs = (hist.symbol_count.astype(np.uint16), hist.cumul.astype(np.uint16))
     if total:
         with layer_clock(layers, "h2d", dev):
-            src = torch.from_numpy(arr).to(dev)
-            perm = torch.from_numpy(IDX2IDX[n]).to(dev)
-            freq, cumul = (torch.from_numpy(t).to(dev) for t in tabs)
+            src = to_card(arr, dev)
+            perm = to_card(IDX2IDX[n], dev)
+            freq, cumul = (to_card(t, dev) for t in tabs)
         with layer_clock(layers, "gather", dev):
             padded = torch.zeros(total * n, dtype=torch.uint8, device=dev)
             padded[:length] = src
@@ -239,19 +211,16 @@ def raw_encode_torch(data: bytes | np.ndarray, hist: Hist, n_lanes: int, device:
             words, emits, states = encode_section(states, groups, valid, freq, cumul, bits=bits, num_steps=total)
         with layer_clock(layers, "gather", dev):
             kept = torch.masked_select(words.view(torch.int16), emits)
-        with layer_clock(layers, "d2h", dev):
-            stream = kept.cpu().numpy()
-            fin = states.cpu().numpy()
     else:
-        stream = np.zeros(0, dtype=np.int16)
-        fin = np.full(n, DECODE_CONSUME_POINT_16, dtype=np.int32)
+        kept = torch.zeros(0, dtype=torch.int16)
+        states = torch.full((n,), DECODE_CONSUME_POINT_16, dtype=torch.int32)
     with layer_clock(layers, "host_mux", dev):
-        out = bytearray()
-        out += int(length).to_bytes(8, "little")
-        out += b"\0" * 8
-        out += hist.symbol_count.astype("<u2").tobytes()
-        out += fin.astype("<i4").tobytes()
-        out += stream.astype("<i2").tobytes()
-        out[8:16] = len(out).to_bytes(8, "little")
-        res = bytes(out)
-    return res
+        # u64 length, u64 blob size, the 256 u16 freqs; then the n u32 states and the u16 words
+        size = 528 + 4 * n + 2 * kept.numel()
+        out = Output(size)
+        fields = (np.array([length, size], "<u8"), hist.symbol_count.astype("<u2"))
+        out.part(0, 528)[:] = np.concatenate([f.view(np.uint8) for f in fields])
+    with out, layer_clock(layers, "d2h", dev):
+        out.put(528, states.view(torch.uint8))
+        out.put(528 + 4 * n, kept.view(torch.uint8))
+    return out.result

@@ -20,6 +20,7 @@ import numpy as np
 
 from ..models.histogram import Hist, complete_hist, make_cumul_inv, normalize_hist, observe_hist
 from ..rans import encode_emit_point_16
+from .planner import plan_blocks_py
 
 _U32 = np.uint32
 
@@ -236,9 +237,15 @@ class MegaGeom:
 
 
 def tpx_plan_geometry(arr: np.ndarray, bits: int) -> list[MegaGeom]:
-    """Per-region geometry of the v3 wire: each run of similarly-sized
-    planner blocks becomes one megablock whose tile span tracks the block
-    size, with rows x steps from the table below (span = rows*steps*128).
+    """`tpx_geometry` of the Python planner's rows: the numpy tier's, no native library."""
+    return tpx_geometry(arr.size, plan_blocks_py(arr, bits, "mt", 64))
+
+
+def tpx_geometry(length: int, plan: list) -> list[MegaGeom]:
+    """Per-region geometry of the v3 wire over `length` bytes from the
+    planner's mt rows (n = 64): each run of similarly-sized planner blocks
+    becomes one megablock whose tile span tracks the block size, with rows
+    x steps from the table below (span = rows*steps*128).
 
       region block size   tile span   rows x steps
       >= 4 MiB              4 MiB     1024 x 32
@@ -246,12 +253,8 @@ def tpx_plan_geometry(arr: np.ndarray, bits: int) -> list[MegaGeom]:
       >= 256 KiB          256 KiB      256 x 8
       else                128 KiB      128 x 8
     """
-    from .planner import plan_blocks_py
-
-    length = arr.size
     if length == 0:
         return [MegaGeom(0, 8, 4, 1)]
-    plan = plan_blocks_py(arr, bits, "mt", 64)
 
     def geom_of(block_size: int) -> tuple[int, int]:
         if block_size >= 4 << 20:

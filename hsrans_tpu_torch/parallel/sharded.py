@@ -33,11 +33,11 @@ from ..kernels.scan import decode_section_kernel
 from ..models.histogram import complete_hist
 from ..models.tables import make_dec3
 from ..ops.mt import MtBlock, _as_array, block_index
-from ..ops.planner import BlockPlan, plan_blocks, plan_blocks_py
+from ..ops.planner import BlockPlan, plan_blocks
 from ..ops.tpx import make_tile_hist
 from ..rans import IDX2IDX, INV_IDX2IDX
 from ..runtime import native
-from ..runtime.device import entry_span, flatten_devices, resolve_all, shares, span
+from ..runtime.device import Output, entry_span, flatten_devices, resolve_all, shares, span, to_card
 
 
 def axis_size(devices) -> int:
@@ -151,12 +151,8 @@ def batch_operands(bb: BatchedBlocks, stream: np.ndarray, rows: slice, dev: torc
     """The scan decode's operands of the batch's `rows` on `dev`: states,
     the shared stream, read positions, the three tables, the sizes as valid
     counts."""
-    def on(a, dtype=None):
-        t = torch.from_numpy(np.ascontiguousarray(a[rows]))
-        return (t.view(dtype) if dtype is not None else t).to(dev)
-
-    return (on(bb.states, torch.int32), torch.from_numpy(stream.view(np.int16)).to(dev), on(bb.read_pos),
-            on(bb.tab_sym), on(bb.tab_freq, torch.int16), on(bb.tab_cumul, torch.int16), on(bb.sizes.astype(np.int32)))
+    return tuple(to_card(a, dev) for a in (bb.states[rows], stream, bb.read_pos[rows], bb.tab_sym[rows],
+                                           bb.tab_freq[rows], bb.tab_cumul[rows], bb.sizes[rows].astype(np.int32)))
 
 
 def _decode_batched(bb: BatchedBlocks, stream: np.ndarray, bits: int, devices: list[torch.device]) -> np.ndarray:
@@ -188,16 +184,15 @@ def scan_decode_blob(blob: bytes | np.ndarray, bits: int, n: int, devices: list[
     bb = gather_blocks(blocks, bits, n)
     if bb is None and any(not b.is_single for b in blocks):
         return None
-    out = np.zeros(length, dtype=np.uint8)
-    if bb is not None:
-        byte_mat = _decode_batched(bb, stream, bits, devices)[:, :, INV_IDX2IDX[n]].reshape(len(bb.sizes), -1)
-        for i in range(len(bb.sizes)):
-            size, start = int(bb.sizes[i]), int(bb.out_starts[i])
-            out[start : start + size] = byte_mat[i, :size]
-    for b in blocks:
-        if b.is_single:
-            out[b.out_start : b.out_start + b.size] = b.symbol
-    return out.tobytes()
+    with Output(length) as out:
+        if bb is not None:
+            byte_mat = _decode_batched(bb, stream, bits, devices)[:, :, INV_IDX2IDX[n]].reshape(len(bb.sizes), -1)
+            for row, size, start in zip(byte_mat, bb.sizes.tolist(), bb.out_starts.tolist()):
+                out.part(start, start + size)[:] = row[:size]
+        for b in blocks:
+            if b.is_single:
+                out.part(b.out_start, b.out_start + b.size)[:] = b.symbol
+    return out.result
 
 
 def mt_decode_device(
@@ -252,5 +247,5 @@ def mt_encode_device(
         raise ValueError("mt encode needs n in (16, 32, 64) and 1 <= bits <= 15")
     arr = _as_array(data)
     if plan is None:
-        plan = uniform_plan(arr, bits, n, uniform_block) if uniform_block else plan_blocks_py(arr, bits, "mt", n)
+        plan = uniform_plan(arr, bits, n, uniform_block) if uniform_block else plan_blocks(arr, bits, "mt", n)
     return encode_plan(arr, plan, bits, n, "section", devs)

@@ -8,13 +8,17 @@ Counterpart of `hsrans_tpu/runtime/device.py`.  Tiers:
 
 The numpy tier is the host codecs of `ops/` (`ops/tpx.py` for the tpx
 wire), reached by their own names.  Asking for `cuda` where there is no
-card raises: nothing here degrades silently to another tier.
+card raises: nothing here degrades silently to another tier.  Every byte
+that crosses between host and card crosses here: `to_card` (pageable, the
+host waits), `table_to_card` (a small int64 table from pinned memory, no
+host wait) and `Output` (a call's returned `bytes`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import time
+import warnings
 from contextlib import contextmanager
 from dataclasses import dataclass
 from functools import lru_cache, wraps
@@ -22,8 +26,12 @@ from functools import lru_cache, wraps
 import numpy as np
 import torch
 
-# outputs `fresh_output` made: how many, and their bytes
+# outputs `Output` made: how many, and their bytes
 OUTPUT_COUNTS = {"in_place": 0, "in_place_bytes": 0}
+
+# u32 and u16 data as the signed storage of the same bits that the kernels take
+_STORAGE = {np.dtype(np.uint32): np.int32, np.dtype(np.uint16): np.int16}
+_TORCH_STORAGE = {torch.uint32: torch.int32, torch.uint16: torch.int16}
 
 # the C API's own constructor and payload pointer, bound privately (the
 # interpreter's lock held), so no other user of ctypes.pythonapi is touched
@@ -158,6 +166,41 @@ def layer_clock(acc: dict[str, float] | None, key: str, dev: torch.device, name:
         acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
 
 
+def tensor_of(x) -> torch.Tensor:
+    """A tensor, or a numpy array or scalar, as a tensor where it lies, with
+    no host copy where it is contiguous (read-only memory taken as it is);
+    u32 and u16 data as int32 and int16 storage of the same bits."""
+    if isinstance(x, torch.Tensor):
+        return x.view(_TORCH_STORAGE[x.dtype]) if x.dtype in _TORCH_STORAGE else x
+    a = np.ascontiguousarray(x) if np.ndim(x) else np.asarray(x)
+    a = a.view(_STORAGE[a.dtype]) if a.dtype in _STORAGE else a
+    if a.flags.writeable:
+        return torch.from_numpy(a)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        return torch.from_numpy(a)
+
+
+def to_card(x, dev: torch.device) -> torch.Tensor:
+    """`x` (as `tensor_of` takes it) on `dev` by a pageable copy that the
+    host waits for; a tensor already there as it is."""
+    return tensor_of(x).to(dev)
+
+
+def pinned_table(shape) -> torch.Tensor:
+    """An int64 host table of `shape` in pinned memory, to fill in place
+    (through `.numpy()`) and send with `table_to_card`."""
+    return torch.empty(shape, dtype=torch.int64, pin_memory=True)
+
+
+def table_to_card(table, dev: torch.device) -> torch.Tensor:
+    """A small int64 table on `dev`, copied from pinned memory without a
+    host wait: a `pinned_table` as it is, a host array copied into pinned
+    memory first."""
+    t = table if isinstance(table, torch.Tensor) else torch.from_numpy(table).pin_memory()
+    return t.to(dev, non_blocking=True)
+
+
 class _Payload:
     """The payload of a `bytes` as a numpy array interface; the array made
     from it holds this object, and so the `bytes`, alive."""
@@ -169,30 +212,48 @@ class _Payload:
         }
 
 
-def fresh_output(n: int) -> tuple[bytes, np.ndarray]:
-    """A call's output, written once where it is returned: a new `bytes` of
-    `n` bytes whose contents are undefined, and a writable uint8 view of
-    its payload.  The caller writes every byte through the view, then drops
-    the view before it returns the `bytes`, on an error path too; nothing
-    may hash, share or return the `bytes` before it is full.  Nothing here
-    fills the payload (CPython writes only the object's header and the
-    trailing NUL), so the caller's copy is the first to touch its pages."""
-    OUTPUT_COUNTS["in_place"] += 1
-    OUTPUT_COUNTS["in_place_bytes"] += n
-    if n == 0:
-        return b"", np.zeros(0, np.uint8)
-    obj = _new_bytes(None, n)
-    return obj, np.asarray(_Payload(obj))
+class Output:
+    """A call's returned `bytes` of `n` bytes, written once, in place (its
+    payload unfilled until then; counted in `OUTPUT_COUNTS`): `put` copies a
+    tensor (the D2H) into its place, `part` hands out a range for the host
+    to write.  `close`, or leaving the `with` block, writes 0 where neither
+    reached; leaving it drops the view on every path.  Only after a block
+    that did not raise is the `bytes` its `result`."""
 
+    def __init__(self, n: int):
+        OUTPUT_COUNTS["in_place"] += 1
+        OUTPUT_COUNTS["in_place_bytes"] += n
+        self._res = _new_bytes(None, n)
+        self.view = np.asarray(_Payload(self._res))
+        self._ranges: list[tuple[int, int]] = []
 
-def zero_outside(view: np.ndarray, ranges) -> None:
-    """Write 0 to every byte of `view` that none of `ranges` ([start, end)
-    pairs, each clipped to the view) covers, and to no other byte: a fresh
-    output holds zeros where nothing else writes, as a zeroed buffer
-    would, without a pass over the bytes that are written."""
-    reach = 0  # every byte below it is covered by a range or zeroed
-    for start, end in sorted(ranges):
-        if start > reach:
-            view[reach:start] = 0
-        reach = max(reach, end)
-    view[reach:] = 0
+    def put(self, at: int, t: torch.Tensor) -> None:
+        """Copy uint8 `t` into the bytes [at, at + t.numel())."""
+        torch.from_numpy(self.part(at, at + t.numel())).copy_(t)
+
+    def part(self, start: int, end: int) -> np.ndarray:
+        """The bytes [start, end) (clipped to the output) as a writable view,
+        recorded as written: the caller writes every byte of it."""
+        self._ranges.append((start, end))
+        return self.view[max(start, 0) : max(end, 0)]
+
+    def close(self) -> None:
+        """Write 0 to every byte no range covers, drop the view; once."""
+        if self.view is None:
+            return
+        view, self.view = self.view, None
+        reach = 0  # every byte below it is covered by a range or zeroed
+        for start, end in sorted(self._ranges):
+            if start > reach:
+                view[reach:start] = 0
+            reach = max(reach, end)
+        view[reach:] = 0
+        self.result = self._res
+
+    def __enter__(self) -> Output:
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:
+            self.close()
+        self.view = self._res = None

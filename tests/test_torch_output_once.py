@@ -1,5 +1,5 @@
-"""The five benchmarked entry points write their output once, into the
-`bytes` they return (`runtime/device.py::fresh_output`), on the CPU tier.
+"""The seven card entry points write their output once, into the `bytes`
+they return (`runtime/device.py::Output`), on the CPU tier.
 
 A fresh output's contents are undefined, so every byte of it has to be
 written by the call: with every fresh output starting as 0xA5 instead of
@@ -9,6 +9,7 @@ to the authorities where they exist, and None exactly where it gave None
 `OUTPUT_COUNTS` counts one output a call, of the result's length."""
 
 import ctypes
+import sys
 from functools import cache
 
 import numpy as np
@@ -26,20 +27,16 @@ from hsrans_tpu_torch import (
     tpx_encode_adaptive_torch,
     tpx_encode_torch,
 )
-from hsrans_tpu_torch.kernels import mt_decode as pmd
-from hsrans_tpu_torch.kernels import mt_encode as pme
-from hsrans_tpu_torch.kernels import tpx_decode as ptd
-from hsrans_tpu_torch.kernels import tpx_encode as pte
-from hsrans_tpu_torch.ops import raw_scan
 from hsrans_tpu_torch.ops.mt import mt_decode_py, mt_encode_py
 from hsrans_tpu_torch.ops.planner import BlockPlan
+from hsrans_tpu_torch.ops.reference import raw_encode_16w
 from hsrans_tpu_torch.ops.tpx import make_tile_hist
-from hsrans_tpu_torch.parallel.sharded import device_plan
+from hsrans_tpu_torch.parallel.sharded import device_plan, scan_decode_blob
 from hsrans_tpu_torch.runtime import device
 from tools.gen_inputs import text_like
 
-# the modules whose entry points take their output from fresh_output
-WRITERS = (ptd, pmd, raw_scan, pte, pme)
+PAYLOAD = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.py_object)(("PyBytes_AsString", ctypes.pythonapi))
+NEW_BYTES = device._new_bytes  # the constructor every Output takes its `bytes` from
 SMALL = TpxParams(bits=12, rows=8, lanes=128, steps=8, tiles=2)  # several megas from a few KiB
 CUTS = (0, 7, 8, 15, 16, 43, 44, 100, 800, 1000, -1)
 UNKNOWN = object()  # no authority's answer for the case
@@ -97,7 +94,7 @@ def mt_blob(tail: bool, n: int) -> bytes:
 @cache
 def raw_blob(n: int) -> tuple[np.ndarray, bytes]:
     data = text_like(np.random.default_rng(40 + n), 5_001)
-    return data, raw_encode_torch(data, make_hist(data, 12), n, device="cpu")
+    return data, raw_encode_16w(data, make_hist(data, 12), n)
 
 
 def truncated(wire: str, cut: int) -> bytes:
@@ -154,6 +151,18 @@ def _cases() -> dict:
     for n in (16, 32, 64):
         cases[f"raw_decode.n{n}"] = (lambda n=n: raw_decode_torch(raw_blob(n)[1], 12, n, device="cpu"),
                                      lambda n=n: raw_blob(n)[0].tobytes())
+        cases[f"raw_encode.n{n}"] = (lambda n=n: raw_encode_torch(raw_blob(n)[0], make_hist(raw_blob(n)[0], 12), n,
+                                                                  device="cpu"),
+                                     lambda n=n: raw_encode_16w(raw_blob(n)[0], make_hist(raw_blob(n)[0], 12), n))
+    empty = np.zeros(0, np.uint8)
+    cases["raw_encode.empty"] = (lambda: raw_encode_torch(empty, make_hist(text(), 12), 64, device="cpu"),
+                                 lambda: raw_encode_16w(empty, make_hist(text(), 12), 64))
+    for tail in (True, False):
+        for n in (16, 64):
+            for k in (1, 2):
+                cases[f"scan_decode_blob.{'tail' if tail else 'singles'}.n{n}.split{k}"] = (
+                    lambda t=tail, n=n, k=k: scan_decode_blob(mt_blob(t, n), 12, n, ["cpu"] * k),
+                    lambda t=tail, n=n: mt_decode_py(mt_blob(t, n), 12, n))
     for k in (1, 3):
         cases[f"tpx_encode.split{k}"] = (lambda k=k: tpx_encode_torch(multi_mega(), p=SMALL, devices=["cpu"] * k),
                                          lambda: tpx_encode(multi_mega(), p=SMALL))
@@ -175,17 +184,16 @@ CASES = _cases()
 
 
 def filled_with(value: int):
-    def fresh(n: int):
-        res, view = device.fresh_output(n)
-        view[:] = value
-        return res, view
+    def new_bytes(_, n: int):
+        obj = NEW_BYTES(None, n)
+        ctypes.memset(PAYLOAD(obj), value, n)
+        return obj
 
-    return fresh
+    return new_bytes
 
 
 def run(monkeypatch, name: str, value: int):
-    for m in WRITERS:
-        monkeypatch.setattr(m, "fresh_output", filled_with(value))
+    monkeypatch.setattr(device, "_new_bytes", filled_with(value))
     return CASES[name][0]()
 
 
@@ -207,60 +215,89 @@ def test_every_byte_of_the_output_is_written(name, monkeypatch):
         assert mt_decode_py(poisoned, 12, 64) == data.tobytes()
 
 
-FIVE = {
+SEVEN = {
     "tpx_decode_torch": "tpx_decode.split3",
     "mt_decode_torch": "mt_decode.tail.n64.split3",
     "raw_decode_torch": "raw_decode.n64",
     "tpx_encode_torch": "tpx_encode.split3",
     "mt_encode_torch": "mt_encode.uniform.split2",
+    "raw_encode_torch": "raw_encode.n64",
+    "scan_decode_blob": "scan_decode_blob.tail.n16.split2",
 }
 
 
-@pytest.mark.parametrize("entry", list(FIVE))
+@pytest.mark.parametrize("entry", list(SEVEN))
 def test_output_counts_one_output_a_call(entry):
-    """A call, split over devices or not, takes one output from
-    fresh_output, of the result's length."""
+    """A call, split over devices or not, makes one Output, of the result's
+    length."""
     before = dict(device.OUTPUT_COUNTS)
-    res = CASES[FIVE[entry]][0]()
+    res = CASES[SEVEN[entry]][0]()
     assert {k: device.OUTPUT_COUNTS[k] - before[k] for k in before} == {"in_place": 1, "in_place_bytes": len(res)}
 
 
 def test_fresh_output_of_nothing_is_the_empty_bytes():
-    res, view = device.fresh_output(0)
-    assert res == b"" and type(res) is bytes and view.size == 0
+    with device.Output(0) as out:
+        assert out.view.size == 0
+    assert out.result == b"" and type(out.result) is bytes and out.view is None
 
 
 def test_a_filled_output_equals_and_hashes_like_a_copy():
-    res, view = device.fresh_output(1000)
-    view[:] = np.random.default_rng(2).integers(0, 256, 1000, dtype=np.uint8)
-    want = bytes(view.copy())
-    del view
+    with device.Output(1000) as out:
+        out.part(0, 1000)[:] = np.random.default_rng(2).integers(0, 256, 1000, dtype=np.uint8)
+        want = bytes(out.view.copy())
+    res = out.result
     assert type(res) is bytes and res == want and hash(res) == hash(want)
 
 
 def test_the_view_is_the_payload_and_holds_it():
     """The view's memory is the object's own payload (PyBytes_AsString), a
     write through it shows in the object, and the view holds the object."""
-    res, view = device.fresh_output(64)
-    payload = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.py_object)(("PyBytes_AsString", ctypes.pythonapi))
-    assert view.ctypes.data == payload(res) and view.flags.writeable and view.size == len(res) == 64
-    view[:] = 3
-    view[5] = 200
+    with device.Output(64) as out:
+        view = out.view
+        address, holder = view.ctypes.data, view.base
+        assert view.flags.writeable and view.size == 64
+        out.part(0, 64)[:] = 3
+        out.part(5, 6)[:] = 200
+        del view
+    res = out.result
+    assert address == PAYLOAD(res) and len(res) == 64
     assert res == bytes([3] * 5 + [200] + [3] * 58)
-    assert view.base.obj is res
+    assert holder.obj is res
 
 
 @pytest.mark.parametrize("seed", range(4))
 def test_zero_outside_writes_exactly_the_uncovered_bytes(seed):
-    """Against a loop over the ranges: ranges that overlap, nest, come in
-    any order, run past either end of the view or are empty."""
+    """Leaving the block writes 0 to exactly the bytes no range covered,
+    against a loop over the ranges: ranges that overlap, nest, come in any
+    order, run past either end of the output or are empty."""
     rng = np.random.default_rng(seed)
     for _ in range(500):
         size = int(rng.integers(0, 40))
         ranges = rng.integers(-5, 45, (int(rng.integers(0, 6)), 2))
-        view = np.full(size, 7, np.uint8)
         want = np.zeros(size, np.uint8)
-        for a, b in ranges:
-            want[max(a, 0) : max(b, 0)] = 7
-        device.zero_outside(view, ranges.tolist())
-        assert np.array_equal(view, want), (size, ranges)
+        with device.Output(size) as out:
+            out.view[:] = 7
+            for a, b in ranges.tolist():
+                want[max(a, 0) : max(b, 0)] = 7
+                assert out.part(a, b).size == max(0, min(b, size) - max(a, 0))
+        assert out.result == want.tobytes(), (size, ranges)
+
+
+def test_a_raising_body_releases_the_view_and_gives_no_bytes():
+    """A raise inside the block drops the view and the `bytes` (the payload
+    is freed, nothing holds it) and leaves no `result`."""
+    before = dict(device.OUTPUT_COUNTS)
+    out = device.Output(1 << 20)
+    holder = out.view.base
+    refs = sys.getrefcount(holder)
+    with pytest.raises(ValueError, match="inside"):
+        with out:
+            out.part(0, 10)[:] = 1
+            raise ValueError("inside")
+    assert out.view is None and not hasattr(out, "result")
+    assert sys.getrefcount(holder) == refs - 1  # the view was the only other reference
+    del out
+    obj = holder.obj
+    refs = sys.getrefcount(obj)
+    assert refs == 3  # `holder`, this name and the call's argument: nothing else holds the `bytes`
+    assert device.OUTPUT_COUNTS["in_place"] - before["in_place"] == 1

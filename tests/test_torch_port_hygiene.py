@@ -313,20 +313,41 @@ def test_entry_points_take_bytes_or_arrays():
 
 
 def test_entry_points_write_their_output_once():
-    """The five benchmarked entry points take their output from
-    `fresh_output` and make no second host copy of it (`tobytes`) on the
-    way out; tpx and mt encode through `_encode_megas` and `encode_plan`."""
+    """The seven card entry points take their output from `Output` and make
+    no second host copy of it (`tobytes`, `bytes(bytearray)`) on the way
+    out; tpx and mt encode through `_encode_megas` and `encode_plan`."""
     import inspect
 
     from hsrans_tpu_torch.kernels import mt_decode, mt_encode, tpx_decode, tpx_encode
     from hsrans_tpu_torch.ops import raw_scan
+    from hsrans_tpu_torch.parallel import sharded
 
     for fn in (tpx_decode.tpx_decode_torch, mt_decode.mt_decode_torch, raw_scan.raw_decode_torch,
-               tpx_encode._encode_megas, mt_encode.encode_plan):
+               tpx_encode._encode_megas, mt_encode.encode_plan, raw_scan.raw_encode_torch, sharded.scan_decode_blob):
         src = inspect.getsource(fn)
-        assert "fresh_output(" in src and "tobytes" not in src, fn.__name__
+        assert "Output(" in src and "tobytes" not in src and "bytearray" not in src, fn.__name__
     for fn in (tpx_encode.tpx_encode_torch, mt_encode.mt_encode_torch):
         assert "tobytes" not in inspect.getsource(fn), fn.__name__
+
+
+def test_only_the_device_module_crosses_between_host_and_card():
+    """No module of the port but `runtime/device.py` pins memory, copies
+    without a host wait, uploads a host array itself or copies a tensor
+    into a returned output: every such crossing goes through `to_card`,
+    `table_to_card` or `Output`.  The helpers these replaced are gone, and
+    the Python planner is called only as the native planner's fallback and
+    by the numpy tier's codecs, which load no native library."""
+    import re
+
+    banned = re.compile(r"pin_memory|non_blocking|fresh_output\(|zero_outside\(|\.copy_\(|from_numpy\([^\n]*\)\.to\("
+                        r"|\bdesc_on\b|\b_input_tensor\b|\braw_decode_operands\b")
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT).as_posix()
+        src = path.read_text()
+        if rel != "runtime/device.py":
+            assert not banned.search(src), (rel, banned.search(src).group(0))
+        if rel not in ("ops/planner.py", "ops/block.py", "ops/mt.py", "ops/tpx.py"):
+            assert "plan_blocks_py(" not in src, rel
 
 
 def test_layer_split_leaves_the_result_alone():
