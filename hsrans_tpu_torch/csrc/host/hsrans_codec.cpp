@@ -834,6 +834,110 @@ int64_t hsr_mt_decode(const uint8_t *blob, uint64_t size, uint8_t *out,
   return fail.load() ? -1 : (int64_t)length;
 }
 
+// The card decoder's operands of an mt blob (the port's
+// kernels/mt_decode.py), by one walk of the header chain over blob[16:]
+// read where it lies as u16 words: index [coded][5] (word_start, word_end,
+// out_start, out_limit, num_groups), states [coded][n], fc [coded][256]
+// (freq | cumul << 16) and single [singles][3] (out_start, size, symbol),
+// bit for bit what kernels/mt_decode.py::index_blocks + block_operands
+// build.  counts gets (length, coded, singles, 1 if the last block is
+// single-symbol).  A coded block's words end where the next header starts;
+// the last coded block's run to the end of the words.  Returns 0; -1 where
+// that pair gives None (a short blob, a total length past the blob, a
+// header past the words, a coded block other than the last whose words end
+// before they start, freqs not summing to 2^bits), for a length past
+// int64, where it raises, and for bits over 15 or n other than 32 and 64;
+// -2 where a table has fewer rows than counts gives: the walk ran to its
+// end and wrote only the rows that fit, so a caller may count with tables
+// of 0 rows, then walk again into tables of the size counted.
+// Bounds rule: unlike hsr_mt_decode, which refuses a coded header not
+// wholly inside the words, a header here only has to start 4 words before
+// their end, and any word past it reads as 0.
+int64_t hsr_mt_index(const uint8_t *blob, uint64_t size, uint32_t bits, uint32_t n, int64_t *index,
+                     uint32_t *states, uint32_t *fc, int64_t max_coded, int64_t *single, int64_t max_single,
+                     int64_t *counts) {
+  counts[0] = counts[1] = counts[2] = counts[3] = 0;
+  if (bits > 15 || (n != 32 && n != 64) || size < 16) return -1;
+  const uint64_t length = get_u64(blob);
+  if (get_u64(blob + 8) > size || length > (uint64_t)INT64_MAX) return -1;
+  const uint8_t *words = blob + 16;
+  const uint64_t nwords = (size - 16) / 2;
+  // words [at, at + count) into out, 0 past the end of the words
+  auto read = [&](uint64_t at, uint64_t count, void *out) {
+    const uint64_t have = at < nwords ? (nwords - at < count ? nwords - at : count) : 0;
+    if (have) memcpy(out, words + 2 * at, 2 * have);
+    memset((uint8_t *)out + 2 * have, 0, 2 * (count - have));
+  };
+  const uint64_t out_len_states = length + 1 > n ? length - n + 1 : 0;
+  int64_t nc = 0, ns = 0;
+  uint64_t i = 0, r = 0;
+  uint64_t prev_start = 0, prev_end = 0;  // the last coded block's word_start, and the next header's start
+  bool after_coded = false, last_single = false;
+  while (i < length) {
+    if (r + 4 > nwords) return -1;
+    if (after_coded) prev_end = r;
+    after_coded = false;
+    uint64_t val, offset;
+    read(r, 4, &val);
+    if (val & kSingleBit) {
+      const uint64_t bs = val & kSizeMask;
+      if (ns < max_single) {
+        int64_t *row = single + 3 * ns;
+        row[0] = (int64_t)i;
+        row[1] = (int64_t)bs;
+        row[2] = (int64_t)((val >> kSymShift) & 0xFF);
+      }
+      ns++;
+      i += bs;
+      r += 4;
+      last_single = true;
+      continue;
+    }
+    read(r + 4, 4, &offset);
+    const uint64_t states_pos = r + 8;
+    const uint64_t word_start = states_pos + 2ull * n + 256;
+    if (nc > 0) {  // the previous coded block is not the last: its words end here
+      if (prev_end < prev_start) return -1;
+      if (nc <= max_coded) index[5 * (nc - 1) + 1] = (int64_t)prev_end;
+    }
+    uint16_t freq[256];
+    read(word_start - 256, 256, freq);
+    uint32_t sum = 0;
+    for (uint32_t s = 0; s < 256; s++) sum += freq[s];
+    if (sum != 1u << bits) return -1;
+    if (nc < max_coded) {
+      const uint64_t bsize = val < length - i ? val : length - i;
+      const uint64_t end = i + bsize < out_len_states ? i + bsize : out_len_states;
+      int64_t *row = index + 5 * nc;
+      row[0] = (int64_t)word_start;
+      row[1] = (int64_t)nwords;
+      row[2] = (int64_t)i;
+      row[3] = (int64_t)(i + bsize);
+      row[4] = end > i ? (int64_t)((end - i + n - 1) / n) : 0;
+      read(states_pos, 2ull * n, states + (uint64_t)n * nc);  // u32 states: low word first
+      uint32_t *f = fc + 256ull * nc, cumul = 0;
+      for (uint32_t s = 0; s < 256; s++) {
+        f[s] = freq[s] | cumul << 16;
+        cumul += freq[s];
+      }
+    }
+    nc++;
+    prev_start = word_start;
+    after_coded = true;
+    last_single = false;
+    const bool is_last = i + val > out_len_states;
+    i += val;
+    if (is_last) break;
+    r = offset < nwords ? states_pos + offset + 1 : nwords;  // past the words either way where offset is
+  }
+  if (nc > 0 && nc <= max_coded && !last_single) index[5 * (nc - 1) + 3] = (int64_t)length;
+  counts[0] = (int64_t)length;
+  counts[1] = nc;
+  counts[2] = ns;
+  counts[3] = last_single;
+  return nc > max_coded || ns > max_single ? -2 : 0;
+}
+
 }  // extern "C"
 
 // --- rANS32x32 32blk (independent per-lane streams, 16w and 8w) -------------

@@ -2,11 +2,13 @@
 to PyTorch and CUDA (`csrc/mt_decode.cu`).
 
 It decodes the C++ reference's own mt wire (n = 32 or 64 lanes, B <= 15).
-The host walks the header chain (`..ops.mt.block_index`, the port's copy)
-and builds one small index row and one freq | cumul << 16 table row per
-coded block; the blob's u16 word region goes to the card as it is.  One
-launch decodes every coded symbol of the blob, each block's groups written
-straight to their output bytes.  The host then fills the single-symbol
+One native walk of the header chain over the blob where it lies
+(`..runtime.native.mt_index`) writes one small index row, the states and
+one freq | cumul << 16 table row per coded block; the blob's u16 word
+region goes to the card as it is.  `index_blocks` and `block_operands`,
+the same rows from `..ops.mt.block_index` in Python, are the tests' oracle
+for that walk.  One launch decodes every coded symbol of the blob, each
+block's groups written straight to their output bytes.  The host then fills the single-symbol
 blocks and decodes the trailing partial lane group (fewer than n bytes) from
 the last block's final states.  Unlike the JAX package, no coded block goes
 to a host decoder, so the work splits differently; the output bytes are the
@@ -34,7 +36,7 @@ from ..models.histogram import complete_hist
 from ..ops.mt import MtBlock, _as_array, block_index
 from ..ops.reference import decode_tail_group
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX
-from ..runtime import build
+from ..runtime import build, native
 from ..runtime.device import Output, entry_span, layer_clock, resolve_all, shares, span, to_card
 from .tpx_decode import from_u32, to_u32
 
@@ -304,7 +306,8 @@ def index_blocks(blob: bytes | np.ndarray, n: int) -> tuple[int, np.ndarray, lis
     decoder's `block_word_counts` for all of them but the last, whose words
     run to the stream's end as the JAX decoder reads them.  Returns (length,
     u16 stream, blocks, word counts of the coded blocks); None where either
-    step fails."""
+    step fails.  With `block_operands`, the tests' oracle for
+    `runtime/native.py::mt_index`, which `mt_decode_torch` calls."""
     idx = block_index(_as_array(blob), n)
     if idx is None:
         return None
@@ -323,7 +326,8 @@ def block_operands(
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
     """Kernel operands of the coded blocks: (index int64 [nb, 5], states
     uint32 [nb, n], fc uint32 [nb, 256]); None if a block's freqs do not sum
-    to 2^B.  Vectorized over blocks."""
+    to 2^B.  Vectorized over blocks.  With `index_blocks`, the tests' oracle
+    for `runtime/native.py::mt_index`."""
     coded = [b for b in blocks if not b.is_single]
     nb = len(coded)
     freqs = np.zeros((nb, 256), np.uint32)
@@ -358,14 +362,14 @@ def device_operands(stream: np.ndarray, index, states, fc, n: int, dev: torch.de
     return tuple(to_card(a, dev) for a in (stream[:nwords].view(np.uint8), index, states, fc))
 
 
-def _decode_share(stream: np.ndarray, index, states, fc, *, bits: int, n: int, length: int, dev: torch.device,
+def _decode_share(words: np.ndarray, index, states, fc, *, bits: int, n: int, length: int, dev: torch.device,
                   layers: dict[str, float] | None):
-    """One device's coded blocks (rows of block_operands, their outputs
+    """One device's coded blocks (rows of the blob's index, their outputs
     counted from the first block's) decoded on `dev` by the route
-    `_PAIR_V2` picks: (out uint8 [length], final states, words consumed),
-    tensors on `dev`."""
+    `_PAIR_V2` picks, `words` the blob's word region as bytes: (out uint8
+    [length], final states, words consumed), tensors on `dev`."""
     with layer_clock(layers, "h2d", dev):
-        args = device_operands(stream, index, states, fc, n, dev)
+        args = tuple(to_card(a, dev) for a in (words, index, states, fc))
     if _PAIR_V2:
         stream_t, index_t, states_t, fc_t = args
         with layer_clock(layers, "kernel_annotate", dev):
@@ -395,25 +399,19 @@ def mt_decode_torch(
     each share's byte range copied back to its place in the output; the
     bytes do not depend on the split.
     With `layers`, adds the seconds of each layer of this call to it
-    (host_index, host_tables, h2d, kernel, d2h, host_assemble, and
-    kernel_annotate on the annotated route), the device synchronized at
-    each boundary."""
+    (host_index, h2d, kernel, d2h, host_assemble, and kernel_annotate on
+    the annotated route), the device synchronized at each boundary."""
     devs = resolve_all(device, devices)
     dev = devs[-1]
     if bits > 15 or n not in (32, 64):
         return None
     with layer_clock(layers, "host_index", dev):
-        indexed = index_blocks(blob, n)
+        indexed = native.mt_index(blob, bits, n)
     if indexed is None:
         return None
-    length, stream, blocks, w_counts = indexed
+    length, words, index, states, fc, single, last_single = indexed
     if length == 0:
         return b""
-    with layer_clock(layers, "host_tables", dev):
-        ops = block_operands(length, stream, blocks, w_counts, bits, n)
-    if ops is None:
-        return None
-    index, states, fc = ops
     with layer_clock(layers, "host_assemble", dev):
         out = Output(length)
     with out:
@@ -426,32 +424,29 @@ def mt_decode_torch(
                 first = int(sub[0, 2]) if hi > lo else 0
                 end = max(first, min(int(sub[:, 3].max()), length)) if hi > lo else 0
                 sub[:, 2:4] -= first
-            out_t, fin_t, cursor_t = _decode_share(stream, sub, states[lo:hi], fc[lo:hi], bits=bits, n=n,
+            out_t, fin_t, cursor_t = _decode_share(words, sub, states[lo:hi], fc[lo:hi], bits=bits, n=n,
                                                    length=end - first, dev=dev, layers=layers)
             with layer_clock(layers, "d2h", dev):
                 out.put(first, out_t)
         # the trailing partial group (fewer than n bytes) continues the chain of
         # the last block, where that block is coded; fin_t and cursor_t are the
         # last share's
-        tail_from = int(index[-1, 2] + index[-1, 4] * n) if not blocks[-1].is_single else length
+        tail_from = int(index[-1, 2] + index[-1, 4] * n) if not last_single else length
         with layer_clock(layers, "d2h", dev):
             if tail_from < length:
                 fin = fin_t[-1].cpu().numpy().view(np.uint32)
                 read_pos = int(index[-1, 0]) + int(cursor_t[-1])
         with layer_clock(layers, "host_assemble", dev):
-            for b in blocks:
-                if b.is_single:
-                    out.part(b.out_start, b.out_start + b.size)[:] = b.symbol
+            for start, size, symbol in single.tolist():
+                out.part(start, start + size)[:] = symbol
             if tail_from < length:
-                words = np.zeros(n, np.uint16)  # read as 0 past the block's words
-                got = stream[read_pos : min(read_pos + n, int(index[-1, 1]))]
-                words[: got.size] = got
+                tail_words = np.zeros(n, np.uint16)  # read as 0 past the block's words
+                got = words.view("<u2")[read_pos : min(read_pos + n, int(index[-1, 1]))]
+                tail_words[: got.size] = got
                 hist = complete_hist((fc[-1] & 0xFFFF).astype(np.uint16), bits)
-                tail, _, _ = decode_tail_group(fin, words, 0, hist, n, tail_from, length)
+                tail, _, _ = decode_tail_group(fin, tail_words, 0, hist, n, tail_from, length)
                 perm = IDX2IDX[n]
                 sel = (tail_from + perm) < length
                 out.part(tail_from, tail_from + n)[perm[sel]] = tail[np.arange(n)[sel]]
             out.close()
-    with span("host_release"):  # the stream copy's pages, returned here rather than as the frame ends
-        del stream, blocks, indexed
     return out.result

@@ -4,14 +4,16 @@ The port's loader for its own copy of the JAX package's C++ host runtime,
 `csrc/host/` (`hsrans_native.cpp`: histograms, normalization, the block
 planner, FNV-1a; `hsrans_codec.cpp`: the raw, 32blk, block and mt codecs on
 AVX-512), the counterpart of `hsrans_tpu/runtime/native.py` with the same
-functions.  The copy differs from the original in two places:
+functions.  The copy differs from the original in three places:
 `hsr_blk32_decode` reads every word past a lane's payload as 0, as the
-numpy 32blk decoder does, where the original reads uninitialized slack; and
+numpy 32blk decoder does, where the original reads uninitialized slack;
 the planner, `hsr_plan_blocks` (and `hsr_plan_blocks_counted`, the same
 with its thread count and its byte counts), counts every `min_block` chunk
 once on the library's threads before its walk, which then reads each
 histogram from that table (the same rows), and sits beside
-`hsr_hist_spans`, many spans' histograms in one threaded call
+`hsr_hist_spans`, many spans' histograms in one threaded call; and
+`hsr_mt_index`, beside `hsr_mt_decode`, indexes an mt blob in place for
+the card decoder (`mt_index`)
 (`tests/test_torch_host_codecs.py` holds the rest of both files equal).
 
 `g++` builds both sources with the original's Makefile flags, at first use
@@ -36,6 +38,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -54,6 +57,12 @@ _lock = threading.Lock()
 # outside the chunk pass.  The chunk table's hit share is
 # 1 - edge_bytes / span_bytes.
 PLAN_COUNTS: dict[str, int] = {"native": 0, "python": 0, "span_bytes": 0, "edge_bytes": 0}
+
+# mt decode's native index (`mt_index`) in this process: its calls, those
+# whose word region goes on as it lies in the blob (`in_place`) or as one
+# aligned copy (`copied`, a region at an odd address), the coded and
+# single-symbol blocks indexed, and the blobs refused.
+MT_INDEX_COUNTS: dict[str, int] = {"calls": 0, "in_place": 0, "copied": 0, "coded": 0, "single": 0, "refused": 0}
 
 
 class PlanRow(ctypes.Structure):
@@ -137,6 +146,10 @@ def _bind(lib) -> None:
         getattr(lib, fn).argtypes = buf_sig
     lib.hsr_mt_decode.restype = ctypes.c_int64
     lib.hsr_mt_decode.argtypes = buf_sig + [ctypes.c_int32]
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.hsr_mt_index.restype = ctypes.c_int64
+    lib.hsr_mt_index.argtypes = [u8p, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32, i64p, u32p, u32p,
+                                 ctypes.c_int64, i64p, ctypes.c_int64, i64p]
 
 
 def load():
@@ -234,6 +247,66 @@ def plan_blocks(data: np.ndarray, bits: int, mode: str, state_count: int, thread
     PLAN_COUNTS["span_bytes"] += int(counted[0])
     PLAN_COUNTS["edge_bytes"] += int(counted[1])
     return rows[:n][::-1]
+
+
+class MtIndex(NamedTuple):
+    """An mt blob indexed for the card decoder (`mt_index`)."""
+
+    length: int  # the blob's raw length
+    words: np.ndarray  # uint8 [2 * nwords]: the blob's word region, at an even address
+    index: np.ndarray  # int64 [coded, 5], kernels/mt_decode.py's INDEX_FIELDS
+    states: np.ndarray  # uint32 [coded, n]
+    fc: np.ndarray  # uint32 [coded, 256], freq | cumul << 16
+    single: np.ndarray  # int64 [singles, 3]: out_start, size, symbol
+    last_single: bool  # the last block is single-symbol
+
+
+def mt_index(blob, bits: int, n: int) -> MtIndex | None:
+    """The card decoder's operands of an mt blob by a native walk of its
+    header chain (once to count the rows, once to write them), the blob
+    read where it lies: the rows
+    `kernels/mt_decode.py::index_blocks` + `block_operands` build (their
+    single-symbol blocks as the `single` table), and the word region the
+    kernel reads, a view of the blob unless it starts at an odd address,
+    then one aligned copy of it.  None where that pair gives None (and for
+    a length past int64, where it raises).  n is 32 or 64 and bits at most
+    15, else ValueError.  Counted in `MT_INDEX_COUNTS`."""
+    if n not in (32, 64) or not 0 <= bits <= 15:
+        raise ValueError(f"mt_index: n must be 32 or 64 and bits in 0..15, not n={n}, bits={bits}")
+    lib = load()
+    buf = _as_u8(blob)
+    MT_INDEX_COUNTS["calls"] += 1
+    counts = np.zeros(4, np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+
+    def walk(coded: int, singles: int):
+        """The tables (index, states, fc, single) of that many rows, and the
+        walk's return value."""
+        tables = (np.empty((coded, 5), np.int64), np.empty((coded, n), np.uint32), np.empty((coded, 256), np.uint32),
+                  np.empty((singles, 3), np.int64))
+        index, states, fc, single = tables
+        got = lib.hsr_mt_index(_u8p(buf), buf.size, bits, n, index.ctypes.data_as(i64p), _u32p(states), _u32p(fc),
+                               coded, single.ctypes.data_as(i64p), singles, counts.ctypes.data_as(i64p))
+        return tables, got
+
+    # the first walk counts the rows, the second writes them into tables of
+    # exactly that size (small enough to come from memory the process reuses)
+    tables, got = walk(0, 0)
+    if got == -2:
+        tables, got = walk(int(counts[1]), int(counts[2]))
+    if got < 0:
+        MT_INDEX_COUNTS["refused"] += 1
+        return None
+    length, coded, singles, last_single = (int(v) for v in counts)
+    words = buf[16 : 16 + 2 * ((buf.size - 16) // 2)]
+    if words.ctypes.data % 2:
+        words = words.copy()
+        MT_INDEX_COUNTS["copied"] += 1
+    else:
+        MT_INDEX_COUNTS["in_place"] += 1
+    MT_INDEX_COUNTS["coded"] += coded
+    MT_INDEX_COUNTS["single"] += singles
+    return MtIndex(length, words, *tables, bool(last_single))
 
 
 def hist_spans(data: np.ndarray, spans, bits: int, threads: int = 0) -> np.ndarray:

@@ -410,12 +410,22 @@ def _outside_planner(text: str) -> tuple[str, str]:
     return text[:start], text[text.index("// Thread pool (") :]
 
 
+def _without_mt_index(text: str) -> str:
+    """hsrans_codec.cpp less `hsr_mt_index` and the comment above it, the
+    copy's own function beside `hsr_mt_decode` (tests/test_torch_mt_index.py
+    holds it to its Python oracle)."""
+    start = text.index("// The card decoder's operands of an mt blob")
+    end = text.index("\n}\n", text.index("int64_t hsr_mt_index(")) + 3
+    assert text[end] == "\n"
+    return text[:start] + text[end + 1 :]
+
+
 def test_native_copy_equals_original_but_the_blk32_hunk():
     """`csrc/host/hsrans_native.cpp` is `native/hsrans_native.cpp` outside
     the planner's code, which the copy rewrote over a chunk table with the
     same rows (the planner tests hold them equal), and `hsrans_codec.cpp`
-    is the original with `BLK32_HUNKS` applied, each once: any other drift
-    fails."""
+    is the original with `BLK32_HUNKS` applied, each once, and with
+    `hsr_mt_index` added after `hsr_mt_decode`: any other drift fails."""
     host = REPO / "hsrans_tpu_torch" / "csrc" / "host"
     copy, original = (host / "hsrans_native.cpp").read_text(), (REPO / "native" / "hsrans_native.cpp").read_text()
     assert _outside_planner(copy) == _outside_planner(original)
@@ -424,7 +434,9 @@ def test_native_copy_equals_original_but_the_blk32_hunk():
     for old, new in BLK32_HUNKS:
         assert text.count(old) == 1 and "hsr_blk32_decode" in text[: text.index(old)]
         text = text.replace(old, new)
-    assert (host / "hsrans_codec.cpp").read_text() == text
+    codec = (host / "hsrans_codec.cpp").read_text()
+    assert codec.index("int64_t hsr_mt_decode(") < codec.index("int64_t hsr_mt_index(")
+    assert _without_mt_index(codec) == text
     assert not (host / "micro_decode.cpp").exists()
 
 

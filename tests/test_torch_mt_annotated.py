@@ -233,7 +233,7 @@ def test_layers_and_empty(annotated):
     blob = pmt.mt_encode_py(data, 12, 64)
     layers = {}
     assert mt_decode_torch(blob, 12, 64, device="cpu", layers=layers) == data.tobytes()
-    assert set(layers) == {"host_index", "host_tables", "h2d", "kernel_annotate", "kernel", "d2h", "host_assemble"}
+    assert set(layers) == {"host_index", "h2d", "kernel_annotate", "kernel", "d2h", "host_assemble"}
     runs = np.full(300_000, 42, np.uint8)
     assert mt_decode_torch(pmt.mt_encode_py(runs, 12, 64), 12, 64, device="cpu") == runs.tobytes()
     assert mt_decode_torch(pmt.mt_encode_py(b"", 12, 64), 12, 64, device="cpu") == b""

@@ -411,14 +411,20 @@ def test_malformed_none_where_pallas_none(bits, n):
 
 def test_layers_and_array_input():
     """`layers=` adds each layer's seconds and changes no byte; bytes and
-    uint8 arrays decode alike."""
+    uint8 arrays decode alike, one whose word region sits at an odd
+    address through one aligned copy of that region."""
     data = text_like(np.random.default_rng(2), 50_000)
     blob = pmt.mt_encode_py(data, 12, 64)
     layers = {}
     assert mt_decode_torch(blob, 12, 64, device="cpu", layers=layers) == data.tobytes()
-    assert set(layers) == {"host_index", "host_tables", "h2d", "kernel", "d2h", "host_assemble"}
+    assert set(layers) == {"host_index", "h2d", "kernel", "d2h", "host_assemble"}
     assert all(v >= 0 for v in layers.values())
     assert mt_decode_torch(np.frombuffer(blob, np.uint8), 12, 64, device="cpu") == data.tobytes()
+    odd = np.empty(len(blob) + 1, np.uint8)[1:]
+    odd[:] = np.frombuffer(blob, np.uint8)
+    copied = pn.MT_INDEX_COUNTS["copied"]
+    assert mt_decode_torch(odd, 12, 64, device="cpu") == data.tobytes()
+    assert odd.ctypes.data % 2 and pn.MT_INDEX_COUNTS["copied"] == copied + 1
     assert mt_decode_torch(pmt.mt_encode_py(b"", 12, 64), 12, 64, device="cpu") == b""
 
 
