@@ -29,15 +29,20 @@ import torch
 
 from ..kernels.mt_decode import mt_decode_torch
 from ..kernels.mt_encode import encode_plan
-from ..kernels.scan import decode_section_kernel
 from ..models.histogram import complete_hist
 from ..models.tables import make_dec3
 from ..ops.mt import MtBlock, _as_array, block_index
 from ..ops.planner import BlockPlan, plan_blocks
+from ..ops.raw_scan import decode_section
 from ..ops.tpx import make_tile_hist
 from ..rans import IDX2IDX, INV_IDX2IDX
 from ..runtime import native
-from ..runtime.device import Output, entry_span, flatten_devices, resolve_all, shares, span, to_card
+from ..runtime.device import Output, entry_span, flatten_devices, layer_clock, resolve_all, shares, span, to_card
+
+# mt_decode_device's calls by the route that answered ("none": no route
+# did), and route (c)'s coded and single-symbol blocks and the bytes of the
+# per-block tables it uploaded
+MT_DEVICE_COUNTS: dict[str, int] = {"a": 0, "b": 0, "c": 0, "none": 0, "coded": 0, "single": 0, "table_bytes": 0}
 
 
 def axis_size(devices) -> int:
@@ -155,7 +160,8 @@ def batch_operands(bb: BatchedBlocks, stream: np.ndarray, rows: slice, dev: torc
                                            bb.tab_freq[rows], bb.tab_cumul[rows], bb.sizes[rows].astype(np.int32)))
 
 
-def _decode_batched(bb: BatchedBlocks, stream: np.ndarray, bits: int, devices: list[torch.device]) -> np.ndarray:
+def _decode_batched(bb: BatchedBlocks, stream: np.ndarray, bits: int, devices: list[torch.device],
+                    layers: dict[str, float] | None = None) -> np.ndarray:
     """The scan decode of every block of the batch, `tail` on and each
     block's size its valid count: the batch split over the devices
     (`shares`, as the JAX package pads it to a multiple of the mesh axis and
@@ -163,68 +169,95 @@ def _decode_batched(bb: BatchedBlocks, stream: np.ndarray, bits: int, devices: l
     symbols gathered in order; uint8 [B, max_steps, n] in lane order."""
     out = []
     for dev, lo, hi in shares(devices, bb.states.shape[0]):
-        ops = batch_operands(bb, stream, slice(lo, hi), dev)
-        syms, _, _ = decode_section_kernel(*ops, bits=bits, num_steps=bb.max_steps, tail=True)
-        out.append(syms.cpu().numpy())
+        with layer_clock(layers, "h2d", dev):
+            ops = batch_operands(bb, stream, slice(lo, hi), dev)
+        MT_DEVICE_COUNTS["table_bytes"] += sum(t.numel() * t.element_size() for t in ops[3:6])
+        with layer_clock(layers, "kernel_scan", dev):
+            syms, _, _ = decode_section(*ops, bits=bits, num_steps=bb.max_steps, tail=True)
+        with layer_clock(layers, "d2h", dev):
+            out.append(syms.cpu().numpy())
     return np.concatenate(out)
 
 
-def scan_decode_blob(blob: bytes | np.ndarray, bits: int, n: int, devices: list[torch.device]) -> bytes | None:
+def scan_decode_blob(blob: bytes | np.ndarray, bits: int, n: int, devices: list[torch.device],
+                     layers: dict[str, float] | None = None) -> bytes | None:
     """The last step of mt_decode_device alone: the block index, every coded
     block batched through the scan decode on the shared stream, then the
     single-symbol blocks filled.  None where the header chain breaks or a
     coded block's freqs do not sum to 2^B (where the JAX package's
-    `mt_decode_device` gives zeros for the coded blocks instead)."""
-    idx = block_index(blob, n)
+    `mt_decode_device` gives zeros for the coded blocks instead).  With
+    `layers`, the seconds of host_index (the header walk), host_tables
+    (each coded block's tables), h2d, kernel_scan, d2h and host_assemble
+    (the lanes' un-permutation, the blocks' rows and the single-symbol
+    fills)."""
+    dev = devices[0]
+    with layer_clock(layers, "host_index", dev):
+        idx = block_index(blob, n)
     if idx is None:
         return None
     length, stream, blocks = idx
     if length == 0:
         return b""
-    bb = gather_blocks(blocks, bits, n)
-    if bb is None and any(not b.is_single for b in blocks):
+    with layer_clock(layers, "host_tables", dev):
+        bb = gather_blocks(blocks, bits, n)
+    singles = [b for b in blocks if b.is_single]
+    if bb is None and len(singles) < len(blocks):
         return None
-    with Output(length) as out:
-        if bb is not None:
-            byte_mat = _decode_batched(bb, stream, bits, devices)[:, :, INV_IDX2IDX[n]].reshape(len(bb.sizes), -1)
-            for row, size, start in zip(byte_mat, bb.sizes.tolist(), bb.out_starts.tolist()):
-                out.part(start, start + size)[:] = row[:size]
-        for b in blocks:
-            if b.is_single:
+    MT_DEVICE_COUNTS["coded"] += len(blocks) - len(singles)
+    MT_DEVICE_COUNTS["single"] += len(singles)
+    with layer_clock(layers, "host_assemble", dev):
+        out = Output(length)
+    with out:
+        syms = _decode_batched(bb, stream, bits, devices, layers) if bb is not None else None
+        with layer_clock(layers, "host_assemble", dev):
+            if syms is not None:
+                byte_mat = syms[:, :, INV_IDX2IDX[n]].reshape(len(bb.sizes), -1)
+                for row, size, start in zip(byte_mat, bb.sizes.tolist(), bb.out_starts.tolist()):
+                    out.part(start, start + size)[:] = row[:size]
+            for b in singles:
                 out.part(b.out_start, b.out_start + b.size)[:] = b.symbol
+            out.close()
     return out.result
 
 
+@entry_span
 def mt_decode_device(
     blob: bytes | np.ndarray,
     bits: int,
     n: int,
     device: str | torch.device = "cuda",
     devices: list | None = None,
+    layers: dict[str, float] | None = None,
 ) -> bytes | None:
     """Decode an mt blob (n in {16, 32, 64}) on `device`, or split over
     `devices`; `hsrans_tpu.parallel.sharded.mt_decode_device`'s chain:
 
       (a) n of 32 or 64 and B <= 15: `mt_decode_torch`, if it gives bytes;
-      (b) the native host decode (`runtime/native.py::mt_decode`, which
-          refuses n = 16 and B outside 10..15), if it gives bytes;
+      (b) n of 32 or 64 and B in 10..15: the native host decode
+          (`runtime/native.py::mt_decode`, which refuses every other n and
+          B), if it gives bytes;
       (c) `scan_decode_blob`: every coded block batched through the scan
           decode kernel.
 
     Equal to the JAX function's bytes, but None where a coded block's freqs
     do not sum to 2^B, as the host decoders give, where the JAX function
-    returns the coded blocks as zeros."""
+    returns the coded blocks as zeros.  Each call counts its route in
+    `MT_DEVICE_COUNTS` ("none" where it gives None).  With `layers`, adds
+    the seconds of each layer of this call to it: route (a)'s
+    (`mt_decode_torch`'s), and route (c)'s (`scan_decode_blob`'s)."""
     devs = resolve_all(device, devices)
+    out = None
     if n in (32, 64) and bits <= 15:
-        fast = mt_decode_torch(blob, bits, n, devices=devs)
-        if fast is not None:
-            return fast
-    host = native.mt_decode(blob, bits, n)
-    if host is not None:
-        return host
-    return scan_decode_blob(blob, bits, n, devs)
+        out, route = mt_decode_torch(blob, bits, n, devices=devs, layers=layers), "a"
+    if out is None and n in (32, 64) and 10 <= bits <= 15:
+        out, route = native.mt_decode(blob, bits, n), "b"
+    if out is None:
+        out, route = scan_decode_blob(blob, bits, n, devs, layers), "c"
+    MT_DEVICE_COUNTS["none" if out is None else route] += 1
+    return out
 
 
+@entry_span
 def mt_encode_device(
     data: bytes | np.ndarray,
     bits: int,
@@ -233,6 +266,7 @@ def mt_encode_device(
     uniform_block: int | None = None,
     device: str | torch.device = "cuda",
     devices: list | None = None,
+    layers: dict[str, float] | None = None,
 ) -> bytes:
     """Encode to the mt wire (n in {16, 32, 64}) with every coded block
     encoded from fresh states on `device`, or split over `devices`; equal
@@ -241,11 +275,12 @@ def mt_encode_device(
     `encode_plan`: the mt encode kernel at n = 32 and 64, the scan encode
     kernel at n = 16, then the placement kernel.  Without `plan`:
     `uniform_plan` blocks of `uniform_block` bytes if it is given, else the
-    reference planner's."""
+    reference planner's.  With `layers`, adds the seconds of each layer of
+    `encode_plan` to it."""
     devs = resolve_all(device, devices)
     if n not in IDX2IDX or not 1 <= bits <= 15:
         raise ValueError("mt encode needs n in (16, 32, 64) and 1 <= bits <= 15")
     arr = _as_array(data)
     if plan is None:
         plan = uniform_plan(arr, bits, n, uniform_block) if uniform_block else plan_blocks(arr, bits, "mt", n)
-    return encode_plan(arr, plan, bits, n, "section", devs)
+    return encode_plan(arr, plan, bits, n, "section", devs, layers)

@@ -16,7 +16,8 @@ from torch.profiler import ProfilerActivity, profile
 from hsrans_tpu_torch import make_hist, mt_decode_torch, mt_encode_torch, raw_decode_torch, raw_encode_torch
 from hsrans_tpu_torch import raw_decode_16w, raw_encode_16w, tpx_decode_torch, tpx_encode_adaptive_torch, tpx_encode_torch
 from hsrans_tpu_torch.ops import raw_scan
-from hsrans_tpu_torch.parallel.sharded import device_plan
+from hsrans_tpu_torch.parallel import sharded
+from hsrans_tpu_torch.parallel.sharded import device_plan, mt_decode_device, mt_encode_device
 from hsrans_tpu_torch.runtime.device import layer_clock
 
 
@@ -63,6 +64,23 @@ def raw_blob() -> bytes:
     return raw_encode_torch(raw_data(), hist(), 64, device="cpu")
 
 
+def mt16_data() -> bytes:
+    """The 16-state mt calls' input: one greedy block cut into four pieces
+    of 128 links each (the plain scans, like the raw calls', record one
+    group of torch ops a link)."""
+    return data()[:8192]
+
+
+@cache
+def plan16():
+    return device_plan(np.frombuffer(mt16_data(), np.uint8), 12, 16, MAX_BLOCK // 2)
+
+
+@cache
+def mt16_blob() -> bytes:
+    return mt_encode_device(mt16_data(), 12, 16, plan=plan16(), device="cpu")
+
+
 def rows(plan) -> list[tuple]:
     """A plan's rows as comparable tuples."""
     return [(r.start, r.size, r.is_single, r.symbol, None if r.freq is None else r.freq.tolist()) for r in plan]
@@ -78,6 +96,8 @@ CALLS = {
     "device_plan": lambda layers: rows(device_plan(np.frombuffer(data(), np.uint8), 12, 64, MAX_BLOCK)),
     "raw_encode_torch": lambda layers: raw_encode_torch(raw_data(), hist(), 64, device="cpu", layers=layers),
     "raw_decode_torch": lambda layers: raw_decode_torch(raw_blob(), 12, 64, device="cpu", layers=layers),
+    "mt_encode_device": lambda layers: mt_encode_device(mt16_data(), 12, 16, plan=plan16(), device="cpu", layers=layers),
+    "mt_decode_device": lambda layers: mt_decode_device(mt16_blob(), 12, 16, device="cpu", layers=layers),
 }
 # ranges a call must open beside the keys `layers=` reports
 MORE = {"device_plan": {"hsrans.plan_greedy", "hsrans.plan_hist"},
@@ -86,6 +106,10 @@ MORE = {"device_plan": {"hsrans.plan_greedy", "hsrans.plan_hist"},
 # the layers each raw entry point reports, and so the ranges it opens
 RAW_LAYERS = {"raw_encode_torch": {"host_layout", "h2d", "gather", "kernel_scan", "d2h", "host_mux"},
               "raw_decode_torch": {"host_parse", "host_tables", "h2d", "kernel_scan", "gather", "d2h", "host_assemble"}}
+# the layers of the 16-state mt device calls: encode_plan's, and the batched scan route's
+MT16_LAYERS = {"mt_encode_device": {"host_index", "h2d", "kernel_hist", "kernel_encode", "host_layout", "kernel_place",
+                                    "d2h", "host_mux"},
+               "mt_decode_device": {"host_index", "host_tables", "h2d", "kernel_scan", "d2h", "host_assemble"}}
 
 
 def expected(name: str):
@@ -202,3 +226,44 @@ def test_raw_bytes_unchanged_without_profiler_or_layers(n, monkeypatch):
     blob = raw_encode_torch(payload, h, n, device="cpu")
     assert blob == raw_encode_16w(payload, h, n)
     assert raw_decode_torch(blob, 12, n, device="cpu") == raw_decode_16w(blob, 12, n) == payload.tobytes()
+
+
+@pytest.mark.parametrize("name", list(MT16_LAYERS))
+def test_mt_device_entry_points_report_their_layers(name):
+    """At n = 16 `layers={}` gets exactly the call's layers and the same
+    bytes; under the profiler the call opens its root and a range for each
+    layer, and no other, the scan decode's launch under kernel_scan."""
+    want, layers = expected(name), {}
+    assert CALLS[name](layers) == want
+    assert set(layers) == MT16_LAYERS[name] and all(v >= 0 for v in layers.values())
+    out, got = profiled(name, None)
+    assert out == want
+    assert {r[0] for r in got} == {f"hsrans.{k}" for k in MT16_LAYERS[name]} | {f"hsrans.{name}"}
+    root = next(r for r in got if r[0] == f"hsrans.{name}")
+    assert all(root[1] <= r[1] and r[2] <= root[2] for r in got)
+    assert want == (mt16_blob() if name == "mt_encode_device" else mt16_data())
+
+
+def test_mt_device_counts_count_the_batched_scan_route():
+    """A 16-state decode takes route (c): one scan launch over every coded
+    block, each with its own table of 2^12 slots of 5 bytes, every block
+    max_steps links long; a 64-state blob takes route (a); a broken one
+    counts as none."""
+    rng = np.random.default_rng(26)
+    arr = np.concatenate([(rng.zipf(1.3, 1 << 16).clip(1, 60) + 32).astype(np.uint8), np.zeros(1 << 18, np.uint8),
+                          rng.integers(0, 256, 1 << 16).astype(np.uint8)])
+    layout = device_plan(arr, 12, 16, MAX_BLOCK)
+    coded, single = sum(not r.is_single for r in layout), sum(r.is_single for r in layout)
+    steps = max(-(-r.size // 16) for r in layout if not r.is_single)
+    blob = mt_encode_device(arr, 12, 16, plan=layout, device="cpu")
+    blob64 = mt_encode_torch(data(), 12, plan=plan(), device="cpu")
+    before = dict(sharded.MT_DEVICE_COUNTS), dict(raw_scan.SCAN_COUNTS["decode"])
+    assert mt_decode_device(blob, 12, 16, device="cpu") == arr.tobytes()
+    assert mt_decode_device(blob64, 12, 64, device="cpu") == data()
+    assert mt_decode_device(blob[:-1], 12, 16, device="cpu") is None
+    moved = {k: v - before[0][k] for k, v in sharded.MT_DEVICE_COUNTS.items()}
+    assert single >= 1 and coded >= 2
+    assert moved == {"a": 1, "b": 0, "c": 1, "none": 1, "coded": coded, "single": single,
+                     "table_bytes": coded * (1 << 12) * 5}
+    scanned = {k: v - before[1][k] for k, v in raw_scan.SCAN_COUNTS["decode"].items()}
+    assert scanned == {"calls": 1, "streams": coded, "links": coded * steps}
