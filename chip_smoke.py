@@ -1658,15 +1658,98 @@ def scan_check(kind: str, args: tuple, kw: dict) -> dict:
     return res
 
 
+# (block sizes, gaps before each block) of the placed decode's cases: sizes
+# off the lane grid, a block shorter than one group, an empty block, blocks
+# back to back and apart
+SCAN_PLACED_LAYOUTS = {
+    "mixed": ([5, 307, 1024, 1, 0, 700, 96], [0, 3, 17, 0, 9, 1, 40]),
+    "one stream": ([333], [11]),
+    "one short stream": ([7], [0]),
+}
+
+
+def scan_placed_operands(layout: str, n: int, bits: int, dev: torch.device):
+    """(decode operands, out_starts int64 [B], output length, num_steps) of
+    one SCAN_PLACED_LAYOUTS case on `dev`, made with numpy from a seed:
+    random states and a shared stream of random words read from random
+    positions (some past its end), each block's own table from a histogram
+    of enwik8-like text at `bits`, its size its valid count, its output
+    start after the gap before it, the output 13 bytes past the last
+    block."""
+    from hsrans_tpu_torch.models.histogram import complete_hist, normalize_hist, observe_hist
+    from hsrans_tpu_torch.models.tables import make_dec3
+    from tools.gen_inputs import text_like
+
+    sizes, gaps = SCAN_PLACED_LAYOUTS[layout]
+    rng = np.random.default_rng(1000 * bits + n + len(sizes))
+    nb, w = len(sizes), 4096
+    tabs = []
+    for _ in range(nb):
+        src = text_like(rng, int(rng.integers(2000, 20000)))
+        tabs.append(make_dec3(complete_hist(normalize_hist(observe_hist(src), src.size, bits).symbol_count, bits)))
+    starts = np.cumsum(gaps) + np.cumsum([0, *sizes[:-1]])
+    host = (
+        rng.integers(0, 1 << 32, (nb, n), dtype=np.uint64).astype(np.uint32).view(np.int32),
+        rng.integers(0, 1 << 16, w, dtype=np.uint32).astype(np.uint16).view(np.int16),
+        rng.integers(0, w + 64, nb).astype(np.int32),
+        np.stack([t["sym"] for t in tabs]).astype(np.uint8),
+        *(np.stack([t[k] for t in tabs]).astype(np.uint16).view(np.int16) for k in ("freq", "cumul")),
+        np.asarray(sizes, np.int32),
+    )
+    ops = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in host)
+    steps = max(-(-s // n) for s in sizes)
+    return ops, torch.from_numpy(starts.astype(np.int64)).to(dev), int(starts[-1]) + sizes[-1] + 13, steps
+
+
+def scan_placed_check(layout: str, n: int, bits: int, dev: torch.device) -> dict:
+    """The placed decode kernel against its plain version on one
+    SCAN_PLACED_LAYOUTS case, each into an output of 0xA5 (so a byte either
+    leaves unwritten or writes outside its blocks shows), and the lane-order
+    kernel against its plain version on the same operands; exact."""
+    ops, starts, length, steps = scan_placed_operands(layout, n, bits, dev)
+    kw = {"bits": bits, "num_steps": steps, "tail": True}
+    return {"max_abs_err": placed_vs_plain(ops, starts, length, kw, f"{layout} n={n} B={bits}"),
+            "lane_order": scan_check("decode", ops, kw)["max_abs_err"]}
+
+
+def placed_vs_plain(ops: tuple, starts: torch.Tensor, length: int, kw: dict, what: str) -> int:
+    """The placed decode kernel and its plain version on the same operands,
+    each into its own `length`-byte output of 0xA5, compared whole (the
+    bytes between and past the blocks included) with the final states and
+    read positions; exact, raises where they differ."""
+    from hsrans_tpu_torch.kernels import scan
+
+    outs = [torch.full((length,), 0xA5, dtype=torch.uint8, device=ops[0].device) for _ in range(2)]
+    got = scan.decode_placed_cuda(*ops, starts, outs[0], **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err((outs[0], *got), (outs[1], *scan.decode_placed_plain(*ops, starts, outs[1], **kw)))
+    if err:
+        raise AssertionError(f"scan placed decode {what}: kernel differs from its plain version")
+    return err
+
+
 def scan_kernel_row(kind: str, args: tuple, kw: dict, symbols: int, dev: torch.device) -> dict:
     """The kernel at a main path's launch: against its plain version, timed
     through its wrapper (queued and host-paced), by its launch alone and
     over its chain's links (num_steps), beside the plain version and the
-    bound (a chain: the bound is the bytes and operations, not the links)."""
+    bound (a chain: the bound is the bytes and operations, not the links).
+    Kind "placed": the placed decode, args the decode operands, the int64
+    output starts and the uint8 output."""
     from hsrans_tpu_torch.kernels import scan
 
-    res = scan_check(kind, args, kw)
     steps = kw["num_steps"]
+    if kind == "placed":
+        res = {"max_abs_err": placed_vs_plain(args[:7], args[7], args[8].numel(), kw, "main path")}
+        wrapper, plain = scan.decode_placed_cuda, scan.decode_placed_plain
+        outs = wrapper(*args, **kw)
+        stride = args[3].shape[-1] if args[3].dim() == 2 else 0
+        launch = lambda: scan.launch_decode_placed(*args[:6], stride, *args[6:], *outs, **kw)  # noqa: E731
+        # every operand but the stream and the output, of which the words
+        # consumed and the symbols stored; the final states and positions
+        moved = (nbytes(*args[:8], *outs) - nbytes(args[1]) + 2 * int((outs[1].to(torch.int64) - args[2]).sum())
+                 + int(args[6].sum()))
+    else:
+        res = scan_check(kind, args, kw)
     if kind == "decode":
         wrapper, plain = scan.decode_section_cuda, scan.decode_section_plain
         outs = wrapper(*args, **kw)
@@ -1674,7 +1757,7 @@ def scan_kernel_row(kind: str, args: tuple, kw: dict, symbols: int, dev: torch.d
         launch = lambda: scan.launch_decode(*args[:6], stride, args[6], *outs, bits=kw["bits"], tail=kw["tail"])  # noqa: E731
         # every operand but the stream, of which the words consumed; the outputs
         moved = nbytes(*args, *outs) - nbytes(args[1]) + 2 * int((outs[2].to(torch.int64) - args[2]).sum())
-    else:
+    elif kind == "encode":
         wrapper, plain = scan.encode_section_cuda, scan.encode_section_plain
         outs = wrapper(*args, **kw)
         stride = 256 if args[3].dim() == 2 else 0
@@ -1685,7 +1768,7 @@ def scan_kernel_row(kind: str, args: tuple, kw: dict, symbols: int, dev: torch.d
         "ms_host_paced": cuda_ms(lambda: wrapper(*args, **kw), 5),
         **launch_times(launch, steps),
         "plain_ms": cuda_ms(lambda: plain(*args, **kw), 1),
-        **bound(moved, OPS_PER_SYMBOL[kind] * symbols),
+        **bound(moved, OPS_PER_SYMBOL["encode" if kind == "encode" else "decode"] * symbols),
         "streams": int(args[0].shape[0]), "lanes": int(args[0].shape[1]), "steps": steps,
         "bound_note": "a chain per stream: the links, not bytes or operations, set its time",
     }
@@ -1731,10 +1814,11 @@ def once_ms(fn) -> float:
 def scan_phases(repo: Path, dev: torch.device, ctx: dict, tpx_data: np.ndarray, tpx_blob: bytes) -> tuple[dict, dict]:
     """The XLA scan codecs and the device fan-out on the card: the two scan
     kernels against their plain versions (SCAN_EDGES at n = 16, 32, 64 and
-    B = 10, 12, 15), the raw wire's 64 MiB round trips, mt_decode_device's
+    B = 10, 12, 15; the placed decode on SCAN_PLACED_LAYOUTS), the raw wire's 64 MiB round trips, mt_decode_device's
     chain and the n=16 mt round trip at 64 MiB, the split over two devices,
     and malformed mt blobs.  Returns the kernel rows (at the n=16 round
-    trip's launches) and the launches of each path."""
+    trip's launches: route (c)'s placed decode as `scan_decode`, the
+    lane-order instance beside it) and the launches of each path."""
     from hsrans_tpu_torch import raw_decode_torch, raw_encode_torch, tpx_encode_torch
     from hsrans_tpu_torch.kernels import scan
     from hsrans_tpu_torch.kernels.mt_encode import plan_freqs, plan_rows, scan_operands
@@ -1760,6 +1844,11 @@ def scan_phases(repo: Path, dev: torch.device, ctx: dict, tpx_data: np.ndarray, 
         raise AssertionError(f"scan decode: streams read past their end {past}, some in each case expected")
     emit("scan_kernels_vs_plain", cases=len(cases), max_abs_err=max(c["max_abs_err"] for c in cases),
          streams_read_past_w=past, by_case={c: sum(r["case"] == c for r in cases) for c in SCAN_EDGES})
+    placed = [scan_placed_check(layout, n, bits, dev)
+              for layout in SCAN_PLACED_LAYOUTS for n in (16, 32, 64) for bits in (12, 15, 16)]
+    emit("scan_placed_vs_plain", cases=len(placed), max_abs_err=max(r["max_abs_err"] for r in placed),
+         lane_order_max_abs_err=max(r["lane_order"] for r in placed))
+    cases += [{"kind": "decode", "max_abs_err": max(r.values())} for r in placed]
 
     # 2. the raw wire: 64 MiB of enwik8-like text (seed 8) at B=12 and n = 64,
     #    32, 16, each one stream: a single chain of ceil(length / n) links.
@@ -1821,10 +1910,17 @@ def scan_phases(repo: Path, dev: torch.device, ctx: dict, tpx_data: np.ndarray, 
     step_c_s = time.perf_counter() - t0
     if build.LAUNCHES["scan_decode"] != 1:
         raise AssertionError(f"step (c): {build.LAUNCHES['scan_decode']} scan_decode launches, 1 expected")
-    _, stream, blocks = block_index(main_blob, 64)
-    bb_main = psh.gather_blocks(blocks, 12, 64)
-    step_c_row = scan_kernel_row("decode", psh.batch_operands(bb_main, stream, slice(None), dev),
-                                 {"bits": 12, "num_steps": bb_main.max_steps, "tail": True}, int(bb_main.sizes.sum()), dev)
+    def placed_args(blob: bytes, n: int) -> tuple[psh.BatchedBlocks, tuple]:
+        """Route (c)'s one launch on one device: its batch, and the placed
+        decode's operands with a fresh output over the batch's range."""
+        _, stream, blocks = block_index(blob, n)
+        bb = psh.gather_blocks(blocks, 12, n)
+        ops, starts, first, end = psh.placed_operands(bb, stream, slice(None), dev)
+        return bb, (*ops, starts, torch.empty(end - first, dtype=torch.uint8, device=dev))
+
+    bb_main, args = placed_args(main_blob, 64)
+    step_c_row = scan_kernel_row("placed", args, {"bits": 12, "num_steps": bb_main.max_steps, "tail": True},
+                                 int(bb_main.sizes.sum()), dev)
 
     # 4. n=16: mt_encode_device and mt_decode_device on 64 MiB of x-ray in
     #    uniform 64 KiB blocks (1,024 blocks x 4,096 groups), both scan
@@ -1852,13 +1948,15 @@ def scan_phases(repo: Path, dev: torch.device, ctx: dict, tpx_data: np.ndarray, 
     freqs_t = plan_freqs(data_t, ks, index, given, freqs, 12, 16)
     *eops, esteps = scan_operands(data_t, torch.from_numpy(index).to(dev), freqs_t, 16)
     rows = {"scan_encode": scan_kernel_row("encode", tuple(eops), {"bits": 12, "num_steps": esteps}, xray_data.size, dev)}
-    _, stream, blocks = block_index(blob16, 16)
-    bb = psh.gather_blocks(blocks, 12, 16)
-    rows["scan_decode"] = scan_kernel_row("decode", psh.batch_operands(bb, stream, slice(None), dev),
-                                          {"bits": 12, "num_steps": bb.max_steps, "tail": True}, xray_data.size, dev)
+    # route (c)'s launch as the path makes it (the placed decode), and the
+    # lane-order instance, which the raw wire launches, on the same operands
+    bb, args = placed_args(blob16, 16)
+    kw = {"bits": 12, "num_steps": bb.max_steps, "tail": True}
+    rows["scan_decode"] = scan_kernel_row("placed", args, kw, xray_data.size, dev)
+    rows["scan_decode_lane_order"] = scan_kernel_row("decode", args[:7], kw, xray_data.size, dev)
     for name in rows:
         rows[name]["max_abs_err"] = max([rows[name]["max_abs_err"], *(c["max_abs_err"] for c in cases
-                                                                       if c["kind"] == name[5:])])
+                                                                       if name.startswith(f"scan_{c['kind']}"))])
 
     # 5. the split over two devices (one card, named twice): the bytes of one,
     #    and each call's seconds on one device and on two (host clock, the

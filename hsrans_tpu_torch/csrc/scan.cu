@@ -8,6 +8,17 @@
 // They run the raw wire (raw_decode_jax / raw_encode_jax), the batched
 // decode behind parallel/sharded.py::mt_decode_device's last fallback, and
 // mt_encode_device at the lane counts the mt kernels do not take (n = 16).
+// The decode stores its symbols in one of two ways, an instance each:
+//   * lane order (hsr_scan_decode): XLA's [B, S, N] symbols, lane j of
+//     group g at (b, g, j), every lane of every group; the raw wire's;
+//   * placed (hsr_scan_decode_placed): stream b's symbol of lane j in group
+//     g goes to out[out_starts[b] + g*N + idx2idx[j]] (int64), the byte it
+//     codes, and only where the lane takes it (with `tail`, g*N +
+//     idx2idx[j] < valid_counts[b]), so the bytes [out_starts[b],
+//     out_starts[b] + valid_counts[b]) are each written once and no other;
+//     the mt wire's batched blocks (route (c)), which need no host
+//     un-permutation then.  A group's N stores cover N consecutive bytes,
+//     as the lane-order ones do.
 // The contracts are XLA's, bit for bit, including its edges:
 //   * an out-of-range gather does not read 0: a stream index at or past W
 //     reads 0xFFFF, one in [-W, 0) wraps to index + W (Python style), one
@@ -61,7 +72,8 @@
 //     at its offset and a consuming lane keeps it, so the warp never splits.
 //   * 32-bit offsets only on the link: the ring position, the tail index
 //     (a running int32 g*n + idx2idx[j]) and the read cursor; the row
-//     pointers are hoisted.  The symbol stores hang off the chain.
+//     pointers are hoisted.  The symbol stores hang off the chain; a placed
+//     store's address is the stream's output row plus the tail index.
 //
 // Encode: one thread a (stream, lane), the 128 / n streams of a CTA side by
 // side.
@@ -172,9 +184,11 @@ __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, uint32_
 }
 
 // N lanes a stream; kSmem: the tables staged in shared memory (B <=
-// kSmemMaxBits), else read through L1.  blockDim.x = 32 * warps: one warp
-// per CTA for per-stream tables in shared memory, kScanWarps otherwise.
-template <int N, bool kSmem>
+// kSmemMaxBits), else read through L1; kPlace: symbols to their output
+// bytes, out + out_starts[b] + (g*N + idx2idx[j]), else lane order into
+// syms [B, num_steps, N] (out_starts unread).  blockDim.x = 32 * warps: one
+// warp per CTA for per-stream tables in shared memory, kScanWarps otherwise.
+template <int N, bool kSmem, bool kPlace>
 __global__ void __launch_bounds__(kScanWarps * 32)
     scan_decode_kernel(const uint32_t* __restrict__ states, const uint16_t* __restrict__ stream,
                        long long stream_stride, long long w, const int32_t* __restrict__ read_pos,
@@ -182,7 +196,7 @@ __global__ void __launch_bounds__(kScanWarps * 32)
                        const uint16_t* __restrict__ tab_cumul, long long tab_stride, long long tab_len,
                        const int32_t* __restrict__ valid_counts, uint8_t* __restrict__ syms,
                        uint32_t* __restrict__ fin, int32_t* __restrict__ pos_out, int nb, int bits,
-                       long long num_steps, int tail) {
+                       long long num_steps, int tail, const long long* __restrict__ out_starts) {
   extern __shared__ __align__(16) uint8_t dsmem[];
   constexpr int K = N > 32 ? 2 : 1;  // lanes a thread
   const int warps = blockDim.x >> 5;
@@ -253,7 +267,9 @@ __global__ void __launch_bounds__(kScanWarps * 32)
   const int32_t vc = valid_counts[b];
   uint32_t st[K];
   int32_t gi[K];  // g*N + idx2idx[lane] in int32, as XLA computes it
-  uint8_t* o[K];
+  uint8_t* o[K];  // lane order: the lane's next symbol
+  uint8_t* row = nullptr;  // placed: the stream's first output byte
+  if constexpr (kPlace) row = syms + out_starts[b];
   bool has[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -289,8 +305,12 @@ __global__ void __launch_bounds__(kScanWarps * 32)
       take[k] = has[k] && (!tail || gi[k] < vc);
       cons[k] = take[k] && x[k] < kConsumePoint;
       bal[k] = __ballot_sync(kFullMask, cons[k]);
-      if (has[k]) *o[k] = static_cast<uint8_t>(sym);
-      o[k] += N;
+      if constexpr (kPlace) {
+        if (take[k]) row[static_cast<long long>(gi[k])] = static_cast<uint8_t>(sym);
+      } else {
+        if (has[k]) *o[k] = static_cast<uint8_t>(sym);
+        o[k] += N;
+      }
       gi[k] = static_cast<int32_t>(static_cast<uint32_t>(gi[k]) + N);
     }
     // every lane reads (no branch to reconverge); a consuming lane keeps the word
@@ -412,13 +432,13 @@ __global__ void __launch_bounds__(kEncodeThreads)
   fin[b * N + j] = st;
 }
 
-template <int N>
+template <int N, bool kPlace>
 int launch_decode(const void* states, const void* stream, long long stream_stride, long long w, const void* read_pos,
                   const void* tab_sym, const void* tab_freq, const void* tab_cumul, long long tab_stride,
                   long long tab_len, const void* valid_counts, void* syms, void* fin, void* pos_out, int nb, int bits,
-                  long long num_steps, int tail, cudaStream_t cs) {
+                  long long num_steps, int tail, const void* out_starts, cudaStream_t cs) {
   const bool smem_route = bits <= kSmemMaxBits;
-  const auto kernel = smem_route ? scan_decode_kernel<N, true> : scan_decode_kernel<N, false>;
+  const auto kernel = smem_route ? scan_decode_kernel<N, true, kPlace> : scan_decode_kernel<N, false, kPlace>;
   const bool own = tab_stride != 0;
   const int warps = smem_route && own ? 1 : kScanWarps;
   const size_t smem = static_cast<size_t>(warps) * kRing * sizeof(uint16_t) +
@@ -434,7 +454,7 @@ int launch_decode(const void* states, const void* stream, long long stream_strid
       static_cast<const int32_t*>(read_pos), static_cast<const uint8_t*>(tab_sym),
       static_cast<const uint16_t*>(tab_freq), static_cast<const uint16_t*>(tab_cumul), tab_stride, tab_len,
       static_cast<const int32_t*>(valid_counts), static_cast<uint8_t*>(syms), static_cast<uint32_t*>(fin),
-      static_cast<int32_t*>(pos_out), nb, bits, num_steps, tail);
+      static_cast<int32_t*>(pos_out), nb, bits, num_steps, tail, static_cast<const long long*>(out_starts));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -466,9 +486,27 @@ extern "C" int hsr_scan_decode(const void* states, const void* stream, long long
   if ((n != 16 && n != 32 && n != 64) || bits < 0 || bits > 31 || num_steps < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto cs = static_cast<cudaStream_t>(cuda_stream);
-  const auto go = n == 16 ? launch_decode<16> : n == 32 ? launch_decode<32> : launch_decode<64>;
+  const auto go = n == 16 ? launch_decode<16, false> : n == 32 ? launch_decode<32, false> : launch_decode<64, false>;
   return go(states, stream, stream_stride, w, read_pos, tab_sym, tab_freq, tab_cumul, tab_stride, tab_len,
-            valid_counts, syms, fin, pos_out, nb, bits, num_steps, tail, cs);
+            valid_counts, syms, fin, pos_out, nb, bits, num_steps, tail, nullptr, cs);
+}
+
+// hsr_scan_decode with each symbol placed: out (u8) takes stream b's symbol
+// of lane j in group g at out_starts[b] (int64 [nb]) + g*n + idx2idx[j],
+// where the lane takes it; out's other bytes are left as they are
+extern "C" int hsr_scan_decode_placed(const void* states, const void* stream, long long stream_stride, long long w,
+                                      const void* read_pos, const void* tab_sym, const void* tab_freq,
+                                      const void* tab_cumul, long long tab_stride, long long tab_len,
+                                      const void* valid_counts, const void* out_starts, void* out, void* fin,
+                                      void* pos_out, int nb, int n, int bits, long long num_steps, int tail,
+                                      void* cuda_stream) {
+  if (nb <= 0) return 0;
+  if ((n != 16 && n != 32 && n != 64) || bits < 0 || bits > 31 || num_steps < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto cs = static_cast<cudaStream_t>(cuda_stream);
+  const auto go = n == 16 ? launch_decode<16, true> : n == 32 ? launch_decode<32, true> : launch_decode<64, true>;
+  return go(states, stream, stream_stride, w, read_pos, tab_sym, tab_freq, tab_cumul, tab_stride, tab_len,
+            valid_counts, out, fin, pos_out, nb, bits, num_steps, tail, out_starts, cs);
 }
 
 // magic: [2^16] u32, kernels/scan.py::magic_table (the trailing argument)

@@ -10,7 +10,9 @@ bit, out-of-range gathers included (`csrc/scan.cu` lists it): a stream index
 at or past W reads 0xFFFF, one in [-W, 0) wraps, a table slot past the
 table's length reads 255 or 0xFFFF.  The encode kernel divides by a magic
 from `magic_table` (built here once a device), exact for every u32 state
-and every u16 freq.
+and every u16 freq.  The decode has a second instance, `decode_placed_*`,
+that writes each symbol to the output byte it codes in place of XLA's
+lane-order matrix.
 """
 
 from __future__ import annotations
@@ -219,6 +221,88 @@ def decode_section_kernel(states, stream, read_pos, tab_sym, tab_freq, tab_cumul
     fn = decode_section_plain if states.device.type == "cpu" else decode_section_cuda
     return fn(states, stream, read_pos, tab_sym, tab_freq, tab_cumul, valid_counts, bits=bits, num_steps=num_steps,
               tail=tail)
+
+
+def _check_tail_index(n: int, num_steps: int) -> None:
+    """The placed decode adds the int32 tail index g*N + IDX2IDX[N][j] to a
+    stream's start, so it must not wrap."""
+    if num_steps * n > 1 << 31:
+        raise ValueError("decode_placed: num_steps * N must stay within int32 (the tail index)")
+
+
+def decode_placed_plain(states, stream, read_pos, tab_sym, tab_freq, tab_cumul, valid_counts, out_starts, out, *,
+                        bits: int, num_steps: int, tail: bool):
+    """Plain PyTorch version of the placed decode kernel, on any device:
+    decode_section_plain, then stream b's symbol of lane j in group g
+    written to out[out_starts[b] + g*N + IDX2IDX[N][j]] where the lane takes
+    it (with `tail`, g*N + IDX2IDX[N][j] < valid_counts[b]; every lane
+    without).  out_starts int64 [B], out uint8 [L], written in place: the
+    bytes [out_starts[b], out_starts[b] + valid_counts[b]) with `tail`, and
+    no other.  Returns (final states int32 [B, N], read_pos int32 [B]);
+    raises where a byte to write lies outside `out`."""
+    n = states.shape[1]
+    _check_tail_index(n, num_steps)
+    gi = torch.arange(num_steps, device=out.device)[:, None] * n + to_card(IDX2IDX[n], out.device)[None, :]
+    at = out_starts.to(torch.int64)[:, None, None] + gi  # [B, S, N]
+    take = gi < valid_counts.to(torch.int64)[:, None, None] if tail else torch.ones_like(at, dtype=torch.bool)
+    at = at[take]
+    if at.numel() and (int(at.min()) < 0 or int(at.max()) >= out.numel()):
+        raise ValueError("decode_placed_plain: a placed symbol falls outside the output")
+    syms, fin, pos = decode_section_plain(states, stream, read_pos, tab_sym, tab_freq, tab_cumul, valid_counts,
+                                          bits=bits, num_steps=num_steps, tail=tail)
+    out[at] = syms[take]
+    return fin, pos
+
+
+def decode_placed_cuda(states, stream, read_pos, tab_sym, tab_freq, tab_cumul, valid_counts, out_starts, out, *,
+                       bits: int, num_steps: int, tail: bool):
+    """The placed decode kernel (`csrc/scan.cu`, `hsr_scan_decode_placed`)
+    on CUDA tensors; same contract as decode_placed_plain, but a byte to
+    write outside `out` is the caller's fault, not checked (the starts lie
+    on the card).  Raises for any other tensor."""
+    nb = states.shape[0] if states.dim() == 2 else -1
+    (tab_sym, tab_freq, tab_cumul), tab_stride = _shared_or_rows("decode_placed_cuda", (tab_sym, tab_freq, tab_cumul), nb)
+    dev = build.check_cuda("decode_placed_cuda", states, stream, read_pos, tab_sym, tab_freq, tab_cumul, valid_counts,
+                           out_starts, out, int16=(1, 4, 5), uint8=(3, 8), int64=(7,))
+    if states.dim() != 2 or states.shape[1] not in LANES or not 0 <= bits < 32 or num_steps < 0:
+        raise ValueError("decode_placed_cuda: states must be [B, N] with N in (16, 32, 64), bits in 0..31")
+    if read_pos.shape != (nb,) or valid_counts.shape != (nb,) or out_starts.shape != (nb,) or out.dim() != 1 or (
+        stream.dim() not in (1, 2) or (stream.dim() == 2 and stream.shape[0] != nb)
+    ):
+        raise ValueError("decode_placed_cuda: operand shapes do not match the stream count")
+    n = states.shape[1]
+    _check_tail_index(n, num_steps)
+    fin = torch.empty((nb, n), dtype=torch.int32, device=dev)
+    pos = torch.empty(nb, dtype=torch.int32, device=dev)
+    if nb:
+        launch_decode_placed(states, stream, read_pos, tab_sym, tab_freq, tab_cumul, tab_stride, valid_counts,
+                             out_starts, out, fin, pos, bits=bits, num_steps=num_steps, tail=tail)
+    return fin, pos
+
+
+def launch_decode_placed(states, stream, read_pos, tab_sym, tab_freq, tab_cumul, tab_stride: int, valid_counts,
+                         out_starts, out, fin, pos, *, bits: int, num_steps: int, tail: bool) -> None:
+    """One launch of the placed decode kernel into the outputs given (out
+    uint8 [L], fin int32 [B, N], pos int32 [B]), counted as a scan_decode
+    launch: the same kernel, another store.  decode_placed_cuda's checks are
+    the caller's."""
+    nb, n = fin.shape
+    w = stream.shape[-1]
+    build.launch(
+        "scan_decode", "hsr_scan_decode_placed", states.device,
+        states.data_ptr(), stream.data_ptr(), w if stream.dim() == 2 else 0, w, read_pos.data_ptr(),
+        tab_sym.data_ptr(), tab_freq.data_ptr(), tab_cumul.data_ptr(), tab_stride, tab_sym.shape[-1],
+        valid_counts.data_ptr(), out_starts.data_ptr(), out.data_ptr(), fin.data_ptr(), pos.data_ptr(), nb, n,
+        bits, num_steps, int(tail),
+    )
+
+
+def decode_placed_kernel(states, stream, read_pos, tab_sym, tab_freq, tab_cumul, valid_counts, out_starts, out, *,
+                         bits: int, num_steps: int, tail: bool):
+    """The placed kernel for CUDA operands, its plain version for CPU operands."""
+    fn = decode_placed_plain if states.device.type == "cpu" else decode_placed_cuda
+    return fn(states, stream, read_pos, tab_sym, tab_freq, tab_cumul, valid_counts, out_starts, out, bits=bits,
+              num_steps=num_steps, tail=tail)
 
 
 def encode_section_cuda(states, group_bytes, valid, freq_tab, cumul_tab, *, bits: int, num_steps: int):

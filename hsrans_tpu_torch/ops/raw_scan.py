@@ -10,7 +10,9 @@ lane groups gathered, coded and compacted on the card.  A raw blob is one
 stream, so its decode and its encode are each one chain of ceil(length / n)
 links (csrc/scan.cu).  Both open their root range and their layers'
 ranges under a profiler (`runtime/device.py`), the kernel's as
-`kernel_scan`; `SCAN_COUNTS` counts what the two sections ran.
+`kernel_scan`; `SCAN_COUNTS` counts what the two sections ran, and what
+`decode_placed` ran (the decode with each symbol stored at its output
+byte, which mt's batched blocks take).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from ..kernels.scan import decode_section_kernel, encode_section_kernel
+from ..kernels.scan import decode_placed_kernel, decode_section_kernel, encode_section_kernel
 from ..models.histogram import Hist, complete_hist
 from ..models.tables import make_dec3
 from ..rans import DECODE_CONSUME_POINT_16, IDX2IDX, INV_IDX2IDX
@@ -77,6 +79,20 @@ def decode_section(states, stream, read_pos, tab_sym, tab_freq, tab_cumul, valid
     )
     fin = fin.reshape(*lead, n)
     return syms.reshape(*lead, num_steps, n), fin.view(torch.uint32) if _is_u32(states) else fin, pos.reshape(lead)
+
+
+def decode_placed(states, stream, read_pos, tab_sym, tab_freq, tab_cumul, valid_counts, out_starts, out, *,
+                  bits: int, num_steps: int, tail: bool):
+    """The scan decode with each symbol placed: stream b's symbol of lane j
+    in group g goes to out[out_starts[b] + g*N + IDX2IDX[N][j]] (uint8 out,
+    int64 out_starts [B]) where the lane takes it, in place of
+    decode_section's lane-order matrix; no other byte of `out` is written.
+    The operands are the kernels' own ([B, ...] tensors on one device,
+    `kernels/scan.py`); returns (final states int32 [B, N], read_pos int32
+    [B]).  Counted in SCAN_COUNTS as a decode."""
+    _count("decode", states.shape[0], num_steps)
+    return decode_placed_kernel(states, stream, read_pos, tab_sym, tab_freq, tab_cumul, valid_counts, out_starts, out,
+                                bits=bits, num_steps=num_steps, tail=tail)
 
 
 def encode_section(states, group_bytes, valid, freq_tab, cumul_tab, *, bits: int, num_steps: int):

@@ -4,7 +4,8 @@
 `mt_decode_device` keeps the JAX package's chain step for step: the mt
 decode kernel (`mt_decode_torch`), then the native host decode
 (`runtime/native.py`), then every coded block batched through the
-scan decode kernel (`kernels/scan.py`) on the shared word stream.
+scan decode kernel (`kernels/scan.py`) on the shared word stream, each
+symbol stored at its output byte.
 `mt_encode_device` encodes every coded block from fresh states through
 `kernels/mt_encode.py::encode_plan`: the mt encode kernel at n = 32 and 64,
 the scan encode kernel at n = 16, one placement of the wire for both.
@@ -33,16 +34,18 @@ from ..models.histogram import complete_hist
 from ..models.tables import make_dec3
 from ..ops.mt import MtBlock, _as_array, block_index
 from ..ops.planner import BlockPlan, plan_blocks
-from ..ops.raw_scan import decode_section
+from ..ops.raw_scan import decode_placed
 from ..ops.tpx import make_tile_hist
-from ..rans import IDX2IDX, INV_IDX2IDX
+from ..rans import IDX2IDX
 from ..runtime import native
 from ..runtime.device import Output, entry_span, flatten_devices, layer_clock, resolve_all, shares, span, to_card
 
 # mt_decode_device's calls by the route that answered ("none": no route
-# did), and route (c)'s coded and single-symbol blocks and the bytes of the
-# per-block tables it uploaded
-MT_DEVICE_COUNTS: dict[str, int] = {"a": 0, "b": 0, "c": 0, "none": 0, "coded": 0, "single": 0, "table_bytes": 0}
+# did), and route (c)'s coded and single-symbol blocks, the bytes of the
+# per-block tables it uploaded and the coded blocks' bytes that the scan
+# decode wrote straight to their place in the output (all of them)
+MT_DEVICE_COUNTS: dict[str, int] = {"a": 0, "b": 0, "c": 0, "none": 0, "coded": 0, "single": 0, "table_bytes": 0,
+                                    "placed_bytes": 0}
 
 
 def axis_size(devices) -> int:
@@ -160,36 +163,51 @@ def batch_operands(bb: BatchedBlocks, stream: np.ndarray, rows: slice, dev: torc
                                            bb.tab_freq[rows], bb.tab_cumul[rows], bb.sizes[rows].astype(np.int32)))
 
 
-def _decode_batched(bb: BatchedBlocks, stream: np.ndarray, bits: int, devices: list[torch.device],
-                    layers: dict[str, float] | None = None) -> np.ndarray:
-    """The scan decode of every block of the batch, `tail` on and each
-    block's size its valid count: the batch split over the devices
+def placed_operands(bb: BatchedBlocks, stream: np.ndarray, rows: slice,
+                    dev: torch.device) -> tuple[tuple[torch.Tensor, ...], torch.Tensor, int, int]:
+    """The placed scan decode's operands of the batch's `rows` on `dev`:
+    batch_operands, the rows' output starts (int64) from the first row's,
+    and the output range [first, end) the rows code (block outputs ascend
+    and do not overlap)."""
+    first, end = int(bb.out_starts[rows][0]), int((bb.out_starts[rows] + bb.sizes[rows]).max())
+    return batch_operands(bb, stream, rows, dev), to_card(bb.out_starts[rows] - first, dev), first, end
+
+
+def _decode_batched(bb: BatchedBlocks, stream: np.ndarray, bits: int, devices: list[torch.device], out: Output,
+                    layers: dict[str, float] | None = None) -> None:
+    """The scan decode of every block of the batch into `out`, `tail` on and
+    each block's size its valid count: the batch split over the devices
     (`shares`, as the JAX package pads it to a multiple of the mesh axis and
-    shards it), one launch on each (the stream copied to every device), the
-    symbols gathered in order; uint8 [B, max_steps, n] in lane order."""
-    out = []
+    shards it), one launch on each (the stream copied to every device).
+    The share's blocks code the bytes [first, end) of the output (block
+    outputs ascend and do not overlap): the launch stores each symbol at its
+    byte of a buffer of that range on its device, which is copied to its
+    place in `out`.  The bytes between the share's blocks (single-symbol
+    blocks) are left for the caller to write after."""
     for dev, lo, hi in shares(devices, bb.states.shape[0]):
         with layer_clock(layers, "h2d", dev):
-            ops = batch_operands(bb, stream, slice(lo, hi), dev)
+            ops, starts, first, end = placed_operands(bb, stream, slice(lo, hi), dev)
         MT_DEVICE_COUNTS["table_bytes"] += sum(t.numel() * t.element_size() for t in ops[3:6])
         with layer_clock(layers, "kernel_scan", dev):
-            syms, _, _ = decode_section(*ops, bits=bits, num_steps=bb.max_steps, tail=True)
+            buf = torch.empty(end - first, dtype=torch.uint8, device=dev)
+            decode_placed(*ops, starts, buf, bits=bits, num_steps=bb.max_steps, tail=True)
         with layer_clock(layers, "d2h", dev):
-            out.append(syms.cpu().numpy())
-    return np.concatenate(out)
+            out.put(first, buf)
+        MT_DEVICE_COUNTS["placed_bytes"] += int(bb.sizes[lo:hi].sum())
 
 
 def scan_decode_blob(blob: bytes | np.ndarray, bits: int, n: int, devices: list[torch.device],
                      layers: dict[str, float] | None = None) -> bytes | None:
     """The last step of mt_decode_device alone: the block index, every coded
-    block batched through the scan decode on the shared stream, then the
-    single-symbol blocks filled.  None where the header chain breaks or a
-    coded block's freqs do not sum to 2^B (where the JAX package's
-    `mt_decode_device` gives zeros for the coded blocks instead).  With
-    `layers`, the seconds of host_index (the header walk), host_tables
-    (each coded block's tables), h2d, kernel_scan, d2h and host_assemble
-    (the lanes' un-permutation, the blocks' rows and the single-symbol
-    fills)."""
+    block batched through the scan decode on the shared stream, each symbol
+    stored by the kernel at its byte of the share's output range and each
+    range copied once to its place, then the single-symbol blocks filled.
+    None where the header chain breaks or a coded block's freqs do not sum
+    to 2^B (where the JAX package's `mt_decode_device` gives zeros for the
+    coded blocks instead).  With `layers`, the seconds of host_index (the
+    header walk), host_tables (each coded block's tables), h2d, kernel_scan,
+    d2h and host_assemble (the output's creation, the single-symbol fills
+    and its close)."""
     dev = devices[0]
     with layer_clock(layers, "host_index", dev):
         idx = block_index(blob, n)
@@ -208,12 +226,9 @@ def scan_decode_blob(blob: bytes | np.ndarray, bits: int, n: int, devices: list[
     with layer_clock(layers, "host_assemble", dev):
         out = Output(length)
     with out:
-        syms = _decode_batched(bb, stream, bits, devices, layers) if bb is not None else None
+        if bb is not None:
+            _decode_batched(bb, stream, bits, devices, out, layers)
         with layer_clock(layers, "host_assemble", dev):
-            if syms is not None:
-                byte_mat = syms[:, :, INV_IDX2IDX[n]].reshape(len(bb.sizes), -1)
-                for row, size, start in zip(byte_mat, bb.sizes.tolist(), bb.out_starts.tolist()):
-                    out.part(start, start + size)[:] = row[:size]
             for b in singles:
                 out.part(b.out_start, b.out_start + b.size)[:] = b.symbol
             out.close()

@@ -69,6 +69,8 @@ _SIGNATURES = {
     # states, stream, stream stride, stream words, read_pos, sym, freq, cumul tables, table stride, table length,
     # valid counts, symbols, final states, final read_pos, streams, n, bits, steps, tail, cuda stream
     "hsr_scan_decode": [_P, _P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P],
+    # as hsr_scan_decode, with the output starts (int64) before the output, which takes the placed symbols
+    "hsr_scan_decode_placed": [_P, _P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P],
     # states, group bytes, valid, freq, cumul tables, table stride, words, emits, final states, streams, n, bits,
     # emit point, steps, magic table, cuda stream
     "hsr_scan_encode": [_P, _P, _P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _LL, _LL, _P, _P],

@@ -506,6 +506,18 @@ def test_scan_kernels_equal_plain(cuda, case, n, bits):
         assert rows[0]["streams_read_past_w"] > 0
 
 
+@pytest.mark.parametrize("bits", (12, 15, 16))
+@pytest.mark.parametrize("n", (16, 32, 64))
+@pytest.mark.parametrize("layout", sorted(chip_smoke.SCAN_PLACED_LAYOUTS))
+def test_scan_placed_decode_equals_plain(cuda, layout, n, bits):
+    """The placed decode kernel == its plain version, into an output of 0xA5
+    that only its blocks' bytes leave, on the shared-memory route (B = 12,
+    15) and the L1 route (B = 16); the lane-order kernel on the same
+    operands still gives its plain version's bytes."""
+    row = chip_smoke.scan_placed_check(layout, n, bits, cuda)
+    assert row == {"max_abs_err": 0, "lane_order": 0}
+
+
 @pytest.mark.parametrize("n", (16, 32, 64))
 def test_raw_round_trip_equals_authority(cuda, n):
     """raw_encode_torch on the card == the JAX package's numpy raw wire and

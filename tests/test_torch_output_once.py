@@ -158,8 +158,8 @@ def _cases() -> dict:
     cases["raw_encode.empty"] = (lambda: raw_encode_torch(empty, make_hist(text(), 12), 64, device="cpu"),
                                  lambda: raw_encode_16w(empty, make_hist(text(), 12), 64))
     for tail in (True, False):
-        for n in (16, 64):
-            for k in (1, 2):
+        for n in (16, 32, 64):
+            for k in (1, 2, 3):
                 cases[f"scan_decode_blob.{'tail' if tail else 'singles'}.n{n}.split{k}"] = (
                     lambda t=tail, n=n, k=k: scan_decode_blob(mt_blob(t, n), 12, n, ["cpu"] * k),
                     lambda t=tail, n=n: mt_decode_py(mt_blob(t, n), 12, n))

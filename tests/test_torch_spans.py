@@ -247,13 +247,14 @@ def test_mt_device_entry_points_report_their_layers(name):
 def test_mt_device_counts_count_the_batched_scan_route():
     """A 16-state decode takes route (c): one scan launch over every coded
     block, each with its own table of 2^12 slots of 5 bytes, every block
-    max_steps links long; a 64-state blob takes route (a); a broken one
-    counts as none."""
+    max_steps links long, every coded byte placed by the kernel; a 64-state
+    blob takes route (a); a broken one counts as none."""
     rng = np.random.default_rng(26)
     arr = np.concatenate([(rng.zipf(1.3, 1 << 16).clip(1, 60) + 32).astype(np.uint8), np.zeros(1 << 18, np.uint8),
                           rng.integers(0, 256, 1 << 16).astype(np.uint8)])
     layout = device_plan(arr, 12, 16, MAX_BLOCK)
     coded, single = sum(not r.is_single for r in layout), sum(r.is_single for r in layout)
+    coded_bytes = sum(r.size for r in layout if not r.is_single)
     steps = max(-(-r.size // 16) for r in layout if not r.is_single)
     blob = mt_encode_device(arr, 12, 16, plan=layout, device="cpu")
     blob64 = mt_encode_torch(data(), 12, plan=plan(), device="cpu")
@@ -264,6 +265,6 @@ def test_mt_device_counts_count_the_batched_scan_route():
     moved = {k: v - before[0][k] for k, v in sharded.MT_DEVICE_COUNTS.items()}
     assert single >= 1 and coded >= 2
     assert moved == {"a": 1, "b": 0, "c": 1, "none": 1, "coded": coded, "single": single,
-                     "table_bytes": coded * (1 << 12) * 5}
+                     "table_bytes": coded * (1 << 12) * 5, "placed_bytes": coded_bytes}
     scanned = {k: v - before[1][k] for k, v in raw_scan.SCAN_COUNTS["decode"].items()}
     assert scanned == {"calls": 1, "streams": coded, "links": coded * steps}
